@@ -5,8 +5,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 
     python3 chip_smoke.py
 
-It builds ``src/repro_torch/kernels/csrc/assign.cu`` with ``nvcc``, holds
-every kernel entry point against its plain PyTorch version on the card,
+It builds ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc`` (one
+process per source, started together), holds every kernel entry point
+against its plain PyTorch version on the card, at the shapes the
+partitioner launches it with among others,
 drives ``partition(problem, method="geographer")`` at n = 2^22 points and
 k = 1024 blocks (unit and lognormal weights) plus the unfused and flat
 paths, checks determinism and agreement with the port's CPU path,
@@ -36,6 +38,7 @@ PHASES = ("card", "build", "kernels", "main", "paths", "agreement",
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12     # outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 MAIN_N = 1 << 22
@@ -92,22 +95,24 @@ def phase_card(torch, ctx):
 # ---------------------------------------------------------------------------
 
 def phase_build(torch, ctx):
-    from repro_torch.kernels.build import load_library
+    from repro_torch.kernels.build import build_libraries
     t0 = time.perf_counter()
-    lib = load_library()
-    wall = time.perf_counter() - t0
-    text = lib.ptxas_log
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
-    spills = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                        r"stores, (\d+) bytes spill loads", text)
-    spilled = [s for s in spills if int(s[1]) or int(s[2])]
-    entries = len(re.findall(r"Compiling entry function", text))
-    log("build", f"{lib.path.name}: {wall:.1f} s (nvcc {lib.build_seconds:.1f}"
-        f" s), {entries} kernels, max {max(regs, default=0)} registers, "
-        f"{len(spilled)} with spills")
-    for s in spilled:
-        log("build", f"  {s[0]} bytes stack frame, {s[1]} bytes spill "
-            f"stores, {s[2]} bytes spill loads")
+    libs = build_libraries()
+    log("build", f"{len(libs)} libraries in {time.perf_counter() - t0:.1f} s"
+        " (one nvcc per source, started together)")
+    for lib in libs.values():
+        text = lib.ptxas_log
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", text)
+        spilled = [s for s in spills if int(s[1]) or int(s[2])]
+        entries = len(re.findall(r"Compiling entry function", text))
+        log("build", f"{lib.path.name}: nvcc {lib.build_seconds:.1f} s, "
+            f"{entries} kernels, max {max(regs, default=0)} registers, "
+            f"{len(spilled)} with spills")
+        for s in spilled:
+            log("build", f"  {s[0]} bytes stack frame, {s[1]} bytes spill "
+                f"stores, {s[2]} bytes spill loads")
 
 
 # ---------------------------------------------------------------------------
@@ -142,6 +147,14 @@ def kernel_inputs(torch, sorted_, pts, ctr, infl, w, bp, bc):
     else:
         p, c, iv = _pad_inputs(pts, ctr, infl, bp, bc)
     return p, c, iv, ops._pad_rows(w, bp, 0.0).contiguous()
+
+
+def path_block_p() -> int:
+    """The point tile the partitioner passes every assign backend
+    (``BKMConfig.block_p``): the comparisons and timings at path shapes
+    use it, so they hold the kernel instance the paths launch."""
+    from repro_torch.core.balanced_kmeans import BKMConfig
+    return BKMConfig(k=MAIN_K).block_p
 
 
 def entry_points():
@@ -187,7 +200,16 @@ def moments_f64(torch, p, w, idx, best, kpad):
     return m.T
 
 
-def compare_case(torch, ctx, case):
+def best_second_err(torch, kb, ks, pb, ps) -> float:
+    """max |kernel - plain| over best and the finite seconds."""
+    err = float(torch.max(torch.abs(kb - pb)))
+    fin = torch.isfinite(ps)
+    if fin.any():
+        err = max(err, float(torch.max(torch.abs(ks[fin] - ps[fin]))))
+    return err
+
+
+def compare_case(torch, case):
     n, k, d, bp, bc = case["shape"]
     spread = case.get("spread", 1.0)
     far = spread > 1e6
@@ -213,9 +235,7 @@ def compare_case(torch, ctx, case):
                 check(bool(torch.isinf(ks[:n]).all()),
                       f"{name}: k == 1 must give second = +inf")
             fin = torch.isfinite(ps)
-            err = float(torch.max(torch.abs(kb - pb)))
-            if fin.any():
-                err = max(err, float(torch.max(torch.abs(ks[fin] - ps[fin]))))
+            err = best_second_err(torch, kb, ks, pb, ps)
             # 1e9-scale coordinates cancel catastrophically in the
             # expansion; there the check is for NaN and label corruption
             rtol = 1e-2 if far else BEST_RTOL
@@ -264,9 +284,6 @@ def compare_case(torch, ctx, case):
                     check(gap <= BF16_GAP_MAX,
                           f"{name} {case['shape']}: bf16 flip off a "
                           f"near-tie (gap {gap:.3g})")
-            if precision == "f32" and not far:
-                rec = ctx["kernels"].setdefault(name, {})
-                rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
             log("kernels", f"{name} n={n} k={k} d={d} bp={bp} bc={bc} "
                 f"{precision}{' far' if far else ''}: labels {agree:.6f}, "
                 f"max |err| {err:.3g}, moments rel {mom_rel:.3g}")
@@ -274,7 +291,8 @@ def compare_case(torch, ctx, case):
 
 def compare_backends(torch, case):
     """The registry adapters end to end on the card (sort, padding and
-    un-sort included) against the dense torch backend."""
+    un-sort included) against the dense torch backend, at the
+    partitioner's tiles."""
     from repro_torch.kernels.ops import assign_backend
     n, k, d, bp, bc = case["shape"]
     pts, ctr, infl, w = make_inputs(torch, n, k, d, seed=7 * n + k)
@@ -295,7 +313,32 @@ def compare_backends(torch, case):
             f"labels {agree:.6f}")
 
 
-def phase_kernels(torch, ctx, quick):
+def compare_scan(torch):
+    """The float64 prefix sum against numpy's cumsum (bit for bit: the
+    kernel adds in index order) and against its plain version,
+    ``torch.cumsum`` on the card, which adds in another order: both lie
+    within (n - 1) * 2^-53 of the exact sum of positive weights."""
+    import numpy as np
+    from repro_torch.kernels.scan import prefix_sum, prefix_sum_plain
+    for n, sigma in ((1, 0.5), (1000, 0.5), (2049, 2.0), (1 << 18, 0.5),
+                     (MAIN_N, 0.5)):
+        w = np.random.default_rng(n).lognormal(0.0, sigma, n)
+        x = torch.from_numpy(w).to(DEVICE)
+        got = prefix_sum(x)
+        plain = prefix_sum_plain(x)
+        torch.cuda.synchronize()
+        check(np.array_equal(got.cpu().numpy(), np.cumsum(w)),
+              f"prefix_sum n={n}: differs from np.cumsum")
+        rtol = 2 * n * 2.0 ** -53
+        err = float(torch.max(torch.abs(got - plain)))
+        check(torch.allclose(got, plain, rtol=rtol, atol=0.0),
+              f"prefix_sum n={n}: differs from torch.cumsum beyond {rtol:.3g}")
+        log("kernels", f"prefix_sum n={n}: equals np.cumsum bit for bit; "
+            f"max |err| against torch.cumsum {err:.3g}")
+
+
+def phase_kernels(torch, quick):
+    bp = path_block_p()
     cases = [
         {"shape": (2048, 32, 3, 256, 32), "bf16_rate": True},
         {"shape": (4096, 512, 2, 1024, 128)},
@@ -307,12 +350,20 @@ def phase_kernels(torch, ctx, quick):
         {"shape": (512, 9, 2, 256, 8), "spread": 1e9},   # far coordinates
         {"shape": (1000, 40, 3, 256, 32), "zero_tail": 0.25},
         {"shape": (9000, 200, 3, 4096, 128)},
+        # the shapes the flat (n=2^20, k=1024) and unfused (n=2^18, k=256)
+        # paths launch, at the partitioner's tile and at 256-point tiles
+        # (one point per thread over several center tiles)
+        {"shape": (1 << 20, MAIN_K, MAIN_D, bp, 128)},
+        {"shape": (1 << 20, MAIN_K, MAIN_D, 256, 128)},
+        {"shape": (1 << 18, 256, MAIN_D, bp, 128)},
+        {"shape": (1 << 18, 256, MAIN_D, 256, 128)},
     ]
     if not quick:
-        cases.append({"shape": (MAIN_N, MAIN_K, MAIN_D, 1024, 128)})
+        cases.append({"shape": (MAIN_N, MAIN_K, MAIN_D, bp, 128)})
     for case in cases:
-        compare_case(torch, ctx, case)
-    compare_backends(torch, {"shape": (5000, 100, 3, 1024, 128)})
+        compare_case(torch, case)
+    compare_backends(torch, {"shape": (5000, 100, 3, bp, 128)})
+    compare_scan(torch)
     log("kernels", "every entry point agrees with its plain version")
 
 
@@ -328,8 +379,9 @@ def sweeps_of(stats) -> int:
 
 def drive(torch, ctx, tag, problem, expect, **opts):
     """One counted run of ``partition()``: counts reset just before, read
-    just after; the kernel ``expect`` must have run every sweep and no
-    other kernel or plain version at all."""
+    just after. ``expect`` maps each kernel the run must launch to its
+    count (None: once a sweep); every other kernel and every plain version
+    must not have run at all."""
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
     from repro_torch.partition import partition
     torch.cuda.synchronize()
@@ -350,11 +402,13 @@ def drive(torch, ctx, tag, problem, expect, **opts):
     check(imb <= problem.epsilon + 1e-6,
           f"{tag}: imbalance {imb:.5f} > {problem.epsilon}")
     for name, count in counts.items():
-        want = sweeps if name == expect else 0
+        want = expect.get(name, 0)
+        want = sweeps if want is None else want
         check(count == want, f"{tag}: {name} ran {count} times, expected "
               f"{want}")
-    ctx["kernels"].setdefault(expect, {})["launches"] = counts[expect]
-    ctx["kernels"][expect]["path"] = tag
+    for name in expect:
+        ctx["kernels"].setdefault(name, {}).update(launches=counts[name],
+                                                   path=tag)
     return res
 
 
@@ -364,15 +418,16 @@ def phase_main(torch, ctx):
     rng = np.random.default_rng(0)
     pts = rng.uniform(0.0, 1.0, (MAIN_N, MAIN_D))
     prob = PartitionProblem(points=pts, k=MAIN_K, epsilon=EPS, seed=0)
-    first = drive(torch, ctx, "main", prob, "assign_reduce")
-    again = drive(torch, ctx, "main-repeat", prob, "assign_reduce")
+    first = drive(torch, ctx, "main", prob, {"assign_reduce": None})
+    again = drive(torch, ctx, "main-repeat", prob, {"assign_reduce": None})
     check(np.array_equal(first.labels, again.labels),
           "two identical main-path runs gave different labels")
     log("main", "two runs: labels bit-identical")
     w = np.random.default_rng(1).lognormal(0.0, 0.5, MAIN_N)
     wprob = PartitionProblem(points=pts, k=MAIN_K, weights=w, epsilon=EPS,
                              seed=0)
-    drive(torch, ctx, "main-weighted", wprob, "assign_reduce")
+    drive(torch, ctx, "main-weighted", wprob,
+          {"assign_reduce": None, "prefix_sum": 1})
     # the bootstrap on the card equals the host numpy bootstrap
     from repro_torch.core.sfc import (sfc_initial_centers,
                                       sfc_initial_centers_torch)
@@ -387,6 +442,17 @@ def phase_main(torch, ctx):
                   f"bootstrap on the card differs from numpy (d={d})")
     log("main", "SFC bootstrap on the card equals numpy at n=2^18, "
         "d in {2, 3}, with and without weights")
+    # the weighted picks at the main shape: the card's cumulative weights
+    # and searchsorted against numpy's on the card's own Hilbert order
+    from repro_torch.core.sfc import _picks, _picks_torch, sfc_order_torch
+    pts_t = torch.from_numpy(pts).to(DEVICE)
+    order = sfc_order_torch(pts_t)
+    w_t = torch.from_numpy(w).to(DEVICE)[order]
+    card = _picks_torch(MAIN_N, MAIN_K, w_t, pts_t.device).cpu().numpy()
+    host = _picks(MAIN_N, MAIN_K, w[order.cpu().numpy()])
+    check(np.array_equal(card, host), "weighted picks on the card differ "
+          "from numpy's at the main shape")
+    log("main", f"weighted picks at n={MAIN_N}, k={MAIN_K} equal numpy's")
 
 
 def phase_paths(torch, ctx):
@@ -395,12 +461,13 @@ def phase_paths(torch, ctx):
     rng = np.random.default_rng(2)
     pts = rng.uniform(0.0, 1.0, (1 << 20, MAIN_D))
     prob = PartitionProblem(points=pts, k=MAIN_K, epsilon=EPS, seed=0)
-    drive(torch, ctx, "flat", prob, "assign_reduce_flat",
+    drive(torch, ctx, "flat", prob, {"assign_reduce_flat": None},
           backend="cuda_flat")
     small = PartitionProblem(points=pts[: 1 << 18], k=256, epsilon=EPS,
                              seed=0)
-    drive(torch, ctx, "unfused", small, "assign_argmin", fused=False)
-    drive(torch, ctx, "unfused-flat", small, "assign_argmin_flat",
+    drive(torch, ctx, "unfused", small, {"assign_argmin": None},
+          fused=False)
+    drive(torch, ctx, "unfused-flat", small, {"assign_argmin_flat": None},
           fused=False, backend="cuda_flat")
 
 
@@ -509,7 +576,11 @@ def bound(n, k, d, fused, blocks):
     nbytes = 4 * (n * d + k * d + k + 3 * n)
     if fused:
         nbytes += 4 * (n + blocks * (d + 2) * k)
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return larger_bound(flops / PEAK_F32_FLOPS, nbytes)
+
+
+def larger_bound(t_ops_s: float, nbytes: int):
+    t_ops = t_ops_s * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -517,14 +588,19 @@ def bound(n, k, d, fused, blocks):
 def phase_timing(torch, ctx):
     from repro_torch.kernels.assign_kernel import (grid_blocks,
                                                    points_per_thread)
-    from repro_torch.kernels.build import load_library
+    from repro_torch.kernels.ops import assign_backend
+    bp = path_block_p()
     pts, ctr, infl, w = make_inputs(torch, MAIN_N, MAIN_K, MAIN_D, seed=3)
     for name, (_, _, sorted_, fused) in entry_points().items():
-        bp = 1024 if sorted_ else 256
         inputs = kernel_inputs(torch, sorted_, pts, ctr, infl, w, bp, 128)
-        blocks = grid_blocks(load_library(), MAIN_N, MAIN_D, MAIN_K,
-                             points_per_thread(bp), 0, fused, pts.device)
+        blocks = grid_blocks(MAIN_N, MAIN_D, MAIN_K, points_per_thread(bp),
+                             0, fused, pts.device)
         rec = ctx["kernels"].setdefault(name, {})
+        # the error and the times come from this one instance and input
+        ki, kb, ks, _ = run_entry(name, inputs, MAIN_K, bp, 128, "f32")
+        pi, pb, ps, _ = run_entry(name, inputs, MAIN_K, bp, 128, "f32",
+                                  plain=True)
+        rec["max_abs_err"] = best_second_err(torch, kb, ks, pb, ps)
         rec["ms"] = time_ms(torch, lambda: run_entry(
             name, inputs, MAIN_K, bp, 128, "f32"), iters=20)
         rec["ms_bf16"] = time_ms(torch, lambda: run_entry(
@@ -535,21 +611,98 @@ def phase_timing(torch, ctx):
         rec["bound_ms"], rec["bound_by"] = bound(MAIN_N, MAIN_K, MAIN_D,
                                                  fused, blocks)
         rec["library_ms"] = None
-        log("timing", f"{name} n={MAIN_N} k={MAIN_K} d={MAIN_D}: kernel "
-            f"{rec['ms']:.4f} ms (bf16 {rec['ms_bf16']:.4f} ms), plain "
-            f"{rec['plain_ms']:.3f} ms, {blocks} blocks, bound "
-            f"{rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']}), launches {rec.get('launches')} on the "
-            f"{rec.get('path')} path  [{ctx['card']}]")
+        log("timing", f"{name} n={MAIN_N} k={MAIN_K} d={MAIN_D} bp={bp}: "
+            f"kernel {rec['ms']:.4f} ms (bf16 {rec['ms_bf16']:.4f} ms), "
+            f"plain {rec['plain_ms']:.3f} ms, max |err| "
+            f"{rec['max_abs_err']:.3g}, labels "
+            f"{float((ki == pi).float().mean()):.6f}, {blocks} blocks, "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), launches "
+            f"{rec.get('launches')} on the {rec.get('path')} path  "
+            f"[{ctx['card']}]")
     log("timing", "no single PyTorch call computes the fused argmin + "
         "best/second + moments sweep: library_ms is null")
+    # what each backend adds around the fused kernel in one sweep: for
+    # `cuda` the bbox sort of the centers, padding and the un-sort of
+    # labels and moments; for `cuda_flat` the padding and slicing
+    for backend, name in (("cuda", "assign_reduce"),
+                          ("cuda_flat", "assign_reduce_flat")):
+        fn = assign_backend(backend)
+        ms = time_ms(torch, lambda: fn(pts, ctr, infl, block_p=bp,
+                                       block_c=128, weights=w,
+                                       return_moments=True), iters=20)
+        kernel = ctx["kernels"][name]["ms"]
+        log("timing", f"backend {backend} sweep n={MAIN_N} k={MAIN_K}: "
+            f"{ms:.4f} ms, of which around the kernel {ms - kernel:.4f} ms"
+            f"  [{ctx['card']}]")
+    time_scan(torch, ctx)
 
 
+def time_scan(torch, ctx):
+    import numpy as np
+    from repro_torch.kernels.scan import prefix_sum, prefix_sum_plain
+    w = np.random.default_rng(1).lognormal(0.0, 0.5, MAIN_N)
+    x = torch.from_numpy(w).to(DEVICE)
+    rec = ctx["kernels"].setdefault("prefix_sum", {})
+    rec["max_abs_err"] = float(np.max(np.abs(prefix_sum(x).cpu().numpy()
+                                             - np.cumsum(w))))
+    rec["ms"] = time_ms(torch, lambda: prefix_sum(x), iters=5)
+    # the plain version is the library call: one torch.cumsum
+    rec["plain_ms"] = time_ms(torch, lambda: prefix_sum_plain(x), iters=20)
+    rec["library_ms"] = time_ms(torch, lambda: torch.cumsum(x, dim=0),
+                                iters=20)
+    rec["bound_ms"], rec["bound_by"] = larger_bound(
+        MAIN_N / PEAK_F64_FLOPS, 16 * MAIN_N)
+    log("timing", f"prefix_sum n={MAIN_N} float64: kernel {rec['ms']:.4f} "
+        f"ms, plain (torch.cumsum) {rec['plain_ms']:.4f} ms, library "
+        f"{rec['library_ms']:.4f} ms, max |err| against np.cumsum "
+        f"{rec['max_abs_err']:.3g}, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}), launches {rec.get('launches')} on the "
+        f"{rec.get('path')} path  [{ctx['card']}]")
+    # the weighted picks on the card against the host step they replaced:
+    # the order to the host, numpy's gather, cumsum and searchsorted, and
+    # the picks back (host clock, each ended by a synchronize)
+    from repro_torch.core.sfc import _picks, _picks_torch
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    order = torch.randperm(MAIN_N, device=DEVICE, generator=gen)
+
+    def on_card():
+        return _picks_torch(MAIN_N, MAIN_K, x[order], x.device)
+
+    def on_host():
+        return torch.from_numpy(_picks(MAIN_N, MAIN_K, w[order.cpu().numpy()])
+                                ).to(DEVICE)
+
+    check(torch.equal(on_card(), on_host()),
+          "weighted picks: card and host differ")
+    card_ms, host_ms = wall_ms(torch, on_card), wall_ms(torch, on_host)
+    log("timing", f"weighted picks n={MAIN_N} k={MAIN_K}: on the card "
+        f"{card_ms:.3f} ms, the host step {host_ms:.3f} ms (median of 5, "
+        f"host clock)  [{ctx['card']}]")
+
+
+def wall_ms(torch, fn, iters: int = 5) -> float:
+    """Median host-clock milliseconds of ``fn`` ended by a synchronize."""
+    fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+# name -> (source, the TPU kernel or host step it replaces)
 KERNEL_META = {
-    "assign_reduce": "src/repro/kernels/assign_kernel.py:374",
-    "assign_argmin": "src/repro/kernels/assign_kernel.py:317",
-    "assign_reduce_flat": "src/repro/kernels/triton_assign.py:171",
-    "assign_argmin_flat": "src/repro/kernels/triton_assign.py:132",
+    "assign_reduce": ("assign.cu", "src/repro/kernels/assign_kernel.py:374"),
+    "assign_argmin": ("assign.cu", "src/repro/kernels/assign_kernel.py:317"),
+    "assign_reduce_flat": ("assign.cu",
+                           "src/repro/kernels/triton_assign.py:171"),
+    "assign_argmin_flat": ("assign.cu",
+                           "src/repro/kernels/triton_assign.py:132"),
+    # no TPU kernel: the reference's host np.cumsum of the bootstrap
+    "prefix_sum": ("scan.cu", "src/repro/core/sfc.py:221"),
 }
 
 
@@ -557,10 +710,10 @@ def kernels_json(ctx) -> str:
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     out = []
-    for name, replaces in KERNEL_META.items():
+    for name, (source, replaces) in KERNEL_META.items():
         rec = ctx["kernels"].get(name, {})
         entry = {"name": name, "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/assign.cu",
+                 "source": f"src/repro_torch/kernels/csrc/{source}",
                  "replaces": replaces}
         entry.update({k: rec.get(k) for k in keys})
         out.append(entry)
@@ -592,7 +745,7 @@ def main() -> int:
     if "build" in phases:
         phase_build(torch, ctx)
     if "kernels" in phases:
-        phase_kernels(torch, ctx, args.quick)
+        phase_kernels(torch, args.quick)
     if "main" in phases:
         phase_main(torch, ctx)
     if "paths" in phases:

@@ -4,7 +4,7 @@ single-device entry points; the distributed partitioner comes with the
 multi-device slice).
 
 The point array goes to the device once. The Hilbert keys, their stable
-sort and the strided center picks run there (``sfc.
+sort and the strided or weighted center picks run there (``sfc.
 sfc_initial_centers_torch``); the warm-up permutation is drawn on the host
 with ``np.random.default_rng(seed)``, as in the reference, so it is the
 same permutation bit for bit, and applied on the device. Labels come back
@@ -43,12 +43,16 @@ def stats_to_numpy(stats: dict) -> dict:
 
 
 def _to_device(points, weights, perm, dev, dtype):
-    """Points (float64) to the device once, then permuted there."""
+    """Points and weights (float64) to the device once, then permuted
+    there. Returns (points64, weights64, points, weights): the float64
+    pair in the original order for the bootstrap, the other pair permuted
+    and cast for the solver."""
     pts64 = torch.tensor(np.asarray(points, dtype=np.float64), device=dev)
+    w64 = (None if weights is None else
+           torch.tensor(np.asarray(weights, dtype=np.float64), device=dev))
     perm_t = torch.from_numpy(perm).to(dev)
-    w = (None if weights is None else
-         torch.tensor(np.asarray(weights), device=dev)[perm_t].to(dtype))
-    return pts64, pts64[perm_t].to(dtype), w
+    w = None if w64 is None else w64[perm_t].to(dtype)
+    return pts64, w64, pts64[perm_t].to(dtype), w
 
 
 def _labels(A: torch.Tensor, perm: np.ndarray) -> np.ndarray:
@@ -76,8 +80,8 @@ def geographer_partition(points: np.ndarray, k: int,
     n = points.shape[0]
     t0 = time.perf_counter()
     perm = np.random.default_rng(seed).permutation(n)
-    pts64, pts, w = _to_device(points, weights, perm, dev, cfg.dtype)
-    centers0 = sfc_initial_centers_torch(pts64, k, weights).to(cfg.dtype)
+    pts64, w64, pts, w = _to_device(points, weights, perm, dev, cfg.dtype)
+    centers0 = sfc_initial_centers_torch(pts64, k, w64).to(cfg.dtype)
     _sync(dev)
     t1 = time.perf_counter()
     A, centers, infl, stats = balanced_kmeans(pts, cfg, w, centers0)
@@ -113,7 +117,7 @@ def geographer_repartition(points: np.ndarray, k: int,
         raise ValueError(f"centers0 has {centers0.shape[0]} rows, k={k}")
     n = points.shape[0]
     perm = np.random.default_rng(seed).permutation(n)
-    _, pts, w = _to_device(points, weights, perm, dev, cfg.dtype)
+    _, _, pts, w = _to_device(points, weights, perm, dev, cfg.dtype)
     infl0 = (None if influence0 is None else
              torch.tensor(np.asarray(influence0), device=dev).to(cfg.dtype))
     prev = (None if prev_labels is None else

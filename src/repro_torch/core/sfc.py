@@ -12,7 +12,7 @@ in 2-D, Skilling's transpose algorithm):
   reciprocal), so the keys equal numpy's bit for bit.
 
 ``sfc_initial_centers_torch`` is the bootstrap the partitioner runs: keys,
-stable sort and strided picks on the tensor's device.
+stable sort and the strided or weighted picks on the tensor's device.
 """
 from __future__ import annotations
 
@@ -168,20 +168,30 @@ def sfc_order_torch(points: torch.Tensor) -> torch.Tensor:
     return torch.sort(hilbert_index_torch(points), stable=True).indices
 
 
+def _picks_torch(n: int, k: int, weights_sorted: torch.Tensor | None,
+                 device: torch.device) -> torch.Tensor:
+    """``_picks`` on ``device``, equal to it. The weighted prefix sum is
+    ``kernels.scan.prefix_sum``, which adds in index order like numpy."""
+    if weights_sorted is None:
+        idx = ((torch.arange(k, dtype=torch.int64, device=device) * n) // k
+               + n // (2 * k))
+        return torch.clamp_max(idx, n - 1)
+    from repro_torch.kernels.scan import prefix_sum
+    cw = prefix_sum(weights_sorted)
+    targets = ((torch.arange(k, dtype=torch.float64, device=device) + 0.5)
+               * (cw[-1] / k))
+    return torch.clamp_max(torch.searchsorted(cw, targets), n - 1)
+
+
 def sfc_initial_centers_torch(points: torch.Tensor, k: int,
-                              weights: np.ndarray | None = None
-                              ) -> torch.Tensor:
+                              weights=None) -> torch.Tensor:
     """The bootstrap on the device of ``points`` ([n, d] float64): keys,
-    stable sort and the strided picks run there and the result equals
-    ``sfc_initial_centers`` exactly. With node weights the prefix sum of
-    the sorted weights runs in numpy on the host: a parallel scan on the
-    card adds in another order, and its float64 sums could then differ
-    in the last bit and move a pick."""
+    stable sort and the strided or weighted picks all run there, and the
+    result equals ``sfc_initial_centers`` exactly. ``weights`` ([n], a
+    tensor or an array) are taken as float64 on that device."""
     order = sfc_order_torch(points)
-    n = points.shape[0]
-    if weights is None:
-        pos = torch.from_numpy(_picks(n, k, None)).to(points.device)
-    else:
-        w = np.asarray(weights)[order.cpu().numpy()]
-        pos = torch.from_numpy(_picks(n, k, w)).to(points.device)
-    return points[order[pos]]
+    w = (None if weights is None else
+         torch.as_tensor(weights, dtype=torch.float64,
+                         device=points.device)[order])
+    return points[order[_picks_torch(points.shape[0], k, w,
+                                     points.device)]]

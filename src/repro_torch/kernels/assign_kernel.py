@@ -25,6 +25,7 @@ version its calls in ``.calls``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -144,18 +145,31 @@ def points_per_thread(block_p: int) -> int:
     return 1
 
 
-def grid_blocks(lib, n: int, d: int, k_pad: int, ppt: int, bf16: int,
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(device_index: int, d: int, k_pad: int, ppt: int,
+                     bf16: int, fused: bool) -> int:
+    """Blocks of one kernel instance resident on the whole card at once
+    (occupancy per SM x SMs); asked of CUDA once per instance."""
+    from .build import load_library
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        load_library().call("repro_assign_occupancy", d, k_pad, ppt, bf16,
+                            int(fused), ctypes.byref(per_sm))
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return max(per_sm.value, 1) * sms
+
+
+def grid_blocks(n: int, d: int, k_pad: int, ppt: int, bf16: int,
                 fused: bool, device: torch.device) -> int:
     """Blocks in the launch: as many as are resident on the card at once
     (one wave), never more than the point tiles. The count fixes the
     order of the moment sums, so one card and shape always give the same
     bits."""
-    per_sm = ctypes.c_int(0)
-    lib.call("repro_assign_occupancy", d, k_pad, ppt, bf16, int(fused),
-             ctypes.byref(per_sm))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
     tiles = -(-n // (THREADS * ppt))
-    return max(1, min(tiles, max(per_sm.value, 1) * sms))
+    return max(1, min(tiles, _resident_blocks(index, d, k_pad, ppt, bf16,
+                                              bool(fused))))
 
 
 def launch_sweep(points, centers, inv2, weights, k_real: int, ppt: int,
@@ -171,8 +185,7 @@ def launch_sweep(points, centers, inv2, weights, k_real: int, ppt: int,
     dev = points.device
     lib = load_library()
     bf16 = int(precision == "bf16")
-    blocks = grid_blocks(lib, n, d, k_pad, ppt, bf16, weights is not None,
-                         dev)
+    blocks = grid_blocks(n, d, k_pad, ppt, bf16, weights is not None, dev)
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     best = torch.empty(n, dtype=torch.float32, device=dev)
     second = torch.empty(n, dtype=torch.float32, device=dev)

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-``kernels/csrc/assign.cu`` is compiled at first use with ``nvcc`` into a
-shared library with a plain C interface and loaded with ``ctypes``; no
-PyTorch headers are involved, so the build takes seconds. The library is
-named by a hash of its source and flags and kept in ``kernels/_build/``
-(listed in ``.gitignore``), so an edited source is rebuilt and an
-unchanged one is loaded as it is.
+Each source in ``kernels/csrc/`` (``assign.cu``, ``scan.cu``) is compiled
+at first use with ``nvcc`` into a shared library with a plain C interface
+and loaded with ``ctypes``; no PyTorch headers are involved, so a build
+takes seconds. ``build_libraries`` starts one ``nvcc`` per missing
+library, all at once. A library is named by a hash of its source and
+flags and kept in ``kernels/_build/`` (listed in ``.gitignore``), so an
+edited source is rebuilt and an unchanged one is loaded as it is.
 
 Nothing here runs at import: the CPU tests import every module, on
 machines that have no CUDA toolkit.
@@ -23,32 +24,40 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCE = CSRC / "assign.cu"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of the entry points (see assign.cu)
+_L = ctypes.c_longlong
+# C signatures of the entry points, by library (see the sources)
 _SIGNATURES = {
-    "repro_assign_argmin": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _P, _P, _P, _P],
-    "repro_assign_reduce": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _P, _P, _P, _P, _P],
-    "repro_assign_occupancy": [_I, _I, _I, _I, _I, _P],
+    "assign": {
+        "repro_assign_argmin": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _P, _P, _P, _P],
+        "repro_assign_reduce": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _P, _P, _P, _P, _P],
+        "repro_assign_occupancy": [_I, _I, _I, _I, _I, _P],
+    },
+    "scan": {
+        "repro_prefix_sum_f64": [_P, _P, _L, _P],
+    },
 }
+LIBRARIES = tuple(_SIGNATURES)
 
 
 class KernelLibrary:
-    """The loaded library plus what its build reported."""
+    """One loaded library plus what its build reported."""
 
-    def __init__(self, path: Path, build_seconds: float, ptxas_log: str):
+    def __init__(self, name: str, path: Path, build_seconds: float,
+                 ptxas_log: str):
+        self.name = name
         self.path = path
         self.build_seconds = build_seconds
         self.ptxas_log = ptxas_log
         self._lib = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(self._lib, name)
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(self._lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         self._lib.repro_error_name.argtypes = [ctypes.c_int]
@@ -79,37 +88,69 @@ def find_nvcc() -> str:
                        "the CUDA toolkit (set CUDA_HOME)")
 
 
-_LIBRARY: KernelLibrary | None = None
+_LOADED: dict[str, KernelLibrary] = {}
 
 
-def load_library() -> KernelLibrary:
-    """Build (if needed) and load ``assign.cu``; cached for the process."""
-    global _LIBRARY
-    if _LIBRARY is None:
-        _LIBRARY = _build()
-    return _LIBRARY
+def load_library(name: str = "assign") -> KernelLibrary:
+    """Build (if needed) and load library ``name``; cached for the
+    process."""
+    if name not in _LOADED:
+        build_libraries((name,))
+    return _LOADED[name]
 
 
-def _build() -> KernelLibrary:
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:12]
+def _paths(name: str) -> tuple[Path, Path, Path]:
+    src = CSRC / f"{name}.cu"
+    tag = hashlib.sha256(src.read_bytes()
+                         + " ".join(FLAGS).encode()).hexdigest()[:12]
+    return (src, BUILD_DIR / f"lib{name}_{tag}.so",
+            BUILD_DIR / f"lib{name}_{tag}.log")
+
+
+def build_libraries(names=LIBRARIES) -> dict[str, KernelLibrary]:
+    """Load the libraries ``names``, building the missing ones with one
+    ``nvcc`` each, all started together. A failed build raises after
+    every ``nvcc`` it started has ended."""
+    unknown = set(names) - set(_SIGNATURES)
+    if unknown:
+        raise KeyError(f"unknown kernel libraries {sorted(unknown)}; "
+                       f"available: {list(LIBRARIES)}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"libassign_{tag}.so"
-    log = BUILD_DIR / f"libassign_{tag}.log"
-    if lib.is_file():
-        return KernelLibrary(lib, 0.0, log.read_text() if log.is_file()
-                             else "")
-    nvcc = find_nvcc()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return KernelLibrary(lib, seconds, proc.stdout + proc.stderr)
+    pending = {}
+    try:
+        for name in names:
+            if name in _LOADED:
+                continue
+            src, lib, log = _paths(name)
+            if lib.is_file():
+                _LOADED[name] = KernelLibrary(
+                    name, lib, 0.0, log.read_text() if log.is_file() else "")
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen([find_nvcc(), *FLAGS, "-o", tmp,
+                                     str(src)], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            pending[name] = (proc, tmp, lib, log, time.perf_counter())
+        errors = []
+        for name, (proc, tmp, lib, log, t0) in pending.items():
+            out, err = proc.communicate()
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                errors.append(f"nvcc failed on {name}.cu "
+                              f"({proc.returncode}):\n{out}\n{err}")
+                continue
+            log.write_text(out + err)
+            os.replace(tmp, lib)
+            _LOADED[name] = KernelLibrary(name, lib, seconds, out + err)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+    finally:
+        for proc, tmp, *_ in pending.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return {name: _LOADED[name] for name in names}

@@ -55,12 +55,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr size_t SMEM_CAP = 160 * 1024;   // partials above this stay global
+constexpr int MAX_DEVICES = 64;
 
 __device__ __forceinline__ float to_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -250,10 +252,22 @@ cudaError_t launch(const Args& a) {
   }
   auto kern = assign_kernel<D, PPT, MOMENTS, BF16>;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    // raised once per instance and device, to the block's opt-in maximum
+    // (a permission only: occupancy follows each launch's own size)
+    static std::atomic<bool> raised[MAX_DEVICES];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
+    if (dev >= MAX_DEVICES || !raised[dev].load()) {
+      int optin = 0;
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      if (err != cudaSuccess) return err;
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+      if (err != cudaSuccess) return err;
+      if (dev < MAX_DEVICES) raised[dev].store(true);
+    }
   }
   if (a.occupancy)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.occupancy, kern,

@@ -315,6 +315,7 @@ def tile_prune_fraction(points, centers, influence, second_sq,
 def launch_counts() -> dict:
     """Kernel launches and plain-version calls since the last reset."""
     from . import assign_kernel as ak
+    from . import scan
     from . import triton_assign as ta
     return {
         "assign_reduce": ak.assign_reduce_cuda.launches,
@@ -323,17 +324,22 @@ def launch_counts() -> dict:
         "assign_argmin_flat": ta.triton_assign_cuda.launches,
         "assign_reduce_plain": ak.assign_reduce_plain.calls,
         "assign_argmin_plain": ak.assign_argmin_plain.calls,
+        "prefix_sum": scan.prefix_sum.launches,
+        "prefix_sum_plain": scan.prefix_sum_plain.calls,
     }
 
 
 def reset_launch_counts() -> None:
     from . import assign_kernel as ak
+    from . import scan
     from . import triton_assign as ta
     for fn in (ak.assign_reduce_cuda, ak.assign_argmin_cuda,
                ta.triton_assign_reduce_cuda, ta.triton_assign_cuda):
         fn.launches = 0
     ak.assign_reduce_plain.calls = 0
     ak.assign_argmin_plain.calls = 0
+    scan.prefix_sum.launches = 0
+    scan.prefix_sum_plain.calls = 0
 
 
 # registering the flat backend imports this module back, so the import

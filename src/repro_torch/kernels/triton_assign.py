@@ -6,8 +6,10 @@ center loop inside the kernel, and one moment partial per program summed
 outside the kernel. It replaces ``_triton_kernel``
 (``triton_assign_pallas``) and ``_triton_moments_kernel``
 (``triton_assign_reduce_pallas``). The kernel is ``csrc/assign.cu``, the
-same source as the sorted configuration, launched here with 256-point
-tiles (``block_p=256``, one point per thread).
+same source as the sorted configuration. Called directly, the wrappers
+default to 256-point tiles (``block_p=256``, one point per thread); the
+partitioner passes its ``BKMConfig.block_p`` (1024, four points per
+thread) to every backend, as the reference does.
 """
 from __future__ import annotations
 

@@ -326,3 +326,12 @@ def test_kernel_entry_checks_tiling_and_counts():
     assert counts["assign_reduce"] == 0
     assert ak.points_per_thread(1024) == 4
     assert ak.points_per_thread(256) == 1
+
+
+def test_kernel_libraries_are_named():
+    from repro_torch.kernels import build
+    assert build.LIBRARIES == ("assign", "scan")
+    for name in build.LIBRARIES:
+        assert (build.CSRC / f"{name}.cu").is_file()
+    with pytest.raises(KeyError, match="unknown kernel libraries"):
+        build.build_libraries(("nope",))

@@ -71,3 +71,37 @@ def test_initial_centers_equal(d, weighted, k):
 def test_too_many_bits_raise():
     with pytest.raises(ValueError, match="64-bit key"):
         sfc.hilbert_index_torch(torch.zeros(4, 3, dtype=torch.float64), 22)
+
+
+@pytest.mark.parametrize("n,sigma", [(1, 0.5), (2049, 2.0), (300_000, 0.5)])
+def test_prefix_sum_adds_in_index_order(n, sigma):
+    """The weighted picks' prefix sum equals numpy's cumsum bit for bit
+    (the kernel adds in index order; on the CPU the plain version runs)."""
+    from repro_torch.kernels import ops, scan
+    w = np.random.default_rng(n).lognormal(0.0, sigma, n)
+    ops.reset_launch_counts()
+    got = scan.prefix_sum(torch.from_numpy(w))
+    np.testing.assert_array_equal(got.numpy(), np.cumsum(w))
+    counts = ops.launch_counts()
+    assert counts["prefix_sum_plain"] == 1 and counts["prefix_sum"] == 0
+
+
+def test_prefix_sum_takes_only_1d_float64():
+    from repro_torch.kernels import scan
+    with pytest.raises(ValueError, match="1-D float64"):
+        scan.prefix_sum(torch.ones(4, dtype=torch.float32))
+    with pytest.raises(ValueError, match="1-D float64"):
+        scan.prefix_sum(torch.ones(2, 2, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (1000, 7), (5000, 1024),
+                                 (200_000, 64)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_picks_on_the_device_equal_numpy(n, k, weighted):
+    """The strided and weighted picks the bootstrap runs on the device
+    equal the host version's, with k = 1 and heavy-tailed weights."""
+    rng = np.random.default_rng(n + k)
+    w = rng.lognormal(0.0, 2.0, n) if weighted else None
+    got = sfc._picks_torch(n, k, None if w is None else torch.from_numpy(w),
+                           torch.device("cpu"))
+    np.testing.assert_array_equal(got.numpy(), sfc._picks(n, k, w))
