@@ -12,15 +12,19 @@ partitioner launches it with among others,
 drives ``partition(problem, method="geographer")`` at n = 2^22 points and
 k = 1024 blocks (unit and lognormal weights) plus the unfused and flat
 paths, checks determinism and agreement with the port's CPU path,
-profiles a short main-shape run (device time by kernel), times each
+profiles a short main-shape run (device time by kernel), serves
+granite-moe-3b-a800m at full width through ``ServeEngine.run`` and through
+``prefill`` -> ``extend_cache`` -> ``decode_step`` at a 4096-token prompt
+(the paths of the flash-attention and MoE-router kernels), times each
 kernel with CUDA events against its bound, and prints one JSON line of
 kernel records. Every phase raises on failure. The last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every phase
 passed. Without a CUDA device, or without the rest of the repository
 beside it, the script exits non-zero and prints no result.
 
-``--phases card,build,kernels`` runs a subset; ``--quick`` drops the
-main-shape kernel comparisons (a short first check of a new kernel).
+``--phases build,lm_kernels,serve,prefill`` runs a subset (the card
+phase always runs); ``--quick`` drops the main-shape kernel comparisons
+(a short first check of a new kernel).
 """
 from __future__ import annotations
 
@@ -33,11 +37,12 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("card", "build", "kernels", "main", "paths", "agreement",
-          "profile", "timing")
+PHASES = ("card", "build", "kernels", "lm_kernels", "main", "paths",
+          "agreement", "profile", "serve", "prefill", "timing")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12   # tensor cores
 PEAK_F64_FLOPS = 34e12     # outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
@@ -52,6 +57,15 @@ BEST_RTOL, BEST_ATOL = 1e-4, 1e-5
 MOM_RTOL, MOM_ATOL = 1e-4, 1e-4
 LABELS_F32 = 0.99
 BF16_FLIP_MAX, BF16_GAP_MAX = 0.05, 2.0 ** -6
+# tolerances of tests/test_kernels_flash_router.py and test_arch_smoke.py
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+ROUTER_TOL = 1e-4
+LM_BF16_TOL = 5e-2
+
+# granite-moe-3b-a800m serving shapes
+SERVE_BATCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 6, 12, 16
+SERVE_MAX_SEQ = 64
+PREFILL_S, PREFILL_NEW = 4096, 16
 
 
 class SmokeError(RuntimeError):
@@ -368,6 +382,109 @@ def phase_kernels(torch, quick):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the language-model kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def router_inputs(torch, T, E, D, seed, x_dtype, unit_influence):
+    """Tokens ~N(0, 1) (the scale of RMS-normalized activations) and
+    centroids at the model's init scale D^-0.5, on the card."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal((T, D)), dtype=torch.float32,
+                     device=DEVICE).to(x_dtype)
+    c = torch.tensor(rng.standard_normal((E, D)) * D ** -0.5,
+                     dtype=torch.float32, device=DEVICE)
+    infl = (np.ones(E) if unit_influence else rng.uniform(0.5, 2.0, E))
+    return x, c, torch.tensor(infl, dtype=torch.float32, device=DEVICE)
+
+
+def compare_router(torch, T, E, D, K, seed, x_dtype, unit_influence):
+    """ops.router_topk on the card (padding + kernel) against the plain
+    version on the same inputs."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_router_kernel import router_topk_plain
+    x, c, infl = router_inputs(torch, T, E, D, seed, x_dtype, unit_influence)
+    idx, eff = ops.router_topk(x, c, infl, top_k=K)
+    torch.cuda.synchronize()
+    pidx, peff = router_topk_plain(x, c, 1.0 / (infl * infl), K)
+    torch.cuda.synchronize()
+    idx, eff = idx.cpu().numpy(), eff.cpu().numpy()
+    pidx, peff = pidx.cpu().numpy(), peff.cpu().numpy()
+    what = f"router_topk T={T} E={E} D={D} K={K} {x_dtype}"
+    check(np.allclose(eff, peff, rtol=ROUTER_TOL, atol=ROUTER_TOL),
+          f"{what}: eff differs (max |err| {np.max(np.abs(eff - peff)):.3g})")
+    # indices may differ only where effective distances tie
+    bad = idx != pidx
+    check(np.allclose(eff[bad], peff[bad], rtol=ROUTER_TOL,
+                      atol=ROUTER_TOL), f"{what}: index differs off a tie")
+    check(bool((np.diff(eff, axis=1) >= 0).all()), f"{what}: not ascending")
+    check(bool(((idx >= 0) & (idx < E)).all()), f"{what}: index range")
+    err = float(np.max(np.abs(eff - peff)))
+    log("lm_kernels", f"{what}: indices equal {1 - bad.mean():.6f}, max "
+        f"|eff err| {err:.3g}")
+
+
+def flash_inputs(torch, B, S, H, KV, dh, dtype, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return tuple(torch.tensor(rng.standard_normal((B, S, n, dh)),
+                              dtype=torch.float32, device=DEVICE).to(dtype)
+                 for n in (H, KV, KV))
+
+
+def compare_flash(torch, B, S, H, KV, dh, dtype, softcap=0.0, bq=512,
+                  bk=512, seed=0):
+    """ops.flash_attention on the card (kernel) against the plain version
+    on the same inputs."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    q, k, v = flash_inputs(torch, B, S, H, KV, dh, dtype, seed)
+    got = ops.flash_attention(q, k, v, bq=bq, bk=bk, softcap=softcap)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, softcap)
+    torch.cuda.synchronize()
+    name = str(dtype).rsplit(".", 1)[-1]
+    tol = FLASH_TOL[name]
+    err = float(torch.max(torch.abs(got.float() - want.float())))
+    what = (f"flash_attention B={B} S={S} H={H} KV={KV} dh={dh} {name}"
+            f"{f' softcap={softcap}' if softcap else ''}")
+    check(bool(torch.isfinite(got.float()).all()), f"{what}: not finite")
+    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+          f"{what}: differs from the plain version (max |err| {err:.3g})")
+    log("lm_kernels", f"{what}: max |err| {err:.3g} (tolerance {tol})")
+
+
+def phase_lm_kernels(torch):
+    from repro_torch.configs import granite_moe_3b_a800m as granite
+    cfg = granite.CONFIG
+    E, K, D = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
+    # the path's shapes: decode (T = batch 4) and a 4096-token prefill,
+    # bf16 tokens at unit influence as the model hands them
+    for T in (SERVE_BATCH, PREFILL_S):
+        compare_router(torch, T, E, D, K, T, torch.bfloat16, True)
+    # tests/test_kernels_flash_router.py's cases, float32 tokens
+    for T, e, d, k in ((512, 8, 64, 1), (512, 16, 64, 2), (512, 40, 32, 8),
+                       (300, 128, 128, 2), (512, 200, 64, 4),
+                       (300, 256, 32, 8), (256, 384, 16, 2)):
+        compare_router(torch, T, e, d, k, T + e, torch.float32, False)
+    compare_flash(torch, 1, PREFILL_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                  torch.bfloat16)
+    for B, S, H, KV, dh, bq, bk, cap, dt in (
+            (2, 256, 4, 4, 32, 128, 128, 0.0, torch.float32),
+            (1, 512, 8, 2, 64, 256, 128, 0.0, torch.float32),
+            (2, 384, 4, 1, 32, 128, 128, 0.0, torch.float32),
+            (1, 256, 4, 4, 128, 128, 128, 50.0, torch.float32),
+            (1, 256, 2, 2, 64, 128, 128, 0.0, torch.bfloat16),
+            (1, 300, 3, 1, 16, 128, 128, 0.0, torch.float32),
+            (1, 320, 4, 1, 256, 512, 512, 0.0, torch.bfloat16),  # gemma dh
+            (2, 200, 4, 2, 256, 512, 512, 30.0, torch.float32)):
+        compare_flash(torch, B, S, H, KV, dh, dt, cap, bq, bk)
+    log("lm_kernels", "both language-model kernels agree with their plain "
+        "versions")
+
+
+# ---------------------------------------------------------------------------
 # phases 4-6: the partitioner
 # ---------------------------------------------------------------------------
 
@@ -525,6 +642,18 @@ def phase_profile(torch, ctx):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     st = res.stats["levels"][0]
+    rows, device_s = device_rows(prof)
+    log("profile", f"n={MAIN_N} k={MAIN_K} max_iter=2: wall {wall:.3f} s "
+        f"(bootstrap {st['seconds']['bootstrap']:.3f} s, k-means "
+        f"{st['seconds']['kmeans']:.3f} s), sweeps {sweeps_of(st)}, device "
+        f"busy {device_s:.3f} s = {device_s / wall:.1%} of wall  "
+        f"[{ctx['card']}]")
+    log_rows("profile", rows)
+
+
+def device_rows(prof):
+    """(rows, device seconds) of a profile: (us, calls, name) of each
+    device-side event, largest first."""
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -536,17 +665,273 @@ def phase_profile(torch, ctx):
     # those where the profiler tells them apart from the host ops
     on_device = [r for r in rows if r[3].endswith("CUDA")]
     rows = sorted(on_device or rows, reverse=True)
-    device_s = sum(r[0] for r in rows) / 1e6
-    log("profile", f"n={MAIN_N} k={MAIN_K} max_iter=2: wall {wall:.3f} s "
-        f"(bootstrap {st['seconds']['bootstrap']:.3f} s, k-means "
-        f"{st['seconds']['kmeans']:.3f} s), sweeps {sweeps_of(st)}, device "
-        f"busy {device_s:.3f} s = {device_s / wall:.1%} of wall  "
-        f"[{ctx['card']}]")
+    return rows, sum(r[0] for r in rows) / 1e6
+
+
+def log_rows(tag, rows, n=12):
     if not rows:
-        log("profile", "the profiler recorded no device time: not measured")
-    for us, count, key, _ in rows[:12]:
-        log("profile", f"  {us / 1e3:10.3f} ms  {count:6d} calls  "
-            f"{key[:70]}")
+        log(tag, "the profiler recorded no device time: not measured")
+    for us, count, key, _ in rows[:n]:
+        log(tag, f"  {us / 1e3:10.3f} ms  {count:6d} calls  {key[:70]}")
+
+
+# ---------------------------------------------------------------------------
+# phases 9-10: granite-moe-3b-a800m served at full width
+# ---------------------------------------------------------------------------
+
+def granite_params(torch, ctx):
+    """granite CONFIG's parameters, made on the card from a seeded
+    generator once and kept for the serve and prefill phases."""
+    from repro_torch.configs import granite_moe_3b_a800m as granite
+    from repro_torch.models import model as M
+    if "lm_params" not in ctx:
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        t0 = time.perf_counter()
+        ctx["lm_params"] = M.init_params(granite.CONFIG, gen, device=DEVICE)
+        torch.cuda.synchronize()
+        log("serve", f"{granite.CONFIG.name}: {M.param_count(ctx['lm_params']):,}"
+            f" parameters (float32) made on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+    return granite.CONFIG, ctx["lm_params"]
+
+
+def lm_counts_after(torch, ctx, tag, expect, t0, record=None):
+    """Counts and wall seconds of the run started at ``t0`` (counts reset
+    just before it). Every counter not in ``expect`` must be 0. The
+    kernels in ``record`` (default: all of ``expect``) keep this run's
+    launches for the kernels line."""
+    from repro_torch.kernels.ops import launch_counts
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    for name, count in counts.items():
+        want = expect.get(name, 0)
+        check(count == want, f"{tag}: {name} ran {count} times, expected "
+              f"{want}")
+    for name in expect if record is None else record:
+        ctx["kernels"].setdefault(name, {}).update(launches=counts[name],
+                                                   path=tag)
+    return wall, counts
+
+
+def phase_serve(torch, ctx):
+    import numpy as np
+    from repro_torch.kernels.ops import reset_launch_counts
+    from repro_torch.serve import Request, ServeEngine
+    cfg, params = granite_params(torch, ctx)
+    engine = ServeEngine(cfg, None, params, batch=SERVE_BATCH,
+                         max_seq=SERVE_MAX_SEQ)
+    step_fn = engine.step_fn
+    steps = []
+
+    def counted(*args):
+        steps.append(1)
+        return step_fn(*args)
+
+    engine.step_fn = counted
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               (SERVE_PROMPT,)).astype(np.int32),
+                    max_new=SERVE_NEW) for i in range(SERVE_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    engine.run(reqs)
+    n_steps = len(steps)
+    wall, counts = lm_counts_after(torch, ctx, "serve", {
+        "router_topk": cfg.n_layers * n_steps}, t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_tok = sum(len(r.out) for r in reqs)
+    for r in reqs:
+        check(r.done and len(r.out) == SERVE_NEW and
+              all(0 <= t < cfg.vocab_size for t in r.out),
+              f"serve: request {r.uid} transcript {r.out}")
+    log("serve", f"{cfg.name} batch {SERVE_BATCH}, {SERVE_REQUESTS} requests "
+        f"x {SERVE_PROMPT}-token prompts, {SERVE_NEW} new tokens each: "
+        f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.2f} tokens/s, "
+        f"{n_steps} decode steps at {wall / n_steps * 1e3:.2f} ms a step, "
+        f"router launches {counts['router_topk']} = {cfg.n_layers} x "
+        f"{n_steps}, peak memory {peak:.2f} GiB  [{ctx['card']}]")
+    for r in reqs[:2]:
+        log("serve", f"request {r.uid}: {r.out}")
+    profile_decode(torch, ctx, engine, step_fn)
+    serve_agreement(torch)
+
+
+def profile_decode(torch, ctx, engine, step_fn, steps=4):
+    """Where a decode step's time goes: ``steps`` steps of the engine's
+    serve step at batch 4 under torch.profiler, after the counted run.
+    Prints the wall time a step, the device's busy share and device time
+    by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    cache = engine._fresh_cache()
+    tok = torch.zeros(engine.B, 1, dtype=torch.int32, device=DEVICE)
+    step_fn(engine.params, cache, tok, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for p in range(1, steps + 1):
+            tok, cache, _ = step_fn(engine.params, cache, tok, p)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows, device_s = device_rows(prof)
+    log("serve", f"profile of {steps} decode steps at batch {engine.B}: "
+        f"wall {wall / steps * 1e3:.2f} ms a step under the profiler, "
+        f"device busy {device_s / steps * 1e3:.2f} ms a step = "
+        f"{device_s / wall:.1%} of wall, "
+        f"{sum(r[1] for r in rows) // steps} device events a step  "
+        f"[{ctx['card']}]")
+    log_rows("serve", rows, n=10)
+
+
+def serve_agreement(torch):
+    """The same engine on granite SMOKE in float32, on the card (router
+    kernel) and on the CPU (plain version), from one set of parameters:
+    the transcripts must be equal."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import granite_moe_3b_a800m as granite
+    from repro_torch.models import model as M
+    from repro_torch.serve import Request, ServeEngine
+    cfg = dataclasses.replace(granite.SMOKE, dtype="float32")
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    card = _to_device(cpu, DEVICE)
+    out = []
+    for params in (card, cpu):
+        rng = np.random.default_rng(1)
+        reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, (n,))
+                        .astype(np.int32), max_new=8)
+                for i, n in enumerate((5, 3, 7, 4, 6, 2))]
+        ServeEngine(cfg, None, params, batch=4, max_seq=32).run(reqs)
+        out.append([r.out for r in reqs])
+    check(out[0] == out[1], f"serve: granite SMOKE float32 transcripts "
+          f"differ between the card and the CPU: {out}")
+    log("serve", "granite SMOKE float32, 6 requests at batch 4: card "
+        "(router kernel) and CPU (plain version) transcripts equal")
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_prefill(torch, ctx):
+    import numpy as np
+    from repro_torch.kernels.ops import reset_launch_counts
+    from repro_torch.models import model as M
+    cfg, params = granite_params(torch, ctx)
+    toks = torch.tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, PREFILL_S)), dtype=torch.int32, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(params, {"tokens": toks}, cfg)
+    wall, counts = lm_counts_after(torch, ctx, "prefill", {
+        "flash_attention": cfg.n_layers, "router_topk": cfg.n_layers}, t0,
+        record=("flash_attention",))   # the router's line reads serve's
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(logits.shape == (1, 1, cfg.vocab_padded) and
+          bool(torch.isfinite(logits.float()).all()),
+          "prefill: logits not finite or of the wrong shape")
+    cache = M.extend_cache(cache, cfg, PREFILL_S + PREFILL_NEW)
+    out = []
+    nxt = greedy(torch, logits, cfg)
+    t1 = time.perf_counter()
+    for t in range(PREFILL_NEW):
+        out.append(int(nxt[0, 0]))
+        logits, cache = M.decode_step(params, cache, {"tokens": nxt},
+                                      PREFILL_S + t, cfg)
+        nxt = greedy(torch, logits, cfg)
+    torch.cuda.synchronize()
+    dec = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    M.prefill(params, {"tokens": toks}, cfg)
+    torch.cuda.synchronize()
+    again = time.perf_counter() - t2
+    log("prefill", f"{cfg.name} B=1 S={PREFILL_S}: prefill {wall:.3f} s "
+        f"(repeat {again:.3f} s), flash launches "
+        f"{counts['flash_attention']}, router launches "
+        f"{counts['router_topk']}, peak memory {peak:.2f} GiB; "
+        f"{PREFILL_NEW} decode steps after it {dec:.3f} s, tokens {out}  "
+        f"[{ctx['card']}]")
+    del ctx["lm_params"]
+    torch.cuda.empty_cache()
+    prefill_agreement(torch, cfg, params)
+
+
+def greedy(torch, logits, cfg):
+    lf = logits.float()
+    lf[..., cfg.vocab_size:] = float("-inf")
+    return torch.argmax(lf, dim=-1).to(torch.int32)
+
+
+def prefill_agreement(torch, cfg, params):
+    """Two layers at full width, S = 4096: prefill (flash kernel) against
+    token-by-token decode from scratch (dense attention against the
+    cache), both with the router kernel. Drop-free expert capacity, as
+    the reference's own decode-vs-forward test: a full-sequence MoE drops
+    tokens at capacity, a one-token step never does. Prefill's last
+    logits, and the logits of the steps after it fed the same tokens,
+    agree within the bf16 tolerance; the greedy tokens are equal except
+    where the decode path's top two logits lie within it."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.models import model as M
+    depth = 2
+    cfg2 = dataclasses.replace(
+        cfg, n_layers=depth, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    p2 = dict(params, layers={k: {kk: _index_repeats(vv, depth)
+                                  for kk, vv in v.items()}
+                              for k, v in params["layers"].items()})
+    toks = torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, PREFILL_S)), dtype=torch.int32, device=DEVICE)
+    horizon = PREFILL_S + 8
+    t0 = time.perf_counter()
+    lp, cache_p = M.prefill(p2, {"tokens": toks}, cfg2)
+    cache_p = M.extend_cache(cache_p, cfg2, horizon)
+    cache_d = M.init_cache(cfg2, 1, horizon, device=DEVICE)
+    for t in range(PREFILL_S):
+        ld, cache_d = M.decode_step(p2, cache_d, {"tokens": toks[:, t:t + 1]},
+                                    t, cfg2)
+    torch.cuda.synchronize()
+    errs = [float(torch.max(torch.abs(lp.float() - ld.float())))]
+    check(torch.allclose(lp.float(), ld.float(), rtol=LM_BF16_TOL,
+                         atol=LM_BF16_TOL),
+          f"prefill vs stepwise decode: last logits differ ({errs[0]:.3g})")
+    flips = 0
+    for t in range(8):
+        a, b = greedy(torch, lp, cfg2), greedy(torch, ld, cfg2)
+        if not torch.equal(a, b):
+            top2 = torch.topk(ld.float()[..., :cfg.vocab_size], 2).values
+            gap = float(top2[..., 0] - top2[..., 1])
+            check(gap <= LM_BF16_TOL, f"prefill vs stepwise decode: greedy "
+                  f"token differs off a near-tie (gap {gap:.3g})")
+            flips += 1
+        lp, cache_p = M.decode_step(p2, cache_p, {"tokens": b},
+                                    PREFILL_S + t, cfg2)
+        ld, cache_d = M.decode_step(p2, cache_d, {"tokens": b},
+                                    PREFILL_S + t, cfg2)
+        errs.append(float(torch.max(torch.abs(lp.float() - ld.float()))))
+        check(torch.allclose(lp.float(), ld.float(), rtol=LM_BF16_TOL,
+                             atol=LM_BF16_TOL),
+              f"prefill vs stepwise decode: step {t} logits differ "
+              f"({errs[-1]:.3g})")
+    log("prefill", f"agreement at depth {depth}, full width, S={PREFILL_S}: "
+        f"prefill vs {PREFILL_S} one-token steps, max |logit err| "
+        f"{max(errs):.3g} over the last prompt position and 8 steps after "
+        f"(tolerance {LM_BF16_TOL}); greedy tokens differ on {flips} of 8 "
+        f"(near-ties only); {time.perf_counter() - t0:.1f} s")
+
+
+def _index_repeats(tree, n):
+    if isinstance(tree, dict):
+        return {k: _index_repeats(v, n) for k, v in tree.items()}
+    return tree[:n]
 
 
 # ---------------------------------------------------------------------------
@@ -586,6 +971,12 @@ def larger_bound(t_ops_s: float, nbytes: int):
 
 
 def phase_timing(torch, ctx):
+    time_assign(torch, ctx)
+    time_scan(torch, ctx)
+    time_lm(torch, ctx)
+
+
+def time_assign(torch, ctx):
     from repro_torch.kernels.assign_kernel import (grid_blocks,
                                                    points_per_thread)
     from repro_torch.kernels.ops import assign_backend
@@ -634,7 +1025,6 @@ def phase_timing(torch, ctx):
         log("timing", f"backend {backend} sweep n={MAIN_N} k={MAIN_K}: "
             f"{ms:.4f} ms, of which around the kernel {ms - kernel:.4f} ms"
             f"  [{ctx['card']}]")
-    time_scan(torch, ctx)
 
 
 def time_scan(torch, ctx):
@@ -693,6 +1083,78 @@ def wall_ms(torch, fn, iters: int = 5) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def time_lm(torch, ctx):
+    """The two language-model kernels at the path's shapes: the router at
+    granite's prefill (T = 4096, bf16 tokens) and decode (T = 4), flash
+    attention at one granite layer of a 4096-token prefill (bf16). Each
+    row's error comes from the instance and inputs it times."""
+    import torch.nn.functional as F
+    from repro_torch.configs import granite_moe_3b_a800m as granite
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.moe_router_kernel import (BLOCK_E,
+                                                       router_topk_cuda,
+                                                       router_topk_plain)
+    cfg = granite.CONFIG
+    E, K, D = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
+    rec = ctx["kernels"].setdefault("router_topk", {})
+    for T in (SERVE_BATCH, PREFILL_S):
+        x, c, infl = router_inputs(torch, T, E, D, T, torch.bfloat16, True)
+        inv2 = 1.0 / (infl * infl)
+        # the kernel on the inputs ops.router_topk hands it (padded E)
+        cp = ops._pad_rows(c, BLOCK_E, ops._FAR).contiguous()
+        ip = ops._pad_rows(inv2, BLOCK_E, 1.0).contiguous()
+        _, eff = router_topk_cuda(x, cp, ip, K, e_real=E)
+        _, peff = router_topk_plain(x, cp, ip, K, e_real=E)
+        err = float(torch.max(torch.abs(eff - peff)))
+        ms = time_ms(torch, lambda: router_topk_cuda(x, cp, ip, K, e_real=E),
+                     iters=50)
+        wrapped = time_ms(torch, lambda: ops.router_topk(x, c, infl,
+                                                         top_k=K), iters=50)
+        plain = time_ms(torch, lambda: router_topk_plain(x, cp, ip, K,
+                                                         e_real=E), iters=20)
+        # 2 D + 3 float32 operations a (token, expert) pair; bytes: x in
+        # bf16, centroids and inv2 in f32 read once, idx + eff written
+        bnd, by = larger_bound(T * E * (2 * D + 3) / PEAK_F32_FLOPS,
+                               2 * T * D + 4 * E * (D + 1) + 8 * T * K)
+        log("timing", f"router_topk T={T} E={E} D={D} K={K} bf16: kernel "
+            f"{ms:.4f} ms (with the wrapper's padding {wrapped:.4f} ms), "
+            f"plain {plain:.4f} ms, max |err| {err:.3g}, bound {bnd:.4f} ms "
+            f"({by})  [{ctx['card']}]")
+        if T == PREFILL_S:
+            rec.update(ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=bnd,
+                       bound_by=by, library_ms=None)
+    log("timing", "router_topk: no single PyTorch call computes the top-k "
+        "smallest effective distances (a cdist + topk is two calls and "
+        "orders ties otherwise): library_ms is null")
+    B, S, H, KV, dh = 1, PREFILL_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = flash_inputs(torch, B, S, H, KV, dh, torch.bfloat16, 5)
+    out = ops.flash_attention(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    rec = ctx["kernels"].setdefault("flash_attention", {})
+    rec["max_abs_err"] = float(torch.max(torch.abs(out.float() -
+                                                   want.float())))
+    rec["ms"] = time_ms(torch, lambda: ops.flash_attention(q, k, v),
+                        iters=10)
+    rec["plain_ms"] = time_ms(torch, lambda: flash_attention_plain(q, k, v),
+                              iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
+    flops = 4 * dh * H * S * (S + 1) // 2 * B
+    nbytes = 2 * B * S * dh * (2 * H + 2 * KV)
+    rec["bound_ms"], rec["bound_by"] = larger_bound(
+        flops / PEAK_BF16_FLOPS, nbytes)
+    f32_ms = flops / PEAK_F32_FLOPS * 1e3
+    log("timing", f"flash_attention B={B} S={S} H={H} KV={KV} dh={dh} bf16:"
+        f" kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, SDPA "
+        f"{rec['library_ms']:.4f} ms, max |err| {rec['max_abs_err']:.3g}, "
+        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, bf16 tensor "
+        f"cores; {f32_ms:.4f} ms at the float32 CUDA-core rate the kernel "
+        f"computes at), {flops / rec['ms'] / 1e9:.1f} TFLOP/s  "
+        f"[{ctx['card']}]")
+
+
 # name -> (source, the TPU kernel or host step it replaces)
 KERNEL_META = {
     "assign_reduce": ("assign.cu", "src/repro/kernels/assign_kernel.py:374"),
@@ -703,6 +1165,10 @@ KERNEL_META = {
                            "src/repro/kernels/triton_assign.py:132"),
     # no TPU kernel: the reference's host np.cumsum of the bootstrap
     "prefix_sum": ("scan.cu", "src/repro/core/sfc.py:221"),
+    "router_topk": ("router.cu",
+                    "src/repro/kernels/moe_router_kernel.py:100"),
+    "flash_attention": ("flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:93"),
 }
 
 
@@ -742,20 +1208,23 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     ctx = {"kernels": {}}
     phase_card(torch, ctx)
-    if "build" in phases:
-        phase_build(torch, ctx)
-    if "kernels" in phases:
-        phase_kernels(torch, args.quick)
-    if "main" in phases:
-        phase_main(torch, ctx)
-    if "paths" in phases:
-        phase_paths(torch, ctx)
-    if "agreement" in phases:
-        phase_agreement(torch, ctx)
-    if "profile" in phases:
-        phase_profile(torch, ctx)
-    if "timing" in phases:
-        phase_timing(torch, ctx)
+    run = {"build": lambda: phase_build(torch, ctx),
+           "kernels": lambda: phase_kernels(torch, args.quick),
+           "lm_kernels": lambda: phase_lm_kernels(torch),
+           "main": lambda: phase_main(torch, ctx),
+           "paths": lambda: phase_paths(torch, ctx),
+           "agreement": lambda: phase_agreement(torch, ctx),
+           "profile": lambda: phase_profile(torch, ctx),
+           "serve": lambda: phase_serve(torch, ctx),
+           "prefill": lambda: phase_prefill(torch, ctx),
+           "timing": lambda: phase_timing(torch, ctx)}
+    t_all = time.perf_counter()
+    for name in PHASES[1:]:
+        if name in phases:
+            t0 = time.perf_counter()
+            run[name]()
+            log("time", f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    log("time", f"all phases: {time.perf_counter() - t_all:.1f} s")
     print(kernels_json(ctx))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,63 @@
+"""Architecture config registry (reference: ``repro/configs``).
+
+It knows the reference's ten architectures and their CLI aliases. Only
+``granite_moe_3b_a800m`` is ported; ``get`` raises ``NotYetPortedError``
+for the other nine (ROADMAP.md, slice F). Each ported module exposes
+``CONFIG`` (the full configuration), ``SMOKE`` (a reduced one of the same
+family for CPU tests) and ``LONG_CONTEXT_OK``. Sharding overrides belong
+to the multi-device slice and are not carried.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.partition.problem import NotYetPortedError
+
+ARCHS = [
+    "starcoder2_7b",
+    "phi4_mini_3p8b",
+    "phi3_mini_3p8b",
+    "gemma3_1b",
+    "musicgen_large",
+    "jamba_1p5_large_398b",
+    "llama4_maverick_400b_a17b",
+    "granite_moe_3b_a800m",
+    "rwkv6_3b",
+    "internvl2_76b",
+]
+
+PORTED = ("granite_moe_3b_a800m",)
+
+# canonical CLI ids (--arch <id>)
+ALIASES = {
+    "starcoder2-7b": "starcoder2_7b",
+    "phi4-mini-3.8b": "phi4_mini_3p8b",
+    "phi3-mini-3.8b": "phi3_mini_3p8b",
+    "gemma3-1b": "gemma3_1b",
+    "musicgen-large": "musicgen_large",
+    "jamba-1.5-large-398b": "jamba_1p5_large_398b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "rwkv6-3b": "rwkv6_3b",
+    "internvl2-76b": "internvl2_76b",
+}
+
+
+def get(name: str):
+    name = ALIASES.get(name, name)
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name}; known: {sorted(ALIASES)}")
+    if name not in PORTED:
+        raise NotYetPortedError(
+            f"arch {name} is not ported yet (ROADMAP.md slice F); ported: "
+            f"{list(PORTED)}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(name: str, smoke: bool = False):
+    mod = get(name)
+    return mod.SMOKE if smoke else mod.CONFIG
+
+
+def long_context_ok(name: str) -> bool:
+    return getattr(get(name), "LONG_CONTEXT_OK", False)

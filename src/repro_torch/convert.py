@@ -7,7 +7,9 @@ objects of the reference, so the port still imports nothing of it.
   ``BKMConfig`` (``dataclasses.asdict`` of it, with ``dtype`` as a string
   such as ``"float32"``) into the port's ``BKMConfig``;
 * ``state_from_numpy`` turns a reference result's warm-start pair
-  (centers, influence) into tensors on a device.
+  (centers, influence) into tensors on a device;
+* ``params_from_numpy`` turns a reference model's parameter tree (numpy
+  leaves) into the port's tree of tensors.
 """
 from __future__ import annotations
 
@@ -46,3 +48,14 @@ def state_from_numpy(centers: np.ndarray, influence: np.ndarray | None,
     infl = (None if influence is None else
             torch.tensor(np.asarray(influence), device=device).to(dtype))
     return c, infl
+
+
+def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
+    """A reference parameter tree, as nested dicts of numpy arrays
+    (``jax.tree.map(np.asarray, params)``), as the port's tree of tensors
+    on ``device``: the same keys, the arrays copied, cast to ``dtype`` when
+    given."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    t = torch.from_numpy(np.array(tree, order="C")).to(device)
+    return t if dtype is None else t.to(dtype)

@@ -1,9 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
-Each source in ``kernels/csrc/`` (``assign.cu``, ``scan.cu``) is compiled
-at first use with ``nvcc`` into a shared library with a plain C interface
-and loaded with ``ctypes``; no PyTorch headers are involved, so a build
-takes seconds. ``build_libraries`` starts one ``nvcc`` per missing
+Each source in ``kernels/csrc/`` (``assign.cu``, ``scan.cu``,
+``router.cu``, ``flash_attention.cu``) is compiled at first use with
+``nvcc`` into a shared library with a plain C interface and loaded with
+``ctypes``; no PyTorch headers are involved, so a build takes seconds. ``build_libraries`` starts one ``nvcc`` per missing
 library, all at once. A library is named by a hash of its source and
 flags and kept in ``kernels/_build/`` (listed in ``.gitignore``), so an
 edited source is rebuilt and an unchanged one is loaded as it is.
@@ -30,6 +30,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures of the entry points, by library (see the sources)
 _SIGNATURES = {
     "assign": {
@@ -41,6 +42,14 @@ _SIGNATURES = {
     },
     "scan": {
         "repro_prefix_sum_f64": [_P, _P, _L, _P],
+    },
+    "router": {
+        "repro_router_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                              _P],
+    },
+    "flash_attention": {
+        "repro_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _I] + [_L] * 12 + [_F, _F, _P],
     },
 }
 LIBRARIES = tuple(_SIGNATURES)

@@ -1,5 +1,7 @@
-"""Assignment-backend registry, the dense PyTorch backend, and the wrapper
-of the sorted CUDA kernel. Counterpart of ``repro/kernels/ops.py``.
+"""Assignment-backend registry, the dense PyTorch backend, the wrapper of
+the sorted CUDA kernel, and the wrappers of the language-model kernels
+(``flash_attention``, ``router_topk``). Counterpart of
+``repro/kernels/ops.py``.
 
 Every backend has the same contract::
 
@@ -312,34 +314,85 @@ def tile_prune_fraction(points, centers, influence, second_sq,
     return torch.mean(prunable.to(torch.float32))
 
 
-def launch_counts() -> dict:
-    """Kernel launches and plain-version calls since the last reset."""
+# ---------------------------------------------------------------------------
+# language-model kernels: causal flash attention and the MoE router
+# ---------------------------------------------------------------------------
+
+def flash_attention(q, k, v, bq: int = 512, bk: int = 512,
+                    softcap: float = 0.0):
+    """Causal flash attention. q: [B, S, H, dh], k/v: [B, S, KV, dh]
+    (H % KV == 0). Returns [B, S, H, dh] in q's type.
+
+    As in the reference, S is padded to the tile ``max(bq, bk)`` (``bq``
+    capped at the next power of two >= S, at least 128); padded keys sit
+    above the causal diagonal of every real query. At the model's S (a
+    multiple of the tile) nothing is padded or copied: the kernel reads
+    the ``[B, S, heads, dh]`` layout through strides, in its own 64-query
+    tiles."""
+    from .flash_attention import flash_attention_cuda
+    S = q.shape[1]
+    bq = min(bq, max(128, 1 << (S - 1).bit_length()))
+    bk = min(bk, bq)
+    pad = (-S) % max(bq, bk)
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                   for t in (q, k, v))
+    return flash_attention_cuda(q, k, v, softcap)[:, :S]
+
+
+def router_topk(x, centroids, influence, top_k: int, bt: int = 256,
+                block_e: int = 128):
+    """Fused balanced-k-means MoE routing. x: [T, D], centroids: [E, D],
+    influence: [E]. Returns (idx [T, top_k] int32, eff [T, top_k]
+    float32), ascending in eff, the lower expert index first on ties.
+
+    ``bt`` and ``block_e`` are the TPU kernel's tiles, kept for the
+    reference's signature; the CUDA kernel has its own (32 tokens, 64
+    experts). The centroids are padded to its expert tile with ``_FAR``
+    rows (inv2 1.0) that the kernel holds at FAR; x is handed over as it
+    is (bfloat16 or float32), and a ragged token tile needs no padding."""
+    from .moe_router_kernel import BLOCK_E, router_topk_cuda
+    del bt, block_e
+    E = centroids.shape[0]
+    inv2 = (1.0 / (influence * influence)).float()
+    c = _pad_rows(centroids.float(), BLOCK_E, _FAR).contiguous()
+    return router_topk_cuda(x.contiguous(), c,
+                            _pad_rows(inv2, BLOCK_E, 1.0).contiguous(),
+                            top_k, e_real=E)
+
+
+def _counted():
+    """(name, wrapper, attribute) of every counted kernel wrapper and
+    plain version."""
     from . import assign_kernel as ak
+    from . import flash_attention as fa
+    from . import moe_router_kernel as mr
     from . import scan
     from . import triton_assign as ta
-    return {
-        "assign_reduce": ak.assign_reduce_cuda.launches,
-        "assign_argmin": ak.assign_argmin_cuda.launches,
-        "assign_reduce_flat": ta.triton_assign_reduce_cuda.launches,
-        "assign_argmin_flat": ta.triton_assign_cuda.launches,
-        "assign_reduce_plain": ak.assign_reduce_plain.calls,
-        "assign_argmin_plain": ak.assign_argmin_plain.calls,
-        "prefix_sum": scan.prefix_sum.launches,
-        "prefix_sum_plain": scan.prefix_sum_plain.calls,
-    }
+    return (
+        ("assign_reduce", ak.assign_reduce_cuda, "launches"),
+        ("assign_argmin", ak.assign_argmin_cuda, "launches"),
+        ("assign_reduce_flat", ta.triton_assign_reduce_cuda, "launches"),
+        ("assign_argmin_flat", ta.triton_assign_cuda, "launches"),
+        ("assign_reduce_plain", ak.assign_reduce_plain, "calls"),
+        ("assign_argmin_plain", ak.assign_argmin_plain, "calls"),
+        ("prefix_sum", scan.prefix_sum, "launches"),
+        ("prefix_sum_plain", scan.prefix_sum_plain, "calls"),
+        ("router_topk", mr.router_topk_cuda, "launches"),
+        ("router_topk_plain", mr.router_topk_plain, "calls"),
+        ("flash_attention", fa.flash_attention_cuda, "launches"),
+        ("flash_attention_plain", fa.flash_attention_plain, "calls"),
+    )
+
+
+def launch_counts() -> dict:
+    """Kernel launches and plain-version calls since the last reset."""
+    return {name: getattr(fn, attr) for name, fn, attr in _counted()}
 
 
 def reset_launch_counts() -> None:
-    from . import assign_kernel as ak
-    from . import scan
-    from . import triton_assign as ta
-    for fn in (ak.assign_reduce_cuda, ak.assign_argmin_cuda,
-               ta.triton_assign_reduce_cuda, ta.triton_assign_cuda):
-        fn.launches = 0
-    ak.assign_reduce_plain.calls = 0
-    ak.assign_argmin_plain.calls = 0
-    scan.prefix_sum.launches = 0
-    scan.prefix_sum_plain.calls = 0
+    for _, fn, attr in _counted():
+        setattr(fn, attr, 0)
 
 
 # registering the flat backend imports this module back, so the import

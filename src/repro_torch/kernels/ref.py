@@ -1,5 +1,5 @@
-"""Dense PyTorch oracles for the assignment kernels (reference:
-``repro/kernels/ref.py``)."""
+"""Dense PyTorch oracles for the kernels: the assignment sweep, causal
+attention and the MoE router (reference: ``repro/kernels/ref.py``)."""
 from __future__ import annotations
 
 import torch
@@ -33,3 +33,33 @@ def center_update_ref(points, weights, assignment, k: int):
     wcount = torch.zeros(k, dtype=weights.dtype, device=weights.device)
     wcount.index_add_(0, assignment.long(), weights)
     return wsum, wcount
+
+
+def flash_attention_ref(q, k, v, softcap: float = 0.0):
+    """Dense causal attention oracle. q: [BH, S, dh], k/v: [BKV, S, dh]
+    with BH % BKV == 0 (GQA). Returns [BH, S, dh] in q.dtype."""
+    BH, S, dh = q.shape
+    G = BH // k.shape[0]
+    kx = torch.repeat_interleave(k, G, dim=0).float()
+    vx = torch.repeat_interleave(v, G, dim=0).float()
+    s = torch.einsum("hqd,htd->hqt", q.float(), kx) * (dh ** -0.5)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    mask = torch.tril(torch.ones(S, S, dtype=torch.bool, device=q.device))
+    s = torch.where(mask[None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("hqt,htd->hqd", p, vx).to(q.dtype)
+
+
+def router_topk_ref(x, centroids, inv2, top_k: int):
+    """Balanced-k-means router oracle: the top-k smallest effective
+    squared distances, ascending, the lower expert index first on ties
+    (a stable sort, as ``jax.lax.top_k`` orders ties). Returns (idx [T, k]
+    int32, eff [T, k] float32)."""
+    xf = x.float()
+    c = centroids.float()
+    xn = torch.sum(xf * xf, dim=1, keepdim=True)
+    cn = torch.sum(c * c, dim=1)[None, :]
+    eff = torch.clamp_min(xn + cn - 2.0 * xf @ c.T, 0.0) * inv2[None, :]
+    vals, idx = torch.sort(eff, dim=1, stable=True)
+    return idx[:, :top_k].to(torch.int32), vals[:, :top_k]

@@ -1,0 +1,278 @@
+"""Unified decoder-only LM (reference: ``repro/models/model.py``), ported
+for the attention + MoE layers of granite.
+
+Parameters are built through one structure function (``_param_tree``)
+driven by a ``create`` callback, as in the reference, so the tree and its
+key names match (``convert.params_from_numpy`` carries a reference tree
+over). Layer stacks keep the leading ``repeat`` dim; the reference's
+``lax.scan`` over repeats is a Python loop over the stacked ``[R, ...]``
+weights here. ``remat`` and ``unroll`` only shape the reference's
+compiled program and are accepted and ignored; so is ``rules`` (the
+sharding table of the multi-device slice).
+
+Mamba and RWKV layers, the dense MLP, and the codebooks / embeddings input
+modes raise ``NotYetPortedError``.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.partition.problem import NotYetPortedError
+
+from . import layers as L
+from . import moe as MOE
+from .config import LayerSpec, ModelConfig
+
+
+def _not_ported(what: str):
+    return NotYetPortedError(f"{what} comes with slice F (ROADMAP.md)")
+
+
+# ---------------------------------------------------------------------------
+# parameter construction
+# ---------------------------------------------------------------------------
+
+def _layer_params(cfg, spec: LayerSpec, create):
+    p = {"ln1": L.rmsnorm_params(cfg.d_model, create),
+         "ln2": L.rmsnorm_params(cfg.d_model, create)}
+    if spec.attn not in ("full", "swa"):
+        raise _not_ported(f"{spec.attn} layers")
+    p["attn"] = L.attention_params(cfg, create, spec.attn)
+    if spec.mlp == "dense":
+        p["mlp"] = L.mlp_params(cfg, create)
+    else:
+        p["moe"] = MOE.moe_params(cfg, create)
+    return p
+
+
+def _param_tree(cfg: ModelConfig, create):
+    V, D = cfg.vocab_padded, cfg.d_model
+
+    def stacked(shape, axes, scale, init="normal"):
+        return create((cfg.n_repeats, *shape), ("repeat", *axes), scale, init)
+
+    if cfg.input_mode != "tokens":
+        raise _not_ported(f"input_mode={cfg.input_mode!r}")
+    p: dict[str, Any] = {"embed": create((V, D), ("vocab", "embed"), 1.0)}
+    p["layers"] = {f"pos{i}": _layer_params(cfg, spec, stacked)
+                   for i, spec in enumerate(cfg.pattern)}
+    p["final_norm"] = L.rmsnorm_params(D, create)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = create((D, V), ("embed", "vocab"), D ** -0.5)
+    return p
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
+    """Random parameters in ``cfg.param_dtype``: normal draws of
+    ``generator`` (made on the generator's device) times each leaf's
+    scale, norms at one. ``device`` defaults to ``cuda``. The draws are
+    not the reference's ``jax.random`` bits: tests carry the reference's
+    parameters over with ``convert.params_from_numpy``."""
+    dev = resolve_device(device)
+    pdt = getattr(torch, cfg.param_dtype)
+
+    def create(shape, axes, scale, init="normal"):
+        if init == "ones":
+            return torch.ones(shape, dtype=pdt, device=dev)
+        if init != "normal":
+            raise _not_ported(f"init={init!r}")
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return w.mul_(scale if scale else 0.02).to(device=dev, dtype=pdt)
+
+    return _param_tree(cfg, create)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _index(tree, r: int):
+    """Every leaf of ``tree`` at index ``r`` of its leading dim (a view)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def _stack(trees: list):
+    """Stack a list of identically shaped trees along a new leading dim."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def param_count(params) -> int:
+    return sum(int(x.numel()) for x in _leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _embed_input(params, batch, cfg, rules=None):
+    if cfg.input_mode != "tokens":
+        raise _not_ported(f"input_mode={cfg.input_mode!r}")
+    dt = cfg.act_dtype
+    # gather, then cast: the same bits as the reference's cast-then-gather
+    x = params["embed"][batch["tokens"].long()].to(dt)
+    # sqrt(d) rounded to the activation dtype first, as the reference
+    # does; the product of two such values is exact before its rounding
+    scale = float(torch.tensor(cfg.d_model ** 0.5).to(dt))
+    return x * scale
+
+
+def _layer_apply(p, spec: LayerSpec, x, cfg, rules=None, positions=None,
+                 cache=None, pos=None, influence=None, unroll_chunks=False,
+                 want_cache=False):
+    """One pattern-position layer. Returns (x, new_cache, new_infl, stats).
+
+    ``want_cache`` (prefill): with cache=None, also emit the end-of-
+    sequence cache in the decode layout."""
+    if spec.attn not in ("full", "swa"):
+        raise _not_ported(f"{spec.attn} layers")
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    out, new_cache = L.attention(p["attn"], h, cfg, rules, spec.attn,
+                                 positions, cache=cache, cache_pos=pos,
+                                 want_cache=want_cache)
+    x = x + out
+
+    h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    new_infl, stats = None, {}
+    if spec.mlp == "dense":
+        out2 = L.mlp(p["mlp"], h2, cfg, rules)
+    else:
+        out2, new_infl, stats = MOE.moe_apply(p["moe"], h2, cfg, rules,
+                                              influence)
+    return x + out2, new_cache, new_infl, stats
+
+
+def forward(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False,
+            remat: bool = True, influence=None, want_cache: bool = False,
+            last_only: bool = False):
+    """Training/prefill forward. Returns (logits, new_influence, moe_stats)
+    or, with ``want_cache``, (logits, new_influence, moe_stats, cache).
+
+    ``influence``: [n_repeats, n_moe, E] balanced-k-means router state.
+    ``want_cache``: emit the populated decode cache (prefill).
+    ``last_only``: unembed only the final position."""
+    del unroll, remat
+    x = _embed_input(params, batch, cfg, rules)
+    S = x.shape[1]
+    dev = x.device
+    positions = torch.arange(S, device=dev)
+    moe_positions = [i for i, s in enumerate(cfg.pattern) if s.mlp == "moe"]
+    use_infl = influence is not None
+    E = cfg.moe.n_experts if cfg.moe else 1
+    ninfs, drops, caches = [], [], []
+    for r in range(cfg.n_repeats):
+        p_r = _index(params["layers"], r)
+        new_infls = []
+        drop = torch.zeros((), dtype=torch.float32, device=dev)
+        cache_r = {}
+        for i, spec in enumerate(cfg.pattern):
+            li = moe_positions.index(i) if i in moe_positions else None
+            inf_i = influence[r][li] if (use_infl and li is not None) \
+                else None
+            x, nc, ni, st = _layer_apply(p_r[f"pos{i}"], spec, x, cfg, rules,
+                                         positions, influence=inf_i,
+                                         want_cache=want_cache)
+            if want_cache:
+                cache_r[f"pos{i}"] = nc
+            if li is not None:
+                new_infls.append(ni if ni is not None else
+                                 torch.ones(E, dtype=torch.float32,
+                                            device=dev))
+                drop = drop + st.get("dropped_frac", 0.0)
+        ninfs.append(torch.stack(new_infls) if new_infls else
+                     torch.zeros((0, 1), dtype=torch.float32, device=dev))
+        drops.append(drop)
+        caches.append(cache_r)
+    new_influence = torch.stack(ninfs) if use_infl else None
+    drop_frac = torch.mean(torch.stack(drops))
+
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if last_only:
+        x = x[:, -1:]
+    logits = _unembed(params, x, cfg, rules)
+    stats = {"moe_dropped_frac": drop_frac}
+    if want_cache:
+        return logits, new_influence, stats, _stack(caches)
+    return logits, new_influence, stats
+
+
+def prefill(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False):
+    """Serving prefill: full-sequence forward that returns the last-position
+    logits and the populated decode cache (the layout of
+    ``init_cache``/``decode_step``)."""
+    logits, _, _, cache = forward(params, batch, cfg, rules, unroll=unroll,
+                                  remat=False, want_cache=True,
+                                  last_only=True)
+    return logits, cache
+
+
+def _unembed(params, x, cfg, rules=None):
+    dt = x.dtype
+    if cfg.tie_embeddings:
+        w = params["embed"].to(dt).T
+    else:
+        w = params["lm_head"].to(dt)
+    return x @ w
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, rules=None,
+               device=None):
+    """Per-pattern-position KV caches stacked over repeats, zero-filled, in
+    the activation dtype. ``device`` defaults to ``cuda``."""
+    dev = resolve_device(device)
+    dt = cfg.act_dtype
+    R = cfg.n_repeats
+    cache = {}
+    for i, spec in enumerate(cfg.pattern):
+        if spec.attn != "full":
+            raise _not_ported(f"{spec.attn} decode caches")
+        shape = (R, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+        cache[f"pos{i}"] = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    return cache
+
+
+def extend_cache(cache, cfg: ModelConfig, max_seq: int):
+    """Pad a prefill-produced cache (seq length = prompt) out to the decode
+    horizon so ``decode_step`` can write positions >= prompt length."""
+    out = {}
+    for i, spec in enumerate(cfg.pattern):
+        c = cache[f"pos{i}"]
+        if spec.attn not in ("full", "swa"):
+            raise _not_ported(f"{spec.attn} decode caches")
+        pad = max_seq - c["k"].shape[2]
+        out[f"pos{i}"] = {kk: torch.nn.functional.pad(
+            v, (0, 0, 0, 0, 0, pad)) for kk, v in c.items()}
+    return out
+
+
+def decode_step(params, cache, batch, pos, cfg: ModelConfig, rules=None,
+                unroll: bool = False):
+    """One-token decode. batch: {"tokens": [B,1]}; pos: int. Returns
+    (logits [B,1,V], cache), the cache updated in place."""
+    del unroll
+    x = _embed_input(params, batch, cfg, rules)
+    for r in range(cfg.n_repeats):
+        p_r = _index(params["layers"], r)
+        c_r = _index(cache, r)
+        for i, spec in enumerate(cfg.pattern):
+            x, _, _, _ = _layer_apply(p_r[f"pos{i}"], spec, x, cfg, rules,
+                                      cache=c_r[f"pos{i}"], pos=pos)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = _unembed(params, x, cfg, rules)
+    return logits, cache

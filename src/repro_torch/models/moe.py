@@ -1,0 +1,159 @@
+"""Mixture-of-Experts layer with two routers (reference:
+``repro/models/moe.py``):
+
+* ``linear``          — learned-logits router;
+* ``balanced_kmeans`` — the paper's assignment as expert routing: experts
+  are centroids, tokens go to the top-k smallest effective distances
+  ``sqdist(x, c) / influence^2``, and the per-expert influence is updated
+  from the realized loads with the paper's Eq. (1)
+  (``repro_torch.core.balanced_kmeans.adapt_influence``).
+
+The balanced-k-means top-k is the CUDA router kernel
+(``ops.router_topk``), which multiplies by ``1 / influence^2`` where the
+reference divides by ``influence^2``: the same bits where influence is 1,
+as on the serving paths (``decode_step`` and ``prefill`` pass none).
+
+Dispatch is the reference's gather-based scheme, integer for integer: the
+capacity ``C``, the stable argsort of expert ids, ``starts``, ``valid``
+and ``slot``. ``rules`` is accepted and ignored on this single-device
+path.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.balanced_kmeans import adapt_influence
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+
+
+def moe_params(cfg, create):
+    m = cfg.moe
+    d, f, E = cfg.d_model, m.d_ff, m.n_experts
+    p = {
+        "router": create((d, E), ("embed", "expert"), d ** -0.5),
+        "w_gate": create((E, d, f), ("expert", "e_embed", "e_mlp"), d ** -0.5),
+        "w_up": create((E, d, f), ("expert", "e_embed", "e_mlp"), d ** -0.5),
+        "w_down": create((E, f, d), ("expert", "e_mlp", "e_embed"), f ** -0.5),
+    }
+    if m.n_shared_experts:
+        fs = m.d_ff * m.n_shared_experts
+        p["shared"] = {
+            "w_gate": create((d, fs), ("embed", "mlp"), d ** -0.5),
+            "w_up": create((d, fs), ("embed", "mlp"), d ** -0.5),
+            "w_down": create((fs, d), ("mlp", "embed"), fs ** -0.5)}
+    if m.router == "balanced_kmeans":
+        p["centroids"] = create((E, d), ("expert", "embed"), d ** -0.5)
+    return p
+
+
+def init_router_state(cfg, device=None):
+    """Per-MoE-layer influence vector (paper: initialized to 1), on
+    ``device`` (default ``cuda``)."""
+    if cfg.moe is None or cfg.moe.router != "balanced_kmeans":
+        return None
+    n_moe = sum(1 for s in cfg.pattern if s.mlp == "moe")
+    return {"influence": torch.ones(cfg.n_repeats, n_moe, cfg.moe.n_experts,
+                                    dtype=torch.float32,
+                                    device=resolve_device(device))}
+
+
+def router_logits(params, x, m, influence):
+    """x: [T, D] -> logits [T, E] (higher = preferred)."""
+    if m.router == "linear":
+        return x.float() @ params["router"].float()
+    c = params["centroids"].float()
+    xf = x.float()
+    sq = (torch.sum(xf * xf, -1, keepdim=True) + torch.sum(c * c, -1)[None]
+          - 2.0 * xf @ c.T)
+    eff = torch.clamp_min(sq, 0.0) / (influence * influence)[None]
+    return -eff  # min effective distance == max logit
+
+
+def _gather_rows(src, idx):
+    """src [B, N, D], idx [B, M] -> src[b, idx[b, m]] as [B, M, D]."""
+    return torch.gather(src, 1, idx[..., None].expand(-1, -1, src.shape[2]))
+
+
+def moe_apply(params, x, cfg, rules=None, influence=None):
+    """x: [B, S, D]. Returns (out, new_influence, load_stats).
+
+    Dispatch groups are per batch row: capacity is ``top_k * S / E * cf``
+    per group."""
+    del rules
+    m = cfg.moe
+    B, S, D = x.shape
+    E, K = m.n_experts, m.top_k
+    dt = x.dtype
+    dev = x.device
+
+    infl = influence if influence is not None else \
+        torch.ones(E, dtype=torch.float32, device=dev)
+    if m.router == "balanced_kmeans":
+        eidx, eff = ops.router_topk(x.reshape(B * S, D), params["centroids"],
+                                    infl, K)
+        gates = -eff                      # top-k logits, descending
+    else:
+        logits = router_logits(params, x.reshape(B * S, D), m, infl)
+        # stable descending sort: ties keep the lower expert first, as
+        # jax.lax.top_k orders them
+        gates, eidx = torch.sort(logits, dim=-1, descending=True,
+                                 stable=True)
+        gates, eidx = gates[:, :K], eidx[:, :K]
+    gates = torch.softmax(gates.reshape(B, S, K), dim=-1).to(dt)
+
+    C = int(max(1, round(K * S / E * m.capacity_factor)))
+    T = S * K
+    flat_e = eidx.reshape(B, T).long()
+    # one-hot by comparison: F.one_hot checks its range on the host, a
+    # device sync in every layer
+    onehot = (flat_e[..., None] == torch.arange(E, device=dev)).long()
+    cum = torch.cumsum(onehot, dim=1)
+    pos = torch.gather(cum, 2, flat_e[..., None])[..., 0] - 1
+    ok = pos < C
+    slot = torch.where(ok, flat_e * C + pos, E * C)      # overflow -> sentinel
+    # gather-based dispatch: slot (e, c) takes token order[b, starts[e]+c]
+    order = torch.argsort(flat_e, dim=1, stable=True)    # [B, T]
+    counts = torch.sum(onehot, dim=1)                    # [B, E]
+    starts = torch.cumsum(counts, dim=1) - counts        # exclusive
+    c_idx = torch.arange(C, device=dev)[None, None]
+    src_pos = torch.clamp(starts[:, :, None] + c_idx, 0, T - 1)
+    valid = c_idx < torch.clamp(counts, max=C)[:, :, None]   # [B, E, C]
+    tok_idx = torch.gather(order, 1, src_pos.reshape(B, E * C))
+    if m.dispatch_no_repeat:
+        hidden = _gather_rows(x, tok_idx // K)
+    else:
+        src = torch.repeat_interleave(x, K, dim=1) if K > 1 else x
+        hidden = _gather_rows(src, tok_idx)
+    hidden = hidden * valid.reshape(B, E * C, 1).to(dt)
+    hidden = hidden.reshape(B, E, C, D)
+
+    g = torch.nn.functional.silu(torch.einsum(
+        "becd,edf->becf", hidden, params["w_gate"].to(dt)))
+    u = torch.einsum("becd,edf->becf", hidden, params["w_up"].to(dt))
+    eo = torch.einsum("becf,efd->becd", g * u, params["w_down"].to(dt))
+    eo = torch.cat([eo.reshape(B, E * C, D),
+                    torch.zeros(B, 1, D, dtype=dt, device=dev)], dim=1)
+    gathered = _gather_rows(eo, slot)                    # [B,S*K,D]
+    w = (gates.reshape(B, S * K) * ok.to(dt))[..., None]
+    out = torch.sum((gathered * w).reshape(B, S, K, D), dim=2)
+
+    if m.n_shared_experts:
+        sp = params["shared"]
+        h = torch.nn.functional.silu(x @ sp["w_gate"].to(dt)) * \
+            (x @ sp["w_up"].to(dt))
+        out = out + h @ sp["w_down"].to(dt)
+
+    # --- paper Eq. (1): influence update from realized loads -------------
+    load = torch.sum(onehot.float(), dim=(0, 1))                 # [E]
+    stats = {"dropped_frac": 1.0 - torch.mean(ok.float()),
+             "load_imbalance": torch.max(load) / (K * B * S / E) - 1.0}
+    new_infl = None
+    if m.router == "balanced_kmeans":
+        target = K * B * S / E
+        new_infl, _ = adapt_influence(infl, load, target, m.router_d_eff,
+                                      m.router_influence_clip)
+        # only influence ratios matter; renormalize to geometric mean 1
+        new_infl = new_infl * torch.exp(-torch.mean(torch.log(
+            torch.clamp_min(new_infl, 1e-12))))
+    return out, new_infl, stats

@@ -1,0 +1,114 @@
+"""Serving: the single-token ``serve_step`` factory and the batched
+request engine (reference: ``repro/serve/engine.py``).
+
+``make_serve_step`` builds the one-token greedy decode: logits from the
+KV-cache decode path, padded vocab masked with -inf, argmax. PyTorch runs
+it eagerly; there is nothing to compile. ``ServeEngine`` admits requests
+into fixed slots, prefills each slot's cache by stepping the shared
+position-aligned decode path over the prompt, and masks finished rows:
+the reference's static batching, round for round.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.models import model as M
+
+
+def make_serve_step(cfg, rules=None, sample: str = "greedy",
+                    unroll: bool = False):
+    """Returns serve_step(params, cache, tokens, pos) ->
+    (next_tokens [B,1] int32, cache, logits)."""
+    if sample != "greedy":
+        raise ValueError(f"sample={sample!r}: only greedy is implemented")
+
+    def serve_step(params, cache, tokens, pos):
+        logits, new_cache = M.decode_step(params, cache, {"tokens": tokens},
+                                          pos, cfg, rules, unroll=unroll)
+        lf = logits.float()
+        if cfg.vocab_size < cfg.vocab_padded:
+            pad = torch.arange(cfg.vocab_padded,
+                               device=lf.device) >= cfg.vocab_size
+            lf = torch.where(pad, float("-inf"), lf)
+        nxt = torch.argmax(lf, dim=-1).to(torch.int32)
+        return nxt, new_cache, logits
+
+    return serve_step
+
+
+@dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray                  # [P]
+    max_new: int = 16
+    eos_id: int | None = None
+    out: list = field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    """Batched greedy decoding over fixed slots (static shapes).
+
+    Rounds: admit up to B requests; all slots share the step position;
+    shorter prompts emit pad tokens that are masked out of their
+    transcript. Decode proceeds until every admitted request hit
+    ``max_new`` or EOS. Runs on the device that holds ``params``."""
+
+    def __init__(self, cfg, rules, params, batch: int, max_seq: int,
+                 pad_id: int = 0):
+        self.cfg = cfg
+        self.rules = rules
+        self.params = params
+        self.B = batch
+        self.max_seq = max_seq
+        self.pad_id = pad_id
+        self.device = params["embed"].device
+        self.step_fn = make_serve_step(cfg, rules)
+
+    def _fresh_cache(self):
+        return M.init_cache(self.cfg, self.B, self.max_seq, self.rules,
+                            device=self.device)
+
+    def run(self, requests: list[Request]) -> list[Request]:
+        for base in range(0, len(requests), self.B):
+            self._run_group(requests[base:base + self.B])
+        return requests
+
+    def _run_group(self, group: list) -> None:
+        B = self.B
+        plens = [len(r.prompt) for r in group]
+        pmax = max(plens)
+        toks = np.full((B, pmax), self.pad_id, np.int32)
+        for i, r in enumerate(group):
+            toks[i, :plens[i]] = r.prompt
+        toks = torch.from_numpy(toks).to(self.device)
+        cache = self._fresh_cache()
+        params = self.params
+        # prefill by stepping the decode path over the prompt
+        assert pmax >= 1, "empty prompts unsupported"
+        cur = None
+        for p in range(pmax):
+            cur, cache, _ = self.step_fn(params, cache, toks[:, p:p + 1], p)
+        max_new = max(r.max_new for r in group)
+        done = np.zeros(B, bool)
+        for t in range(max_new):
+            pos = pmax + t
+            if pos >= self.max_seq:
+                break
+            host = cur.cpu().numpy()
+            for i, r in enumerate(group):
+                if not done[i] and t < r.max_new:
+                    tok_val = int(host[i].reshape(-1)[0])
+                    r.out.append(tok_val)
+                    if r.eos_id is not None and tok_val == r.eos_id:
+                        done[i] = True
+                elif t >= r.max_new:
+                    done[i] = True
+            if done.all():
+                break
+            cur, cache, _ = self.step_fn(params, cache, cur, pos)
+        for r in group:
+            r.done = True

@@ -1,0 +1,167 @@
+"""Causal flash attention: the port's ``ops.flash_attention`` (its plain
+version on the CPU) against the JAX package's ``ops.flash_attention`` (the
+Pallas kernel in interpret mode), and the port's ``attention`` against the
+reference's across the ``FLASH_S_MIN`` switch. Inputs are made with numpy
+and handed to both.
+
+Tolerances: 2e-5 in float32 and 2e-2 in bfloat16 for the kernel, the
+reference's own (tests/test_kernels_flash_router.py): an exact softmax
+against an online one over 128-key tiles differs in the last bits in
+float32, and bfloat16 output rounds at 8 bits. The layer-level comparison
+uses the LM parity tolerance of 1e-4 (tests/test_torch_lm.py): the
+projections and RoPE around the attention add float32 rounding of their
+own.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as ref_configs
+from repro.dist.rules import resolve_rules
+from repro.kernels import ops as ref_ops
+from repro.launch.mesh import make_host_mesh
+from repro.models import layers as RL
+from repro.models import model as RM
+from repro_torch.configs import granite_moe_3b_a800m as granite
+from repro_torch.convert import params_from_numpy
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+from repro_torch.models import layers as L
+
+# several pytest workers share a few cores: one intra-op thread each keeps
+# these small-tensor tests from oversubscribing them
+torch.set_num_threads(1)
+
+MESH = make_host_mesh()
+
+
+
+def _qkv(B, S, H, KV, dh, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, dh)).astype(np.float32),
+            rng.standard_normal((B, S, KV, dh)).astype(np.float32),
+            rng.standard_normal((B, S, KV, dh)).astype(np.float32))
+
+
+CASES = [
+    (2, 256, 4, 4, 32, 128, 128, 0.0, "float32"),     # MHA
+    (1, 512, 8, 2, 64, 256, 128, 0.0, "float32"),     # GQA 4:1
+    (2, 384, 4, 1, 32, 128, 128, 0.0, "float32"),     # MQA + padding
+    (1, 256, 4, 4, 128, 128, 128, 50.0, "float32"),   # softcap (gemma)
+    (1, 256, 2, 2, 64, 128, 128, 0.0, "bfloat16"),    # bf16 io
+    (1, 300, 3, 1, 16, 128, 128, 0.0, "float32"),     # odd S, odd heads
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,dh,bq,bk,softcap,dtype", CASES)
+def test_flash_matches_reference(B, S, H, KV, dh, bq, bk, softcap, dtype):
+    q, k, v = _qkv(B, S, H, KV, dh)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = ref_ops.flash_attention(jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                                   jnp.asarray(v, jdt), bq=bq, bk=bk,
+                                   softcap=softcap)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, bq=bq, bk=bk, softcap=softcap)
+    assert got.shape == (B, S, H, dh) and got.dtype == tdt
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+    # and against the port's dense oracle in the [BH, S, dh] layout
+    oracle = ref.flash_attention_ref(
+        tq.transpose(1, 2).reshape(B * H, S, dh),
+        tk.transpose(1, 2).reshape(B * KV, S, dh),
+        tv.transpose(1, 2).reshape(B * KV, S, dh), softcap=softcap)
+    oracle = oracle.reshape(B, H, S, dh).transpose(1, 2)
+    np.testing.assert_allclose(got.float().numpy(), oracle.float().numpy(),
+                               rtol=tol, atol=tol)
+
+
+def test_plain_version_reads_strided_layout():
+    """The kernel's contract reads q/k/v through strides: a non-contiguous
+    view (heads split out of a fused projection) gives the contiguous
+    result, and the query chunk changes no row."""
+    q, k, v = _qkv(1, 200, 6, 2, 16, seed=3)
+    fused = torch.from_numpy(np.concatenate(
+        [q, k, v], axis=2)).contiguous()           # [1, 200, 10, 16]
+    tq, tk, tv = fused[:, :, :6], fused[:, :, 6:8], fused[:, :, 8:]
+    assert not tq.is_contiguous()
+    fa.check_kernel_inputs(tq, tk, tv)
+    a = fa.flash_attention_plain(tq, tk, tv, q_chunk=64)
+    b = fa.flash_attention_plain(tq.contiguous(), tk.contiguous(),
+                                 tv.contiguous(), q_chunk=512)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("dh", [8, 48, 512])
+def test_kernel_refuses_head_dims_it_is_not_built_for(dh):
+    q, k, v = (torch.zeros(1, 64, 2, dh) for _ in range(3))
+    with pytest.raises(fa.UnsupportedHeadDimError, match="head dim"):
+        fa.check_kernel_inputs(q, k, v)
+    for good in fa.HEAD_DIMS:
+        t = torch.zeros(1, 64, 2, good)
+        fa.check_kernel_inputs(t, t, t)
+
+
+def test_kernel_input_checks():
+    q = torch.zeros(1, 64, 6, 16)
+    kv = torch.zeros(1, 64, 4, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.check_kernel_inputs(q, kv, kv)
+    with pytest.raises(ValueError, match="one type"):
+        fa.check_kernel_inputs(q.bfloat16(), torch.zeros(1, 64, 2, 16),
+                               torch.zeros(1, 64, 2, 16))
+
+
+def test_cpu_tensor_takes_the_plain_version():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 64, 2, 2, 16))
+    ops.reset_launch_counts()
+    ops.flash_attention(q, k, v)
+    fa.flash_attention_cuda(q, k, v)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_plain"] == 2
+    assert counts["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("S", [48, 64, 96])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_matches_reference_across_flash_switch(monkeypatch, S,
+                                                         dtype):
+    """granite SMOKE attention, full causal with the prefill cache: below
+    FLASH_S_MIN the dense path in both packages, at and above it the
+    reference's _flash_full against the port's ops.flash_attention. Both
+    modules get FLASH_S_MIN = 64 and 32-token chunks, as
+    tests/test_flash_path.py shrinks the reference's."""
+    for mod in (RL, L):
+        monkeypatch.setattr(mod, "FLASH_S_MIN", 64)
+        monkeypatch.setattr(mod, "_QC", 32)
+        monkeypatch.setattr(mod, "_KVC", 32)
+    import dataclasses
+    import jax
+    rcfg = dataclasses.replace(ref_configs.get_config(
+        "granite_moe_3b_a800m", smoke=True), dtype=dtype)
+    pcfg = dataclasses.replace(granite.SMOKE, dtype=dtype)
+    rules = resolve_rules(MESH, rcfg, "decode")
+    rp = RM.init_params(rcfg, jax.random.PRNGKey(1))["layers"]["pos0"][
+        "attn"]
+    rp = {kk: vv[0] for kk, vv in rp.items()}
+    pp = params_from_numpy(jax.tree.map(np.asarray, rp), "cpu")
+    x = np.random.default_rng(S).standard_normal(
+        (2, S, rcfg.d_model)).astype(np.float32)
+    want, wc = RL.attention(rp, jnp.asarray(x, getattr(jnp, dtype)), rcfg,
+                            rules, want_cache=True)
+    ops.reset_launch_counts()
+    got, gc = L.attention(pp, torch.from_numpy(x).to(getattr(torch, dtype)),
+                          pcfg, want_cache=True)
+    flash = ops.launch_counts()["flash_attention_plain"]
+    assert flash == (1 if S >= 64 else 0)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+    for kk in ("k", "v"):
+        np.testing.assert_allclose(gc[kk].float().numpy(),
+                                   np.asarray(wc[kk], np.float32),
+                                   rtol=tol, atol=tol)
+
