@@ -399,30 +399,33 @@ def router_inputs(torch, T, E, D, seed, x_dtype, unit_influence):
 
 
 def compare_router(torch, T, E, D, K, seed, x_dtype, unit_influence):
-    """ops.router_topk on the card (padding + kernel) against the plain
-    version on the same inputs."""
-    import numpy as np
+    """ops.router_topk on the card (kernel) against the plain version on
+    the same inputs: the effective distances within the tolerance, and
+    each index held against the dense [T, E] distances the plain version
+    sorts (ref.router_topk_disagreements: distinct experts, each named
+    expert's distance, the stable order except at a tie)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.moe_router_kernel import router_topk_plain
+    from repro_torch.kernels.ref import (router_eff_ref,
+                                         router_topk_disagreements)
     x, c, infl = router_inputs(torch, T, E, D, seed, x_dtype, unit_influence)
     idx, eff = ops.router_topk(x, c, infl, top_k=K)
     torch.cuda.synchronize()
-    pidx, peff = router_topk_plain(x, c, 1.0 / (infl * infl), K)
+    inv2 = 1.0 / (infl * infl)
+    pidx, peff = router_topk_plain(x, c, inv2, K)
+    full = router_eff_ref(x, c, inv2)
     torch.cuda.synchronize()
-    idx, eff = idx.cpu().numpy(), eff.cpu().numpy()
-    pidx, peff = pidx.cpu().numpy(), peff.cpu().numpy()
     what = f"router_topk T={T} E={E} D={D} K={K} {x_dtype}"
-    check(np.allclose(eff, peff, rtol=ROUTER_TOL, atol=ROUTER_TOL),
-          f"{what}: eff differs (max |err| {np.max(np.abs(eff - peff)):.3g})")
-    # indices may differ only where effective distances tie
-    bad = idx != pidx
-    check(np.allclose(eff[bad], peff[bad], rtol=ROUTER_TOL,
-                      atol=ROUTER_TOL), f"{what}: index differs off a tie")
-    check(bool((np.diff(eff, axis=1) >= 0).all()), f"{what}: not ascending")
-    check(bool(((idx >= 0) & (idx < E)).all()), f"{what}: index range")
-    err = float(np.max(np.abs(eff - peff)))
-    log("lm_kernels", f"{what}: indices equal {1 - bad.mean():.6f}, max "
-        f"|eff err| {err:.3g}")
+    err = float(torch.max(torch.abs(eff - peff)))
+    check(torch.allclose(eff, peff, rtol=ROUTER_TOL, atol=ROUTER_TOL),
+          f"{what}: eff differs (max |err| {err:.3g})")
+    faults = router_topk_disagreements(idx, eff, full, rtol=ROUTER_TOL,
+                                       atol=ROUTER_TOL)
+    check(not faults, f"{what}: {'; '.join(faults)}")
+    check(bool((torch.diff(eff, dim=1) >= 0).all()), f"{what}: not ascending")
+    same = float((idx == pidx).float().mean())
+    log("lm_kernels", f"{what}: indices equal {same:.6f} (the rest at "
+        f"ties), max |eff err| {err:.3g}")
 
 
 def flash_inputs(torch, B, S, H, KV, dh, dtype, seed):
@@ -468,8 +471,12 @@ def phase_lm_kernels(torch):
                        (300, 128, 128, 2), (512, 200, 64, 4),
                        (300, 256, 32, 8), (256, 384, 16, 2)):
         compare_router(torch, T, e, d, k, T + e, torch.float32, False)
-    compare_flash(torch, 1, PREFILL_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                  torch.bfloat16)
+    # the path's shape in bf16, and in float32 at the tight tolerance: the
+    # outputs average thousands of values down to a few hundredths, so a
+    # fault on a few key tiles of late queries hides under 2e-2 only
+    for dt in (torch.bfloat16, torch.float32):
+        compare_flash(torch, 1, PREFILL_S, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.hd, dt)
     for B, S, H, KV, dh, bq, bk, cap, dt in (
             (2, 256, 4, 4, 32, 128, 128, 0.0, torch.float32),
             (1, 512, 8, 2, 64, 256, 128, 0.0, torch.float32),
@@ -876,8 +883,7 @@ def prefill_agreement(torch, cfg, params):
     the reference's own decode-vs-forward test: a full-sequence MoE drops
     tokens at capacity, a one-token step never does. Prefill's last
     logits, and the logits of the steps after it fed the same tokens,
-    agree within the bf16 tolerance; the greedy tokens are equal except
-    where the decode path's top two logits lie within it."""
+    agree within the bf16 tolerance, and the 8 greedy tokens are equal."""
     import dataclasses
     import numpy as np
     from repro_torch.models import model as M
@@ -903,15 +909,10 @@ def prefill_agreement(torch, cfg, params):
     check(torch.allclose(lp.float(), ld.float(), rtol=LM_BF16_TOL,
                          atol=LM_BF16_TOL),
           f"prefill vs stepwise decode: last logits differ ({errs[0]:.3g})")
-    flips = 0
     for t in range(8):
         a, b = greedy(torch, lp, cfg2), greedy(torch, ld, cfg2)
-        if not torch.equal(a, b):
-            top2 = torch.topk(ld.float()[..., :cfg.vocab_size], 2).values
-            gap = float(top2[..., 0] - top2[..., 1])
-            check(gap <= LM_BF16_TOL, f"prefill vs stepwise decode: greedy "
-                  f"token differs off a near-tie (gap {gap:.3g})")
-            flips += 1
+        check(torch.equal(a, b), f"prefill vs stepwise decode: greedy token "
+              f"{t} differs ({int(a)} vs {int(b)})")
         lp, cache_p = M.decode_step(p2, cache_p, {"tokens": b},
                                     PREFILL_S + t, cfg2)
         ld, cache_d = M.decode_step(p2, cache_d, {"tokens": b},
@@ -924,8 +925,8 @@ def prefill_agreement(torch, cfg, params):
     log("prefill", f"agreement at depth {depth}, full width, S={PREFILL_S}: "
         f"prefill vs {PREFILL_S} one-token steps, max |logit err| "
         f"{max(errs):.3g} over the last prompt position and 8 steps after "
-        f"(tolerance {LM_BF16_TOL}); greedy tokens differ on {flips} of 8 "
-        f"(near-ties only); {time.perf_counter() - t0:.1f} s")
+        f"(tolerance {LM_BF16_TOL}); the 8 greedy tokens equal; "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def _index_repeats(tree, n):
@@ -1092,8 +1093,7 @@ def time_lm(torch, ctx):
     from repro_torch.configs import granite_moe_3b_a800m as granite
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_plain
-    from repro_torch.kernels.moe_router_kernel import (BLOCK_E,
-                                                       router_topk_cuda,
+    from repro_torch.kernels.moe_router_kernel import (router_topk_cuda,
                                                        router_topk_plain)
     cfg = granite.CONFIG
     E, K, D = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
@@ -1101,24 +1101,21 @@ def time_lm(torch, ctx):
     for T in (SERVE_BATCH, PREFILL_S):
         x, c, infl = router_inputs(torch, T, E, D, T, torch.bfloat16, True)
         inv2 = 1.0 / (infl * infl)
-        # the kernel on the inputs ops.router_topk hands it (padded E)
-        cp = ops._pad_rows(c, BLOCK_E, ops._FAR).contiguous()
-        ip = ops._pad_rows(inv2, BLOCK_E, 1.0).contiguous()
-        _, eff = router_topk_cuda(x, cp, ip, K, e_real=E)
-        _, peff = router_topk_plain(x, cp, ip, K, e_real=E)
+        _, eff = router_topk_cuda(x, c, inv2, K)
+        _, peff = router_topk_plain(x, c, inv2, K)
         err = float(torch.max(torch.abs(eff - peff)))
-        ms = time_ms(torch, lambda: router_topk_cuda(x, cp, ip, K, e_real=E),
+        ms = time_ms(torch, lambda: router_topk_cuda(x, c, inv2, K),
                      iters=50)
         wrapped = time_ms(torch, lambda: ops.router_topk(x, c, infl,
                                                          top_k=K), iters=50)
-        plain = time_ms(torch, lambda: router_topk_plain(x, cp, ip, K,
-                                                         e_real=E), iters=20)
+        plain = time_ms(torch, lambda: router_topk_plain(x, c, inv2, K),
+                        iters=20)
         # 2 D + 3 float32 operations a (token, expert) pair; bytes: x in
         # bf16, centroids and inv2 in f32 read once, idx + eff written
         bnd, by = larger_bound(T * E * (2 * D + 3) / PEAK_F32_FLOPS,
                                2 * T * D + 4 * E * (D + 1) + 8 * T * K)
         log("timing", f"router_topk T={T} E={E} D={D} K={K} bf16: kernel "
-            f"{ms:.4f} ms (with the wrapper's padding {wrapped:.4f} ms), "
+            f"{ms:.4f} ms (through ops.router_topk {wrapped:.4f} ms), "
             f"plain {plain:.4f} ms, max |err| {err:.3g}, bound {bnd:.4f} ms "
             f"({by})  [{ctx['card']}]")
         if T == PREFILL_S:

@@ -11,8 +11,9 @@
 //   sq  = (|x_t|^2 + |c_e|^2) - 2 * (x_t . c_e)   (all sums in float32)
 //   eff = max(sq, 0) * inv2[e]
 // and the top_k smallest eff of each token, ascending, the lower expert
-// index first on ties. Experts at or past e_real (the wrapper's _FAR
-// padding) are held at FAR = 1e30 and never read. The running list starts
+// index first on ties. Experts at or past e_real (the rest of the last
+// expert tile, or rows a caller padded) are held at FAR = 1e30 and never
+// read. The running list starts
 // at FAR and a candidate enters it only when strictly smaller than its
 // last entry, so a padded expert never displaces a real one, and of two
 // equal candidates the one met first (the lower index) stays in front.

@@ -7,14 +7,11 @@ replaces is ``_router_kernel`` (``router_topk_pallas``). The CUDA source is
 what the design does about it.
 
 Contract: ``x [T, D]`` bfloat16 or float32 (read as it is: no float32 copy
-is made), ``centroids [E, D]`` float32 padded with ``_FAR`` rows to a
-multiple of ``BLOCK_E``, ``inv2 [E]`` float32, ``e_real`` the number of
-real experts, ``top_k <= min(KMAX, e_real)``. Returns ``(idx [T, top_k]
-int32, eff [T, top_k] float32)``: the ``top_k`` smallest effective squared
-distances ``max(|x|^2 + |c|^2 - 2 x.c, 0) * inv2``, ascending, the lower
-expert index first on ties. ``ops.router_topk`` does the padding. Unlike
-the TPU kernel, the token axis needs no padding: the kernel masks a ragged
-last tile itself.
+is made), ``centroids [E, D]`` float32, ``inv2 [E]`` float32, ``top_k <=
+min(KMAX, E)``. Returns ``(idx [T, top_k] int32, eff [T, top_k]
+float32)``: the ``top_k`` smallest effective squared distances ``max(|x|^2 + |c|^2 - 2 x.c, 0) * inv2``, ascending, the lower
+expert index first on ties. Unlike the TPU kernel, neither axis needs
+padding to a tile: the kernel masks a ragged last tile of each itself.
 
 The kernel multiplies by ``inv2 = 1 / influence^2``; the reference model
 divides by ``influence^2``. The two agree bit for bit only where influence
@@ -29,25 +26,21 @@ from __future__ import annotations
 import torch
 
 FAR = 1e30
-BLOCK_E = 64    # the kernel's expert tile (csrc/router.cu)
 KMAX = 32       # the largest top_k the kernel keeps
 
 
-def router_topk_plain(x, centroids, inv2, top_k: int,
-                      e_real: int | None = None):
+def router_topk_plain(x, centroids, inv2, top_k: int):
     """Plain version of ``router_topk_cuda``: the dense oracle
-    (``ref.router_topk_ref``) over the real experts only, so the padded
-    rows are never computed and never chosen."""
+    ``ref.router_topk_ref``."""
     from .ref import router_topk_ref
     router_topk_plain.calls += 1
-    e_real = centroids.shape[0] if e_real is None else e_real
-    return router_topk_ref(x, centroids[:e_real], inv2[:e_real], top_k)
+    return router_topk_ref(x, centroids, inv2, top_k)
 
 
 router_topk_plain.calls = 0
 
 
-def _check_inputs(x, centroids, inv2, top_k: int, e_real: int) -> None:
+def _check_inputs(x, centroids, inv2, top_k: int) -> None:
     T, D = x.shape
     E = centroids.shape[0]
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -67,34 +60,25 @@ def _check_inputs(x, centroids, inv2, top_k: int, e_real: int) -> None:
         raise ValueError(f"router_topk_cuda: centroids "
                          f"{tuple(centroids.shape)} / inv2 "
                          f"{tuple(inv2.shape)} do not match D={D}")
-    if E % BLOCK_E != 0:
-        raise ValueError(
-            f"router_topk_cuda: expert axis E={E} is not a multiple of "
-            f"BLOCK_E={BLOCK_E}; pad the centroid array with _FAR rows "
-            "(ops.router_topk does this)")
-    if not 1 <= e_real <= E:
-        raise ValueError(f"router_topk_cuda: e_real={e_real} outside "
-                         f"[1, {E}]")
-    if not 1 <= top_k <= min(KMAX, e_real):
+    if not 1 <= top_k <= min(KMAX, E):
         raise ValueError(f"router_topk_cuda: top_k={top_k} outside "
-                         f"[1, min({KMAX}, e_real={e_real})]")
+                         f"[1, min({KMAX}, E={E})]")
 
 
-def router_topk_cuda(x, centroids, inv2, top_k: int,
-                     e_real: int | None = None):
+def router_topk_cuda(x, centroids, inv2, top_k: int):
     """Top-k experts of every token. Replaces ``router_topk_pallas``."""
-    e_real = centroids.shape[0] if e_real is None else e_real
     if x.device.type == "cpu":
-        return router_topk_plain(x, centroids, inv2, top_k, e_real)
+        return router_topk_plain(x, centroids, inv2, top_k)
     from .build import load_library
-    _check_inputs(x, centroids, inv2, top_k, e_real)
+    _check_inputs(x, centroids, inv2, top_k)
     T, D = x.shape
+    E = centroids.shape[0]
     idx = torch.empty(T, top_k, dtype=torch.int32, device=x.device)
     eff = torch.empty(T, top_k, dtype=torch.float32, device=x.device)
     load_library("router").call(
         "repro_router_topk", x.data_ptr(), centroids.data_ptr(),
         inv2.data_ptr(), int(x.dtype == torch.bfloat16), T,
-        centroids.shape[0], D, e_real, top_k, idx.data_ptr(),
+        E, D, E, top_k, idx.data_ptr(),
         eff.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     router_topk_cuda.launches += 1
     return idx, eff

@@ -323,21 +323,13 @@ def flash_attention(q, k, v, bq: int = 512, bk: int = 512,
     """Causal flash attention. q: [B, S, H, dh], k/v: [B, S, KV, dh]
     (H % KV == 0). Returns [B, S, H, dh] in q's type.
 
-    As in the reference, S is padded to the tile ``max(bq, bk)`` (``bq``
-    capped at the next power of two >= S, at least 128); padded keys sit
-    above the causal diagonal of every real query. At the model's S (a
-    multiple of the tile) nothing is padded or copied: the kernel reads
-    the ``[B, S, heads, dh]`` layout through strides, in its own 64-query
-    tiles."""
+    ``bq`` and ``bk`` are the TPU kernel's tiles, kept for the reference's
+    signature. The CUDA kernel has its own 64-query and 64-key tiles and
+    masks a ragged last tile itself, so S is not padded and nothing is
+    copied: it reads the ``[B, S, heads, dh]`` layout through strides."""
     from .flash_attention import flash_attention_cuda
-    S = q.shape[1]
-    bq = min(bq, max(128, 1 << (S - 1).bit_length()))
-    bk = min(bk, bq)
-    pad = (-S) % max(bq, bk)
-    if pad:
-        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
-                   for t in (q, k, v))
-    return flash_attention_cuda(q, k, v, softcap)[:, :S]
+    del bq, bk
+    return flash_attention_cuda(q, k, v, softcap)
 
 
 def router_topk(x, centroids, influence, top_k: int, bt: int = 256,
@@ -347,18 +339,14 @@ def router_topk(x, centroids, influence, top_k: int, bt: int = 256,
     float32), ascending in eff, the lower expert index first on ties.
 
     ``bt`` and ``block_e`` are the TPU kernel's tiles, kept for the
-    reference's signature; the CUDA kernel has its own (32 tokens, 64
-    experts). The centroids are padded to its expert tile with ``_FAR``
-    rows (inv2 1.0) that the kernel holds at FAR; x is handed over as it
-    is (bfloat16 or float32), and a ragged token tile needs no padding."""
-    from .moe_router_kernel import BLOCK_E, router_topk_cuda
+    reference's signature. The CUDA kernel has its own (32 tokens, 64
+    experts) and masks a ragged last tile of either itself, so neither
+    axis is padded; x is handed over as it is (bfloat16 or float32)."""
+    from .moe_router_kernel import router_topk_cuda
     del bt, block_e
-    E = centroids.shape[0]
     inv2 = (1.0 / (influence * influence)).float()
-    c = _pad_rows(centroids.float(), BLOCK_E, _FAR).contiguous()
-    return router_topk_cuda(x.contiguous(), c,
-                            _pad_rows(inv2, BLOCK_E, 1.0).contiguous(),
-                            top_k, e_real=E)
+    return router_topk_cuda(x.contiguous(), centroids.float().contiguous(),
+                            inv2.contiguous(), top_k)
 
 
 def _counted():

@@ -90,8 +90,8 @@ def _gqa_scores(q, k, cfg):
 # sequences >= this take the flash kernel (ops.flash_attention), where the
 # reference takes its chunked path _flash_full: the dense S x T score
 # matrix at S=4096+ is what flash attention avoids. _QC / _KVC are the
-# reference's query / key chunks; here they are the tiles handed to
-# ops.flash_attention, which pads S to them.
+# reference's query / key chunks; here they are handed to
+# ops.flash_attention, which keeps them for the reference's signature only.
 FLASH_S_MIN = 4096
 _QC = 2048
 _KVC = 2048

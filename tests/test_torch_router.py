@@ -7,7 +7,10 @@ to both.
 Tolerance: eff rtol/atol 1e-4, the reference's own
 (tests/test_kernels_flash_router.py): float32 dot products summed in
 another order; indices may differ only where the effective distances tie
-within that tolerance (the reference's rule).
+within that tolerance (the reference's rule). Both packages' indices are
+held against a float64 dense oracle of all [T, E] distances
+(``ref.router_topk_disagreements``): distinct experts, each named expert's
+distance, the stable order except at a tie.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +22,7 @@ from repro.models import moe as RMOE
 from repro.models.config import MoEConfig as RMoEConfig
 from repro_torch.kernels import moe_router_kernel as mr
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import router_topk_disagreements
 from repro_torch.models import moe as MOE
 from repro_torch.models.config import MoEConfig
 
@@ -41,18 +45,29 @@ def _t(*arrays):
     return tuple(torch.from_numpy(a) for a in arrays)
 
 
-def _assert_topk_close(idx, eff, ridx, reff):
+def _full64(x, c, inv2):
+    """[T, E] effective squared distances in float64."""
+    x, c = x.astype(np.float64), c.astype(np.float64)
+    sq = (x * x).sum(1)[:, None] + (c * c).sum(1)[None] - 2.0 * x @ c.T
+    return torch.from_numpy(np.maximum(sq, 0.0) * inv2.astype(np.float64))
+
+
+def _assert_topk_close(idx, eff, ridx, reff, full):
+    """The port's result and the reference's agree in eff, and each names
+    the K nearest experts of the float64 oracle ``full`` in its stable
+    order, so their indices differ only where distances tie."""
     np.testing.assert_allclose(eff, reff, **TOL)
-    # indices may differ only where effective distances tie
-    mismatch = idx != ridx
-    if mismatch.any():
-        np.testing.assert_allclose(eff[mismatch], reff[mismatch], **TOL)
+    for name, i, e in (("port", idx, eff), ("reference", ridx, reff)):
+        faults = router_topk_disagreements(
+            torch.from_numpy(np.array(i)), torch.from_numpy(np.array(e)),
+            full, **TOL)
+        assert not faults, f"{name}: {faults}"
 
 
 @pytest.mark.parametrize("T,E,D,K,bt", [
     (512, 8, 64, 1, 256),         # llama4-style top-1
     (512, 16, 64, 2, 128),        # jamba top-2
-    (512, 40, 32, 8, 256),        # granite top-8, E padded
+    (512, 40, 32, 8, 256),        # granite top-8, E off the tiles
     (300, 128, 128, 2, 128),      # ragged T
     (512, 200, 64, 4, 128),       # E > 128
     (300, 256, 32, 8, 128),       # ragged T, deep top-k
@@ -66,7 +81,7 @@ def test_router_matches_reference(T, E, D, K, bt):
     assert idx.dtype == torch.int32 and eff.dtype == torch.float32
     assert idx.shape == eff.shape == (T, K)
     _assert_topk_close(idx.numpy(), eff.numpy(), np.asarray(ridx),
-                       np.asarray(reff))
+                       np.asarray(reff), _full64(x, c, 1.0 / (infl * infl)))
     # ascending along k, distinct valid experts per token
     e = eff.numpy()
     assert (np.diff(e, axis=1) >= 0).all()
@@ -120,7 +135,8 @@ def test_equals_router_logits_topk_at_unit_influence(dtype):
                             jnp.ones(40))
     rg, ri = jax.lax.top_k(rl, 8)
     _assert_topk_close(idx.numpy(), eff.numpy(), np.asarray(ri),
-                       -np.asarray(rg))
+                       -np.asarray(rg),
+                       _full64(tx.float().numpy(), c, np.ones(40)))
 
 
 def test_multiply_by_inv2_is_not_the_models_divide():
@@ -143,13 +159,16 @@ def test_kernel_input_checks():
     x = torch.zeros(8, 16)
     c = torch.zeros(64, 16)
     inv2 = torch.ones(64)
-    mr._check_inputs(x, c, inv2, top_k=4, e_real=40)
-    with pytest.raises(ValueError, match="multiple of BLOCK_E"):
-        mr._check_inputs(x, torch.zeros(40, 16), torch.ones(40), 4, 40)
+    mr._check_inputs(x, c, inv2, top_k=4)
+    mr._check_inputs(x, torch.zeros(40, 16), torch.ones(40), top_k=8)
+    with pytest.raises(ValueError, match="do not match"):
+        mr._check_inputs(x, c, torch.ones(40), top_k=4)
     with pytest.raises(ValueError, match="top_k"):
-        mr._check_inputs(x, c, inv2, top_k=mr.KMAX + 1, e_real=64)
+        mr._check_inputs(x, c, inv2, top_k=mr.KMAX + 1)
+    with pytest.raises(ValueError, match="top_k"):
+        mr._check_inputs(x, torch.zeros(6, 16), torch.ones(6), top_k=8)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
-        mr._check_inputs(x.half(), c, inv2, top_k=4, e_real=40)
+        mr._check_inputs(x.half(), c, inv2, top_k=4)
 
 
 def test_cpu_tensor_takes_the_plain_version_and_padding_is_never_chosen():
