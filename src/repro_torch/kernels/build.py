@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels.
 
 Each source in ``kernels/csrc/`` (``assign.cu``, ``scan.cu``,
-``router.cu``, ``flash_attention.cu``) is compiled at first use with
-``nvcc`` into a shared library with a plain C interface and loaded with
-``ctypes``; no PyTorch headers are involved, so a build takes seconds. ``build_libraries`` starts one ``nvcc`` per missing
-library, all at once. A library is named by a hash of its source and
+``router.cu``, ``flash_attention.cu``, ``flash_attention_tc.cu``) is
+compiled at first use with ``nvcc`` into a shared library with a plain C
+interface and loaded with ``ctypes``; no PyTorch headers are involved, so
+a build takes seconds. ``build_libraries`` starts one ``nvcc`` per
+missing library, all at once. A library is named by a hash of its source and
 flags and kept in ``kernels/_build/`` (listed in ``.gitignore``), so an
 edited source is rebuilt and an unchanged one is loaded as it is.
 
@@ -48,8 +49,12 @@ _SIGNATURES = {
                               _P],
     },
     "flash_attention": {
-        "repro_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _I] + [_L] * 12 + [_F, _F, _P],
+        "repro_flash_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 12
+                                     + [_F, _F, _P],
+    },
+    "flash_attention_tc": {
+        "repro_flash_attention_tc_fwd": [_P] * 4 + [_I] * 5 + [_L] * 12
+                                        + [_F, _F, _P],
     },
 }
 LIBRARIES = tuple(_SIGNATURES)

@@ -1,42 +1,37 @@
-// Causal flash attention, forward, for Hopper (sm_90a).
+// Causal flash attention, forward, float32, on the CUDA cores (sm_90a).
 //
 // Replaces the TPU kernel of the JAX package:
 //   src/repro/kernels/flash_attention.py: _flash_kernel (wrapper
-//   flash_attention_pallas, called by ops.flash_attention). On the model
-//   path it takes the place of models/layers.py _flash_full, whose inner
-//   compute the reference leaves to that kernel on the TPU.
+//   flash_attention_pallas) for float32 inputs. bfloat16 inputs, the
+//   model's prefill among them, go to the tensor-core kernel of
+//   flash_attention_tc.cu; float32 stays here because TF32 tensor cores
+//   would lose the 2e-5 agreement the float32 checks hold.
 //
 // What it computes, for batch b, query head h (key/value head h / G with
 // G = H / KV) and query position i:
 //   s_j   = (q_i . k_j) * scale for keys j <= i; with a softcap c,
 //           s_j = tanh(s_j / c) * c; keys above the diagonal are -1e30;
-//   out_i = sum_j softmax(s)_j v_j, rounded once to the output type.
+//   out_i = sum_j softmax(s)_j v_j.
 // It is an online softmax over key tiles with m, l and acc in float32, m
 // starting at NEG_INF = -1e30 and l clamped at 1e-30, as in the TPU kernel.
-// q, k and v are read in their own storage type (bfloat16 or float32,
-// upcast exactly) through strides, so the model's [B, S, H, dh] layout
+// q, k and v are read through strides, so the model's [B, S, H, dh] layout
 // needs no transposed copy. Keys and queries past S (a ragged last tile)
 // read as zero; such keys lie above the diagonal of every real query.
 //
 // What bounds it on the H100: operations. One granite layer at S = 4096
-// (24 query heads, dh 64) is 4 dh H S(S+1)/2 ~ 51.5 GFLOP against ~34 MB
-// of inputs and outputs (0.010 ms of HBM time). At the tensor cores' bf16
-// rate that is 0.052 ms; this kernel computes in float32 on the CUDA
-// cores, whose rate (67 TFLOP/s) puts its floor at 0.77 ms. The design:
+// (24 query heads, dh 64) is 4 dh H S(S+1)/2 ~ 51.6 GFLOP; at the CUDA
+// cores' float32 rate (67 TFLOP/s) its floor is 0.77 ms. The design:
 //   * one block of 256 threads per (b * H + h, 64-query tile); it loops
 //     over 64-key tiles up to the diagonal only, so the tiles above it are
 //     never loaded (the TPU kernel's pl.when skip). The last query tiles,
 //     which have the most key tiles, are scheduled first;
 //   * the query tile and each key and value tile are staged in shared
-//     memory as float32 (rows padded by one float against bank conflicts);
-//     each thread keeps a 4 x 4 block of scores and a 4 x dh/16 block of
-//     the output accumulator in registers, so a value read from shared
-//     memory feeds four multiply-adds;
+//     memory (rows padded by one float against bank conflicts); each
+//     thread keeps a 4 x 4 block of scores and a 4 x dh/16 block of the
+//     output accumulator in registers, so a value read from shared memory
+//     feeds four multiply-adds;
 //   * row maxima and row sums are reduced with warp shuffles over the 16
 //     threads that share a row; m and l never leave registers.
-// Tensor cores (mma / wgmma on bf16 tiles), TMA and a multi-stage K/V ring
-// are later work.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -49,15 +44,6 @@ constexpr int BQ = 64;         // queries a block
 constexpr int BK = 64;         // keys a tile
 constexpr float NEG_INF = -1e30f;
 constexpr int MAX_DEVICES = 64;
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 struct Strides {            // in elements; the head dim has stride 1
   long long b, s, h;
@@ -72,8 +58,7 @@ constexpr size_t smem_bytes() {
                           static_cast<size_t>(BQ) * (BK + 1));
 }
 
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
+__device__ __forceinline__ void stage(float* dst, int ld, const float* src,
                                       Strides st, int b, int head, int row0,
                                       int rows, int S, int dh) {
   for (int idx = threadIdx.x; idx < rows * dh; idx += THREADS) {
@@ -82,15 +67,16 @@ __device__ __forceinline__ void stage(float* dst, int ld, const T* src,
     const int pos = row0 + r;
     float v = 0.0f;
     if (pos < S)
-      v = load_f32(src + b * st.b + pos * st.s + head * st.h + d);
+      v = src[b * st.b + pos * st.s + head * st.h + d];
     dst[r * ld + d] = v;
   }
 }
 
-template <int DH, typename T>
+template <int DH>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int S, int H,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int S,
+                 int H,
                  int G, Strides qs, Strides ks, Strides vs, Strides os,
                  float scale, float softcap) {
   constexpr int QLD = DH + 1;
@@ -204,18 +190,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + ty * 4 + i;
     if (qpos >= S) continue;
     const float li = fmaxf(l[i], 1e-30f);
-    T* row = out + b * os.b + qpos * os.s + h * os.h;
+    float* row = out + b * os.b + qpos * os.s + h * os.h;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) store(row + tx + 16 * j, acc[i][j] / li);
+    for (int j = 0; j < NJ; ++j) row[tx + 16 * j] = acc[i][j] / li;
   }
 }
 
-template <int DH, typename T>
+template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int S, int H, int KV, Strides qs, Strides ks,
                    Strides vs, Strides os, float scale, float softcap,
                    cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<DH, T>;
+  auto kern = flash_fwd_kernel<DH>;
   constexpr size_t smem = smem_bytes<DH>();
   if (smem > 48 * 1024) {
     // raised once per instance and device
@@ -233,33 +219,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   }
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, H, H / KV, qs, ks,
-      vs, os, scale, softcap);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), S, H, H / KV,
+      qs, ks, vs, os, scale, softcap);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(int dh, const void* q, const void* k, const void* v,
                      void* out, int B, int S, int H, int KV, Strides qs,
                      Strides ks, Strides vs, Strides os, float scale,
                      float softcap, cudaStream_t stream) {
   switch (dh) {
     case 16:
-      return launch<16, T>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, scale,
-                           softcap, stream);
+      return launch<16>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, scale,
+                        softcap, stream);
     case 32:
-      return launch<32, T>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, scale,
-                           softcap, stream);
+      return launch<32>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, scale,
+                        softcap, stream);
     case 64:
-      return launch<64, T>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, scale,
-                           softcap, stream);
+      return launch<64>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, scale,
+                        softcap, stream);
     case 128:
-      return launch<128, T>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, scale,
-                            softcap, stream);
+      return launch<128>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, scale,
+                        softcap, stream);
     case 256:
-      return launch<256, T>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, scale,
-                            softcap, stream);
+      return launch<256>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, scale,
+                        softcap, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -271,26 +256,21 @@ extern "C" const char* repro_error_name(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// q/k/v/out: [B, S, heads, dh] through element strides (batch, seq, head);
-// the head dim is contiguous. bf16 != 0: all four are bfloat16, else
-// float32. Returns the launch's cudaGetLastError().
+// q/k/v/out: float32 [B, S, heads, dh] through element strides (batch,
+// seq, head); the head dim is contiguous. Returns the launch's
+// cudaGetLastError().
 extern "C" int repro_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* out, int bf16, int B,
-    int S, int H, int KV, int dh, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-    long long o_ss, long long o_sh, float scale, float softcap,
-    void* stream) {
+    const void* q, const void* k, const void* v, void* out, int B, int S,
+    int H, int KV, int dh, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, long long o_sb, long long o_ss,
+    long long o_sh, float scale, float softcap, void* stream) {
   if (B < 0 || S < 0 || H < 1 || KV < 1 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0) return static_cast<int>(cudaSuccess);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? dispatch<__nv_bfloat16>(dh, q, k, v, out, B, S, H, KV, qs, ks,
-                                     vs, os, scale, softcap, st)
-           : dispatch<float>(dh, q, k, v, out, B, S, H, KV, qs, ks, vs, os,
-                             scale, softcap, st);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch(dh, q, k, v, out, B, S, H, KV, qs, ks, vs,
+                                   os, scale, softcap,
+                                   static_cast<cudaStream_t>(stream)));
 }

@@ -2,9 +2,12 @@
 PyTorch version.
 
 Counterpart of ``repro/kernels/flash_attention.py``: the TPU kernel it
-replaces is ``_flash_kernel`` (``flash_attention_pallas``). The CUDA source
-is ``csrc/flash_attention.cu``; its header says what bounds the kernel on
-the H100 and what the design does about it.
+replaces is ``_flash_kernel`` (``flash_attention_pallas``). Two CUDA
+sources take its calls on the card, by dtype: ``csrc/flash_attention_tc.cu``
+(bfloat16, on the tensor cores: wgmma fed by TMA through a ring of K/V
+slots) and ``csrc/flash_attention.cu`` (float32, on the CUDA cores, where
+TF32 tensor cores would lose the float32 checks' 2e-5). Each header says
+what bounds its kernel on the H100 and what the design does about it.
 
 Contract: ``q [B, S, H, dh]``, ``k``/``v`` ``[B, S, KV, dh]`` with
 ``H % KV == 0`` (query head h reads key/value head ``h // (H / KV)``),
@@ -12,13 +15,21 @@ one type for all three (bfloat16 or float32), any strides with a
 contiguous head dim: the model's layout is read as it is, with no
 transposed copy. Returns ``[B, S, H, dh]`` in q's type: causal softmax
 attention with scores ``(q.k) * dh^-0.5`` (tanh-capped when ``softcap``),
-computed in float32 and rounded once. The kernel takes head dims
-``HEAD_DIMS`` and raises ``UnsupportedHeadDimError`` for others; the plain
-version takes any.
+accumulated in float32 and rounded once. The bfloat16 kernel rounds the
+softmax weights to bfloat16 before the PV product (as the model's own
+dense path below ``FLASH_S_MIN`` does); the float32 kernel and the plain
+version keep them in float32. The kernels take head dims ``HEAD_DIMS``
+and raise ``UnsupportedHeadDimError`` for others; the plain version takes
+any. The bfloat16 kernel's copy engine also needs 16-byte-aligned base
+pointers and batch/seq/head strides (``check_kernel_inputs``).
 
-Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the
-kernel, with no fallback. ``flash_attention_cuda.launches`` counts kernel
-launches and ``flash_attention_plain.calls`` plain calls.
+Dispatch (``kernel_for``), by device and dtype alone: a CPU tensor goes to
+the plain version; on the card a bfloat16 tensor to the tensor-core
+kernel and a float32 tensor to the CUDA-core kernel. A tensor the chosen
+kernel cannot take raises; nothing falls back to another kernel or to the
+plain version. ``flash_attention_tc.launches`` and
+``flash_attention_f32.launches`` count kernel launches,
+``flash_attention_plain.calls`` plain calls.
 """
 from __future__ import annotations
 
@@ -64,8 +75,34 @@ def flash_attention_plain(q, k, v, softcap: float = 0.0,
 flash_attention_plain.calls = 0
 
 
+def kernel_for(device_type: str, dtype: torch.dtype) -> str:
+    """Which implementation takes a call: ``"plain"`` for a CPU tensor,
+    ``"tensor_cores"`` for a bfloat16 and ``"cuda_cores"`` for a float32
+    tensor on the card. Raises for another dtype on the card."""
+    if device_type == "cpu":
+        return "plain"
+    if dtype == torch.bfloat16:
+        return "tensor_cores"
+    if dtype == torch.float32:
+        return "cuda_cores"
+    raise ValueError(f"flash_attention_cuda: q must be bfloat16 or float32, "
+                     f"got {dtype}")
+
+
+def tma_strides(t) -> tuple[int, int, int]:
+    """Batch, seq and head strides (elements) of ``t [B, S, heads, dh]``
+    as the tensor-core kernel's tensor maps take them: a dim of size 1 is
+    never stepped over, so its stride is replaced by the packed one."""
+    B, S, n, dh = t.shape
+    sb, ss, sh = t.stride()[:3]
+    sh = sh if n > 1 else dh
+    ss = ss if S > 1 else n * sh
+    sb = sb if B > 1 else S * ss
+    return sb, ss, sh
+
+
 def check_kernel_inputs(q, k, v) -> None:
-    """Raise on what the CUDA kernel does not take."""
+    """Raise on what the CUDA kernel for q's dtype does not take."""
     B, S, H, dh = q.shape
     if k.shape != v.shape or k.dim() != 4 or k.shape[:2] != (B, S) \
             or k.shape[3] != dh:
@@ -90,25 +127,71 @@ def check_kernel_inputs(q, k, v) -> None:
         if t.stride(3) != 1:
             raise ValueError("flash_attention_cuda: the head dim must be "
                              "contiguous")
+    if q.dtype == torch.bfloat16:
+        # the copy engine reads from 16-byte boundaries in 16-byte steps
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention_cuda: {name} does not "
+                                 "start on a 16-byte boundary")
+            if any(st % 8 for st in tma_strides(t)):
+                raise ValueError(
+                    f"flash_attention_cuda: {name}'s batch/seq/head strides "
+                    f"{tuple(t.stride()[:3])} are not multiples of 16 bytes")
 
 
-def flash_attention_cuda(q, k, v, softcap: float = 0.0):
-    """Causal attention in the ``[B, S, heads, dh]`` layout. Replaces
-    ``flash_attention_pallas``."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, softcap)
+def _launch(library, entry, q, k, v, softcap):
     from .build import load_library
-    check_kernel_inputs(q, k, v)
     B, S, H, dh = q.shape
     out = torch.empty(B, S, H, dh, dtype=q.dtype, device=q.device)
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    load_library("flash_attention").call(
-        "repro_flash_attention_fwd", q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16), B, S,
-        H, k.shape[2], dh, *strides, dh ** -0.5, float(softcap or 0.0),
+    strides = [s for t in (q, k, v) for s in tma_strides(t)]
+    strides += list(out.stride()[:3])
+    load_library(library).call(
+        entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+        S, H, k.shape[2], dh, *strides, dh ** -0.5, float(softcap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream)
-    flash_attention_cuda.launches += 1
     return out
 
 
-flash_attention_cuda.launches = 0
+def flash_attention_tc(q, k, v, softcap: float = 0.0):
+    """The bfloat16 tensor-core kernel (``csrc/flash_attention_tc.cu``);
+    the plain version for a CPU tensor."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, softcap)
+    check_kernel_inputs(q, k, v)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_tc: takes bfloat16, got {q.dtype}")
+    out = _launch("flash_attention_tc", "repro_flash_attention_tc_fwd", q, k,
+                  v, softcap)
+    flash_attention_tc.launches += 1
+    return out
+
+
+flash_attention_tc.launches = 0
+
+
+def flash_attention_f32(q, k, v, softcap: float = 0.0):
+    """The float32 CUDA-core kernel (``csrc/flash_attention.cu``); the
+    plain version for a CPU tensor."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, softcap)
+    check_kernel_inputs(q, k, v)
+    if q.dtype != torch.float32:
+        raise ValueError(f"flash_attention_f32: takes float32, got {q.dtype}")
+    out = _launch("flash_attention", "repro_flash_attention_fwd", q, k, v,
+                  softcap)
+    flash_attention_f32.launches += 1
+    return out
+
+
+flash_attention_f32.launches = 0
+
+
+def flash_attention_cuda(q, k, v, softcap: float = 0.0):
+    """Causal attention in the ``[B, S, heads, dh]`` layout, dispatched by
+    ``kernel_for``. Replaces ``flash_attention_pallas``."""
+    route = kernel_for(q.device.type, q.dtype)
+    if route == "plain":
+        return flash_attention_plain(q, k, v, softcap)
+    if route == "tensor_cores":
+        return flash_attention_tc(q, k, v, softcap)
+    return flash_attention_f32(q, k, v, softcap)

@@ -324,9 +324,11 @@ def flash_attention(q, k, v, bq: int = 512, bk: int = 512,
     (H % KV == 0). Returns [B, S, H, dh] in q's type.
 
     ``bq`` and ``bk`` are the TPU kernel's tiles, kept for the reference's
-    signature. The CUDA kernel has its own 64-query and 64-key tiles and
-    masks a ragged last tile itself, so S is not padded and nothing is
-    copied: it reads the ``[B, S, heads, dh]`` layout through strides."""
+    signature. On the card a bfloat16 call takes the tensor-core kernel and
+    a float32 call the CUDA-core kernel (``flash_attention.kernel_for``);
+    both have their own 64-key tiles and mask a ragged last tile
+    themselves, so S is not padded and nothing is copied: they read the
+    ``[B, S, heads, dh]`` layout through strides."""
     from .flash_attention import flash_attention_cuda
     del bq, bk
     return flash_attention_cuda(q, k, v, softcap)
@@ -368,7 +370,8 @@ def _counted():
         ("prefix_sum_plain", scan.prefix_sum_plain, "calls"),
         ("router_topk", mr.router_topk_cuda, "launches"),
         ("router_topk_plain", mr.router_topk_plain, "calls"),
-        ("flash_attention", fa.flash_attention_cuda, "launches"),
+        ("flash_attention_tc", fa.flash_attention_tc, "launches"),
+        ("flash_attention", fa.flash_attention_f32, "launches"),
         ("flash_attention_plain", fa.flash_attention_plain, "calls"),
     )
 

@@ -51,6 +51,18 @@ def flash_attention_ref(q, k, v, softcap: float = 0.0):
     return torch.einsum("hqt,htd->hqd", p, vx).to(q.dtype)
 
 
+def row_relative_error(got, want) -> float:
+    """Largest per-row relative error of an attention output: for each row
+    (one query position of one head, the last dim), the largest |got -
+    want| over the largest |want| of that row; the maximum over rows. A
+    late query averages thousands of values down to a few hundredths, so
+    an absolute tolerance that fits the early rows misses faults there."""
+    g, w = got.float(), want.float()
+    err = torch.amax(torch.abs(g - w), dim=-1)
+    ref = torch.clamp_min(torch.amax(torch.abs(w), dim=-1), 1e-30)
+    return float(torch.max(err / ref))
+
+
 def router_eff_ref(x, centroids, inv2):
     """Dense effective squared distances of every token to every expert,
     ``max(|x|^2 + |c|^2 - 2 x.c, 0) * inv2``, float32 [T, E]."""

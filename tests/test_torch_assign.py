@@ -330,7 +330,8 @@ def test_kernel_entry_checks_tiling_and_counts():
 
 def test_kernel_libraries_are_named():
     from repro_torch.kernels import build
-    assert build.LIBRARIES == ("assign", "scan", "router", "flash_attention")
+    assert build.LIBRARIES == ("assign", "scan", "router", "flash_attention",
+                               "flash_attention_tc")
     for name in build.LIBRARIES:
         assert (build.CSRC / f"{name}.cu").is_file()
     with pytest.raises(KeyError, match="unknown kernel libraries"):

@@ -119,9 +119,70 @@ def test_cpu_tensor_takes_the_plain_version():
     ops.reset_launch_counts()
     ops.flash_attention(q, k, v)
     fa.flash_attention_cuda(q, k, v)
+    fa.flash_attention_f32(q, k, v)
+    fa.flash_attention_tc(q.bfloat16(), k.bfloat16(), v.bfloat16())
     counts = ops.launch_counts()
-    assert counts["flash_attention_plain"] == 2
-    assert counts["flash_attention"] == 0
+    assert counts["flash_attention_plain"] == 4
+    assert counts["flash_attention"] == counts["flash_attention_tc"] == 0
+
+
+@pytest.mark.parametrize("device,dtype,route", [
+    ("cpu", torch.bfloat16, "plain"),
+    ("cpu", torch.float32, "plain"),
+    ("cpu", torch.float16, "plain"),
+    ("cuda", torch.bfloat16, "tensor_cores"),
+    ("cuda", torch.float32, "cuda_cores"),
+])
+def test_dispatch_by_device_and_dtype(device, dtype, route):
+    """On the card the dtype alone picks the kernel: bfloat16 the
+    tensor-core kernel, float32 the CUDA-core kernel."""
+    assert fa.kernel_for(device, dtype) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_dispatch_refuses_other_types_on_the_card(dtype):
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fa.kernel_for("cuda", dtype)
+
+
+def _fused(dtype, width, offset=0):
+    """q/k/v as views of one fused [1, 64, width] projection (heads split
+    out of it), starting ``offset`` elements in."""
+    buf = torch.zeros(1, 64, width + offset, dtype=dtype)[:, :, offset:]
+    qkv = buf[:, :, :10 * 16].unflatten(2, (10, 16))
+    return qkv[:, :, :6], qkv[:, :, 6:8], qkv[:, :, 8:]
+
+
+def test_bf16_kernel_takes_aligned_strided_views():
+    """The model's fused-projection views: 16-byte bases and strides."""
+    q, k, v = _fused(torch.bfloat16, 160)
+    assert not q.is_contiguous()
+    fa.check_kernel_inputs(q, k, v)
+
+
+@pytest.mark.parametrize("width,offset,match", [
+    (164, 0, "multiples of 16 bytes"),     # seq stride 164 elements
+    (160, 4, "16-byte boundary"),          # base 8 bytes past a boundary
+])
+def test_bf16_kernel_refuses_misaligned_inputs(width, offset, match):
+    """The tensor-core kernel's copy engine reads from 16-byte boundaries
+    in 16-byte steps: a bf16 view that breaks either raises, while the
+    float32 kernel (plain loads) takes the same layout."""
+    q, k, v = _fused(torch.bfloat16, width, offset)
+    with pytest.raises(ValueError, match=match):
+        fa.check_kernel_inputs(q, k, v)
+    if offset == 0:
+        fa.check_kernel_inputs(*_fused(torch.float32, width))
+
+
+def test_tma_strides_ignore_size_one_dims():
+    """A size-1 batch, sequence or head dim is never stepped over, so its
+    stride (whatever view made it) is replaced by the packed one."""
+    t = torch.zeros(1, 64, 1, 16, dtype=torch.bfloat16).as_strided(
+        (1, 64, 1, 16), (3, 16, 5, 1))
+    assert fa.tma_strides(t) == (64 * 16, 16, 16)
+    fa.check_kernel_inputs(torch.zeros(1, 64, 2, 16, dtype=torch.bfloat16),
+                           t, t)
 
 
 @pytest.mark.parametrize("S", [48, 64, 96])

@@ -6,8 +6,11 @@ PyTorch alone). Run on the card with
 ``python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``;
 ``chip_smoke.py`` holds the kernels at the serving path's shapes.
 
-Tolerances: flash attention 2e-5 in float32 and 2e-2 in bfloat16, the
-router's effective distances 1e-4 (those of
+Tolerances: flash attention 2e-5 absolute in float32 (the CUDA-core
+kernel); in bfloat16 (the tensor-core kernel) the per-row relative error
+of ``ref.row_relative_error`` within ``FLASH_BF16_ROW_TOL``, the limit
+chip_smoke.py holds it to (set from the kernel's and SDPA's measured
+errors, PERF.md); the router's effective distances 1e-4 (those of
 tests/test_kernels_flash_router.py), with every index held against the
 plain version's dense [T, E] distances: distinct experts, each named
 expert's distance, the stable order except at a tie.
@@ -19,7 +22,8 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_router_kernel as mr
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import router_eff_ref, router_topk_disagreements
+from repro_torch.kernels.ref import (router_eff_ref, router_topk_disagreements,
+                                     row_relative_error)
 
 
 @pytest.fixture
@@ -31,20 +35,31 @@ def cuda_device():
     return torch.device("cuda")
 
 
+FLASH_BF16_ROW_TOL = 2e-2
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("dh", [64, 256])
-def test_flash_kernel_matches_plain(cuda_device, dtype, tol, dh):
-    """GQA 4:1 with a ragged last tile and a softcap."""
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 64),
+                                      (torch.float32, 256)] +
+                         [(torch.bfloat16, dh) for dh in fa.HEAD_DIMS])
+def test_flash_kernel_matches_plain(cuda_device, dtype, dh):
+    """GQA 4:1 with a ragged last tile and a softcap, B = 2: float32 on
+    the CUDA-core kernel, bfloat16 on the tensor-core kernel."""
     rng = np.random.default_rng(dh)
     q, k, v = (torch.tensor(rng.standard_normal((2, 300, n, dh)),
                             dtype=torch.float32, device=cuda_device).to(dtype)
                for n in (8, 2, 2))
+    ops.reset_launch_counts()
     got = fa.flash_attention_cuda(q, k, v, softcap=30.0)
     want = fa.flash_attention_plain(q, k, v, softcap=30.0)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    kernel = "flash_attention_tc" if dtype == torch.bfloat16 \
+        else "flash_attention"
+    assert ops.launch_counts()[kernel] == 1
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        assert row_relative_error(got, want) <= FLASH_BF16_ROW_TOL
 
 
 @pytest.mark.cuda

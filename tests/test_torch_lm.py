@@ -220,7 +220,8 @@ def test_prefill_at_flash_length_matches_reference(params):
     counts = ops.launch_counts()
     assert counts["flash_attention_plain"] == pcfg.n_layers
     assert counts["router_topk_plain"] == pcfg.n_layers
-    assert counts["flash_attention"] == counts["router_topk"] == 0
+    assert counts["flash_attention_tc"] == counts["flash_attention"] == 0
+    assert counts["router_topk"] == 0
     np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
     for kk in ("k", "v"):
         np.testing.assert_allclose(_np(gcache["pos0"][kk]),
