@@ -155,20 +155,26 @@ def make_inputs(torch, n, k, d, spread=1.0, seed=0, zero_tail=0.0):
             torch.tensor(infl, **f), torch.tensor(w, **f))
 
 
-def kernel_inputs(torch, sorted_, pts, ctr, infl, w, bp, bc):
+def kernel_inputs(torch, sorted_, pts, ctr, infl, w, bp, bc, layout=None):
     """Padded (and for the sorted configuration, sorted) inputs as the
-    registry adapters build them."""
+    registry adapters build them: (points, centers, inv2, weights,
+    order). With a ``layout`` the points are its Hilbert-ordered copy and
+    ``order`` maps its rows to the caller's positions."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.triton_assign import _pad_inputs
+    if layout is None:
+        p, order, lo, hi = (ops._pad_rows(pts, bp, 0.0).contiguous(), None,
+                            *ops._bbox(pts))
+    else:
+        p, order, lo, hi = layout.points, layout.order, layout.lo, layout.hi
     if sorted_:
         inv2 = 1.0 / (infl * infl)
-        order = ops._bbox_order(pts, ctr, inv2)
-        p = ops._pad_rows(pts, bp, 0.0).contiguous()
-        c = ops._pad_rows(ctr[order], bc, ops._FAR).contiguous()
-        iv = ops._pad_rows(inv2[order], bc, 1.0).contiguous()
+        rank = ops._bbox_order(lo, hi, ctr, inv2)
+        c = ops._pad_rows(ctr[rank], bc, ops._FAR).contiguous()
+        iv = ops._pad_rows(inv2[rank], bc, 1.0).contiguous()
     else:
-        p, c, iv = _pad_inputs(pts, ctr, infl, bp, bc)
-    return p, c, iv, ops._pad_rows(w, bp, 0.0).contiguous()
+        c, iv = _pad_inputs(ctr, infl, bc)
+    return p, c, iv, ops._pad_rows(w, bp, 0.0).contiguous(), order
 
 
 def path_block_p() -> int:
@@ -195,17 +201,30 @@ def entry_points():
     }
 
 
-def run_entry(name, inputs, k, bp, bc, precision, plain=False):
+def run_entry(name, inputs, k, bp, bc, precision, plain=False, pairs=None):
     wrapper, plain_fn, _, fused = entry_points()[name]
-    p, c, iv, w = inputs
+    p, c, iv, w, order = inputs
     if plain:
-        return (plain_fn(p, c, iv, w, k, precision) if fused
-                else plain_fn(p, c, iv, k, precision) + (None,))
+        return (plain_fn(p, c, iv, w, k, precision, order) if fused
+                else plain_fn(p, c, iv, k, precision, order) + (None,))
     if fused:
         return wrapper(p, c, iv, w, k, block_p=bp, block_c=bc,
-                       precision=precision)
-    return wrapper(p, c, iv, k, block_p=bp, block_c=bc,
-                   precision=precision) + (None,)
+                       precision=precision, order=order, pairs=pairs)
+    return wrapper(p, c, iv, k, block_p=bp, block_c=bc, precision=precision,
+                   order=order, pairs=pairs) + (None,)
+
+
+def run_unpruned(torch, name, inputs, k, bp, precision):
+    """The same kernel instance with pruning off (every pair computed),
+    launched directly so that no wrapper counts it."""
+    from repro_torch.kernels.assign_kernel import (launch_sweep,
+                                                   points_per_thread)
+    fused = entry_points()[name][3]
+    p, c, iv, w, order = inputs
+    idx, best, second, part = launch_sweep(
+        p, c, iv, w if fused else None, k, points_per_thread(bp), precision,
+        order, prune=False)
+    return idx, best, second, None if part is None else torch.sum(part, 0)
 
 
 def moments_f64(torch, p, w, idx, best, kpad):
@@ -231,17 +250,76 @@ def best_second_err(torch, kb, ks, pb, ps) -> float:
     return err
 
 
+def layout_inputs(torch, kind, n, k, d, adapted):
+    """A layout case's points in the solver's (random) order, the
+    bootstrap's centers (SFC picks: on the lattice these are lattice
+    points, so exact ties abound), unit or adapted influence, weights."""
+    import numpy as np
+    from repro_torch.core.sfc import sfc_initial_centers_torch
+    rng = np.random.default_rng(n + k + d)
+    if kind == "clustered":
+        mu = rng.uniform(0, 1, (64, d))
+        pts = mu[rng.integers(0, 64, n)] + rng.normal(0, 0.01, (n, d))
+    elif kind == "lattice":
+        side = int(np.ceil(n ** (1 / d)))
+        grid = np.stack(np.meshgrid(*[np.arange(side)] * d), -1)
+        pts = grid.reshape(-1, d)[rng.permutation(side ** d)[:n]] * 0.125
+    elif kind == "far":
+        pts = rng.uniform(0, 1, (n, d)) * 1e9
+    else:
+        pts = rng.uniform(0, 1, (n, d))
+    p64 = torch.tensor(pts, dtype=torch.float64, device=DEVICE)
+    ctr = sfc_initial_centers_torch(p64, k).float().contiguous()
+    infl = rng.uniform(0.8, 1.25, k) if adapted else np.ones(k)
+    f = dict(dtype=torch.float32, device=torch.device(DEVICE))
+    return (p64.float().contiguous(), ctr, torch.tensor(infl, **f),
+            torch.tensor(rng.uniform(0.5, 2.0, n), **f))
+
+
 def compare_case(torch, case):
+    """Every entry point on one input, in f32 and bf16: first bit-equal
+    (idx, best, second, moments) to the same kernel with pruning off, then
+    against its plain version; prints the fraction of pairs it skipped. A
+    layout case ("layout": the kind of points) feeds the kernel the
+    Hilbert-ordered layout, where it prunes most."""
+    from repro_torch.kernels.ops import _pad_rows, point_layout
     n, k, d, bp, bc = case["shape"]
-    spread = case.get("spread", 1.0)
+    kind = case.get("layout")
+    spread = 1e9 if kind == "far" else case.get("spread", 1.0)
     far = spread > 1e6
-    pts, ctr, infl, w = make_inputs(torch, n, k, d, spread, seed=n + k + d,
-                                    zero_tail=case.get("zero_tail", 0.0))
+    if kind:
+        pts, ctr, infl, w = layout_inputs(torch, kind, n, k, d,
+                                          case.get("adapted", False))
+        lay = point_layout(pts, bp)
+    else:
+        pts, ctr, infl, w = make_inputs(torch, n, k, d, spread,
+                                        seed=n + k + d,
+                                        zero_tail=case.get("zero_tail", 0.0))
+        lay = None
+    what = (f"{case['shape']}{f' {kind}' if kind else ''}"
+            f"{' adapted' if case.get('adapted') else ''}")
+    # the points in the solver's order, for the float64 moments
+    p_solver = _pad_rows(pts, bp, 0.0)
     for name, (_, _, sorted_, fused) in entry_points().items():
-        inputs = kernel_inputs(torch, sorted_, pts, ctr, infl, w, bp, bc)
+        inputs = kernel_inputs(torch, sorted_, pts, ctr, infl, w, bp, bc,
+                               lay)
         f32_plain = None
         for precision in ("f32", "bf16"):
-            ki, kb, ks, km = run_entry(name, inputs, k, bp, bc, precision)
+            pairs = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+            ki, kb, ks, km = run_entry(name, inputs, k, bp, bc, precision,
+                                       pairs=pairs)
+            skipped = 1.0 - int(pairs) / (inputs[0].shape[0] * k)
+            unpruned = run_unpruned(torch, name, inputs, k, bp, precision)
+            for label, a, b in zip(("idx", "best", "second", "moments"),
+                                   (ki, kb, ks, km), unpruned):
+                check(a is None or torch.equal(a, b),
+                      f"{name} {what} {precision}: {label} differs from "
+                      "the same kernel with pruning off")
+            if lay is not None:
+                if case.get("min_skipped") and precision == "f32":
+                    check(skipped > case["min_skipped"],
+                          f"{name} {what}: skipped {skipped:.4f} of the "
+                          f"pairs, not above {case['min_skipped']}")
             pi, pb, ps, pm = run_entry(name, inputs, k, bp, bc, precision,
                                        plain=True)
             torch.cuda.synchronize()
@@ -249,9 +327,9 @@ def compare_case(torch, case):
                 f32_plain = (pi, pb, ps)
             agree = float((ki == pi).float().mean())
             check(not bool(torch.isnan(kb).any() or torch.isnan(ks).any()),
-                  f"{name} {case['shape']} {precision}: NaN in best/second")
+                  f"{name} {what} {precision}: NaN in best/second")
             check(bool((torch.isinf(ks) == torch.isinf(ps)).all()),
-                  f"{name} {case['shape']} {precision}: +inf pattern of "
+                  f"{name} {what} {precision}: +inf pattern of "
                   "second differs")
             if k == 1:
                 check(bool(torch.isinf(ks[:n]).all()),
@@ -263,25 +341,25 @@ def compare_case(torch, case):
             rtol = 1e-2 if far else BEST_RTOL
             atol = 1e-6 * spread ** 2 if far else BEST_ATOL
             check(torch.allclose(kb, pb, rtol=rtol, atol=atol),
-                  f"{name} {case['shape']} {precision}: best differs "
+                  f"{name} {what} {precision}: best differs "
                   f"(max |err| {err:.3g})")
             check(torch.allclose(ks[fin], ps[fin], rtol=rtol, atol=atol),
-                  f"{name} {case['shape']} {precision}: second differs")
+                  f"{name} {what} {precision}: second differs")
             check(agree >= LABELS_F32,
-                  f"{name} {case['shape']} {precision}: labels agree "
+                  f"{name} {what} {precision}: labels agree "
                   f"{agree:.6f} < {LABELS_F32}")
             mom_rel = 0.0
             if fused:
-                p, _, _, ww = inputs
+                p, ww = p_solver, inputs[3]
                 ref = moments_f64(torch, p, ww, ki, kb, km.shape[1])
                 check(torch.allclose(km.double(), ref, rtol=MOM_RTOL,
                                      atol=MOM_ATOL * (1 + spread ** 2)),
-                      f"{name} {case['shape']} {precision}: moments "
+                      f"{name} {what} {precision}: moments "
                       "differ from the float64 sums of its labels")
                 if agree == 1.0:
                     check(torch.allclose(km, pm, rtol=MOM_RTOL,
                                          atol=MOM_ATOL * (1 + spread ** 2)),
-                          f"{name} {case['shape']} {precision}: moments "
+                          f"{name} {what} {precision}: moments "
                           "differ from the plain version")
                 mom_rel = float(torch.max(torch.abs(km.double() - ref))
                                 / torch.clamp_min(torch.max(torch.abs(ref)),
@@ -300,29 +378,44 @@ def compare_case(torch, case):
                 # the 5% bound is the reference test's, at its shape; at
                 # denser k the reference's own bf16 path flips more
                 check(frac < BF16_FLIP_MAX or not case.get("bf16_rate"),
-                      f"{name} {case['shape']}: bf16 flips {frac:.4f}")
+                      f"{name} {what}: bf16 flips {frac:.4f}")
                 if flipped.any():
                     gap = float(torch.max(fs[flipped] - fb[flipped]))
                     check(gap <= BF16_GAP_MAX,
-                          f"{name} {case['shape']}: bf16 flip off a "
+                          f"{name} {what}: bf16 flip off a "
                           f"near-tie (gap {gap:.3g})")
             log("kernels", f"{name} n={n} k={k} d={d} bp={bp} bc={bc} "
-                f"{precision}{' far' if far else ''}: labels {agree:.6f}, "
-                f"max |err| {err:.3g}, moments rel {mom_rel:.3g}")
+                f"{precision}{' far' if far else ''}"
+                f"{f' layout {kind}' if kind else ''}"
+                f"{' adapted' if case.get('adapted') else ''}: labels "
+                f"{agree:.6f}, max |err| {err:.3g}, moments rel "
+                f"{mom_rel:.3g}, skipped {skipped:.4f} of the pairs, "
+                "bit-equal to pruning off")
 
 
 def compare_backends(torch, case):
     """The registry adapters end to end on the card (sort, padding and
     un-sort included) against the dense torch backend, at the
     partitioner's tiles."""
-    from repro_torch.kernels.ops import assign_backend
+    from repro_torch.kernels.ops import assign_backend, point_layout
     n, k, d, bp, bc = case["shape"]
     pts, ctr, infl, w = make_inputs(torch, n, k, d, seed=7 * n + k)
     ref = assign_backend("torch")(pts, ctr, infl, weights=w,
                                   return_moments=True)
+    lay = point_layout(pts, bp)
     for name in ("cuda", "cuda_flat"):
         out = assign_backend(name)(pts, ctr, infl, block_p=bp, block_c=bc,
                                    weights=w, return_moments=True)
+        # through the solve's layout: the same per-point results
+        via = assign_backend(name)(pts, ctr, infl, block_p=bp, block_c=bc,
+                                   weights=w, return_moments=True,
+                                   layout=lay)
+        for a, b in zip(out[:3], via[:3]):
+            check(torch.equal(a, b), f"backend {name}: the layout changed "
+                  "idx/best/second")
+        for a, b in zip(out[3:], via[3:]):
+            check(torch.allclose(a, b, rtol=MOM_RTOL, atol=MOM_ATOL),
+                  f"backend {name}: moments through the layout")
         agree = float((out[0] == ref[0]).float().mean())
         check(agree >= LABELS_F32, f"backend {name}: labels {agree:.6f}")
         check(torch.allclose(out[1], ref[1], rtol=BEST_RTOL,
@@ -332,7 +425,7 @@ def compare_backends(torch, case):
                 check(torch.allclose(a, b, rtol=MOM_RTOL, atol=MOM_ATOL),
                       f"backend {name}: moments")
         log("kernels", f"backend {name} vs torch n={n} k={k} d={d}: "
-            f"labels {agree:.6f}")
+            f"labels {agree:.6f}; with the layout: idx/best/second equal")
 
 
 def compare_scan(torch):
@@ -380,8 +473,29 @@ def phase_kernels(torch, quick):
         {"shape": (1 << 18, 256, MAIN_D, bp, 128)},
         {"shape": (1 << 18, 256, MAIN_D, 256, 128)},
     ]
+    # the Hilbert-ordered layout, where the kernel prunes: each is also
+    # held bit-equal to the same kernel with pruning off
+    cases += [
+        {"shape": (1 << 20, MAIN_K, MAIN_D, bp, 128), "layout": "uniform",
+         "min_skipped": 0.9},
+        {"shape": (1 << 20, MAIN_K, MAIN_D, bp, 128), "layout": "uniform",
+         "adapted": True},
+        {"shape": (1 << 18, 256, MAIN_D, bp, 128), "layout": "clustered",
+         "adapted": True},
+        {"shape": (1 << 16, 64, MAIN_D, bp, 128), "layout": "lattice"},
+        {"shape": (1 << 14, 32, 2, 256, 32), "layout": "lattice"},
+        {"shape": (3000, 1, 2, 256, 128), "layout": "uniform"},     # k == 1
+        {"shape": (100003, 100, MAIN_D, bp, 128), "layout": "uniform",
+         "adapted": True},                                         # ragged
+        {"shape": (4096, 9, 2, 256, 8), "layout": "far"},
+    ]
     if not quick:
         cases.append({"shape": (MAIN_N, MAIN_K, MAIN_D, bp, 128)})
+        cases += [{"shape": (MAIN_N, MAIN_K, MAIN_D, bp, 128),
+                   "layout": "uniform", "min_skipped": 0.9},
+                  {"shape": (MAIN_N, MAIN_K, MAIN_D, bp, 128),
+                   "layout": "uniform", "adapted": True,
+                   "min_skipped": 0.9}]
     for case in cases:
         compare_case(torch, case)
     compare_backends(torch, {"shape": (5000, 100, 3, bp, 128)})
@@ -614,6 +728,15 @@ def phase_main(torch, ctx):
     check(np.array_equal(first.labels, again.labels),
           "two identical main-path runs gave different labels")
     log("main", "two runs: labels bit-identical")
+    ctx["main_state"] = (first.centers, first.influence)
+    # the Hilbert layout the solve builds once (ops.point_layout), timed
+    # alone on the solver's points
+    from repro_torch.kernels.ops import point_layout
+    solver_pts = main_state(torch, ctx)[0]
+    ms = time_ms(torch, lambda: point_layout(solver_pts, path_block_p()),
+                 iters=3, warmup=1)
+    log("main", f"point layout (Hilbert keys, stable sort, copy, box) "
+        f"built once per solve: {ms:.3f} ms at n={MAIN_N}  [{ctx['card']}]")
     w = np.random.default_rng(1).lognormal(0.0, 0.5, MAIN_N)
     wprob = PartitionProblem(points=pts, k=MAIN_K, weights=w, epsilon=EPS,
                              seed=0)
@@ -1026,13 +1149,18 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n, k, d, fused, blocks):
+def bound(n, k, d, fused, blocks, pairs=None, layout=False):
     """Least time for one sweep: float32 operations (2d for p.c, 7 for
-    the expansion, clamp, scale and the two compares, per pair; 2(d+2)
-    per point for the moments) over the CUDA-core peak, and bytes (each
-    input read once, each output written once) over HBM bandwidth."""
-    flops = n * k * (2 * d + 7) + (2 * (d + 2) * n if fused else 0)
-    nbytes = 4 * (n * d + k * d + k + 3 * n)
+    the expansion, clamp, scale and the two compares, per pair computed;
+    2(d+2) per point for the moments) over the CUDA-core peak, and bytes
+    (each input read once, each output written once: points, centers and
+    inv2, idx/best/second, with the layout its order, fused the weights
+    and the per-block partials) over HBM bandwidth. ``pairs``: the pairs
+    this run computed (the kernel's count); None for all n*k, the dense
+    bound."""
+    pairs = n * k if pairs is None else pairs
+    flops = pairs * (2 * d + 7) + (2 * (d + 2) * n if fused else 0)
+    nbytes = 4 * (n * d + k * (d + 1) + 3 * n + (n if layout else 0))
     if fused:
         nbytes += 4 * (n + blocks * (d + 2) * k)
     return larger_bound(flops / PEAK_F32_FLOPS, nbytes)
@@ -1050,55 +1178,112 @@ def phase_timing(torch, ctx):
     time_lm(torch, ctx)
 
 
+def main_state(torch, ctx):
+    """The main cell's state for the kernel timings: its points (uniform,
+    n = 2^22, seed 0) in the solver's order (the partitioner's seed-0
+    permutation), the bootstrap's centers, and the main run's final
+    centers and influence (a run is made here if phase main was not)."""
+    import numpy as np
+    from repro_torch.core.sfc import sfc_initial_centers_torch
+    from repro_torch.partition import PartitionProblem, partition
+    pts = np.random.default_rng(0).uniform(0.0, 1.0, (MAIN_N, MAIN_D))
+    if "main_state" not in ctx:
+        res = partition(PartitionProblem(points=pts, k=MAIN_K, epsilon=EPS,
+                                         seed=0))
+        ctx["main_state"] = (res.centers, res.influence)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(MAIN_N))
+    p64 = torch.from_numpy(pts).to(DEVICE)
+    f = dict(dtype=torch.float32, device=torch.device(DEVICE))
+    return (p64[perm.to(DEVICE)].float().contiguous(),
+            sfc_initial_centers_torch(p64, MAIN_K).float().contiguous(),
+            torch.tensor(ctx["main_state"][0], **f),
+            torch.tensor(ctx["main_state"][1], **f))
+
+
 def time_assign(torch, ctx):
+    """The four entry points at the main cell's state, in the layout the
+    solver hands them (its final centers and influence, then the
+    bootstrap's centers) and in random order (nothing prunes there): the
+    kernel's time in f32 and bf16, the pairs it skipped (its own count),
+    the bound of the work it did beside the dense bound, the plain
+    version's time, and what each backend adds around the kernel."""
     from repro_torch.kernels.assign_kernel import (grid_blocks,
                                                    points_per_thread)
-    from repro_torch.kernels.ops import assign_backend
+    from repro_torch.kernels.ops import assign_backend, point_layout
     bp = path_block_p()
-    pts, ctr, infl, w = make_inputs(torch, MAIN_N, MAIN_K, MAIN_D, seed=3)
+    pts, boot, final_c, final_i = main_state(torch, ctx)
+    ones = torch.ones(MAIN_K, device=DEVICE)
+    w = torch.ones(MAIN_N, device=DEVICE)      # the main cell's weights
+    lay = point_layout(pts, bp)
+    # the last state drops the order: the same pruned work with outputs
+    # written and weights read in layout order, which prices the scatter
+    # and gather the solver's own point order costs
+    states = (("layout, final centers and influence", final_c, final_i,
+               lay),
+              ("layout, bootstrap centers", boot, ones, lay),
+              ("random order, bootstrap centers", boot, ones, None),
+              ("layout without its order (no scatter, no gather), final "
+               "state", final_c, final_i, lay))
     for name, (_, _, sorted_, fused) in entry_points().items():
-        inputs = kernel_inputs(torch, sorted_, pts, ctr, infl, w, bp, 128)
         blocks = grid_blocks(MAIN_N, MAIN_D, MAIN_K, points_per_thread(bp),
                              0, fused, pts.device)
+        dense, _ = bound(MAIN_N, MAIN_K, MAIN_D, fused, blocks)
         rec = ctx["kernels"].setdefault(name, {})
-        # the error and the times come from this one instance and input
-        ki, kb, ks, _ = run_entry(name, inputs, MAIN_K, bp, 128, "f32")
-        pi, pb, ps, _ = run_entry(name, inputs, MAIN_K, bp, 128, "f32",
-                                  plain=True)
-        rec["max_abs_err"] = best_second_err(torch, kb, ks, pb, ps)
-        rec["ms"] = time_ms(torch, lambda: run_entry(
-            name, inputs, MAIN_K, bp, 128, "f32"), iters=20)
-        rec["ms_bf16"] = time_ms(torch, lambda: run_entry(
-            name, inputs, MAIN_K, bp, 128, "bf16"), iters=20)
-        rec["plain_ms"] = time_ms(torch, lambda: run_entry(
-            name, inputs, MAIN_K, bp, 128, "f32", plain=True), iters=2,
-            warmup=1)
-        rec["bound_ms"], rec["bound_by"] = bound(MAIN_N, MAIN_K, MAIN_D,
-                                                 fused, blocks)
-        rec["library_ms"] = None
-        log("timing", f"{name} n={MAIN_N} k={MAIN_K} d={MAIN_D} bp={bp}: "
-            f"kernel {rec['ms']:.4f} ms (bf16 {rec['ms_bf16']:.4f} ms), "
-            f"plain {rec['plain_ms']:.3f} ms, max |err| "
-            f"{rec['max_abs_err']:.3g}, labels "
-            f"{float((ki == pi).float().mean()):.6f}, {blocks} blocks, "
-            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), launches "
-            f"{rec.get('launches')} on the {rec.get('path')} path  "
-            f"[{ctx['card']}]")
+        for i, (state, ctr, infl, layout) in enumerate(states):
+            inputs = kernel_inputs(torch, sorted_, pts, ctr, infl, w, bp,
+                                   128, layout)
+            if i == 3:
+                inputs = inputs[:4] + (None,)
+            pairs = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+            ki, kb, ks, _ = run_entry(name, inputs, MAIN_K, bp, 128, "f32",
+                                      pairs=pairs)
+            torch.cuda.synchronize()
+            computed = int(pairs)
+            ms = time_ms(torch, lambda: run_entry(
+                name, inputs, MAIN_K, bp, 128, "f32"), iters=20)
+            ms16 = time_ms(torch, lambda: run_entry(
+                name, inputs, MAIN_K, bp, 128, "bf16"), iters=20)
+            bnd, by = bound(MAIN_N, MAIN_K, MAIN_D, fused, blocks, computed,
+                            layout is not None)
+            extra = ""
+            if i == 0:
+                # the kernels line: the error and the times of this one
+                # instance and input, the state the main path ends in
+                pi, pb, ps, _ = run_entry(name, inputs, MAIN_K, bp, 128,
+                                          "f32", plain=True)
+                rec["max_abs_err"] = best_second_err(torch, kb, ks, pb, ps)
+                rec["plain_ms"] = time_ms(torch, lambda: run_entry(
+                    name, inputs, MAIN_K, bp, 128, "f32", plain=True),
+                    iters=2, warmup=1)
+                rec.update(ms=ms, bound_ms=bnd, bound_by=by,
+                           library_ms=None)
+                extra = (f", plain {rec['plain_ms']:.3f} ms, max |err| "
+                         f"{rec['max_abs_err']:.3g}, labels "
+                         f"{float((ki == pi).float().mean()):.6f}, launches "
+                         f"{rec.get('launches')} on the {rec.get('path')} "
+                         "path")
+            log("timing", f"{name} n={MAIN_N} k={MAIN_K} d={MAIN_D} bp={bp} "
+                f"{state}: kernel {ms:.4f} ms (bf16 {ms16:.4f} ms), skipped "
+                f"{1 - computed / (MAIN_N * MAIN_K):.4f} of the pairs, bound "
+                f"of the work done {bnd:.4f} ms ({by}), dense bound "
+                f"{dense:.4f} ms, {blocks} blocks{extra}  [{ctx['card']}]")
     log("timing", "no single PyTorch call computes the fused argmin + "
         "best/second + moments sweep: library_ms is null")
-    # what each backend adds around the fused kernel in one sweep: for
-    # `cuda` the bbox sort of the centers, padding and the un-sort of
-    # labels and moments; for `cuda_flat` the padding and slicing
+    # what each backend adds around the fused kernel in one sweep of the
+    # main path (its layout, the final state): for `cuda` the bbox sort
+    # of the centers, padding and the un-sort of labels and moments; for
+    # `cuda_flat` the padding and slicing
     for backend, name in (("cuda", "assign_reduce"),
                           ("cuda_flat", "assign_reduce_flat")):
         fn = assign_backend(backend)
-        ms = time_ms(torch, lambda: fn(pts, ctr, infl, block_p=bp,
+        ms = time_ms(torch, lambda: fn(pts, final_c, final_i, block_p=bp,
                                        block_c=128, weights=w,
-                                       return_moments=True), iters=20)
+                                       return_moments=True, layout=lay),
+                     iters=20)
         kernel = ctx["kernels"][name]["ms"]
-        log("timing", f"backend {backend} sweep n={MAIN_N} k={MAIN_K}: "
-            f"{ms:.4f} ms, of which around the kernel {ms - kernel:.4f} ms"
-            f"  [{ctx['card']}]")
+        log("timing", f"backend {backend} sweep n={MAIN_N} k={MAIN_K} "
+            f"(layout, final state): {ms:.4f} ms, of which around the "
+            f"kernel {ms - kernel:.4f} ms  [{ctx['card']}]")
 
 
 def time_scan(torch, ctx):

@@ -5,9 +5,11 @@ Same algorithm, same corrections of the paper's two sign typos (Eq. 1:
 ``influence *= gamma^(1/d)``; Eqs. 4-5: relaxation widens the bounds),
 same fused hot loop: every balance iteration is one assign+reduce sweep
 through the backend registry in ``kernels.ops``, and the movement phase
-takes its moments from the last sweep. The reference's ``while_loop``s are
-Python loops with the same exit predicates; each predicate reads one
-scalar from the device.
+takes its moments from the last sweep. For the CUDA backends the solve
+builds the points' Hilbert-ordered layout once (``ops.point_layout``) and
+hands it to every sweep; the solver itself keeps its own point order.
+The reference's ``while_loop``s are Python loops with the same exit
+predicates; each predicate reads one scalar from the device.
 
 The reference runs under ``jit``, where XLA turns a division by a
 constant into a multiplication by its float32 reciprocal. Where that
@@ -73,6 +75,16 @@ def warmup_sample_size(it: int, n: int, n_global: int,
     return int(np.ceil(frac * f32(n)))
 
 
+def solve_layout(points, backend, block_p):
+    """The points' layout (``ops.point_layout``) when ``backend`` takes one
+    and d is 2 or 3, else None. Built once per solve."""
+    from repro_torch.kernels.ops import backend_supports_layout, point_layout
+    if points.shape[1] not in (2, 3) or points.shape[0] == 0 or \
+            not backend_supports_layout(backend, points.device):
+        return None
+    return point_layout(points, block_p)
+
+
 def assign_effective(points, centers, influence, chunk=None,
                      backend="auto", block_p=1024, block_c=128,
                      precision="f32"):
@@ -87,11 +99,13 @@ def assign_effective(points, centers, influence, chunk=None,
                                                       s, b))
 
 
-def assign_reduce(points, weights, centers, influence, cfg):
+def assign_reduce(points, weights, centers, influence, cfg, layout=None):
     """One hot-loop sweep: assignment + per-cluster weighted moments,
     fused when the backend supports it (and ``cfg.fused`` is not False),
-    else the assignment followed by ``segment_moments``. Returns (idx,
-    best_eff, second_eff, csum, cw, rad2raw) with best/second sqrt'd."""
+    else the assignment followed by ``segment_moments``. ``layout`` is the
+    solve's ``solve_layout`` (None for backends without one). Returns
+    (idx, best_eff, second_eff, csum, cw, rad2raw) with best/second
+    sqrt'd."""
     from repro_torch.kernels.ops import (assign_backend,
                                          backend_supports_moments,
                                          segment_moments)
@@ -109,11 +123,12 @@ def assign_reduce(points, weights, centers, influence, cfg):
         idx, b, s, csum, cw, rad2 = fn(
             points, centers, influence, chunk=cfg.assign_chunk,
             block_p=cfg.block_p, block_c=cfg.block_c, weights=weights,
-            return_moments=True, precision=cfg.assign_precision)
+            return_moments=True, precision=cfg.assign_precision,
+            layout=layout)
     else:
         idx, b, s = fn(points, centers, influence, chunk=cfg.assign_chunk,
                        block_p=cfg.block_p, block_c=cfg.block_c,
-                       precision=cfg.assign_precision)
+                       precision=cfg.assign_precision, layout=layout)
         csum, cw, rad2 = segment_moments(points, weights, idx, b, cfg.k,
                                          chunk=cfg.assign_chunk)
     return (idx, torch.sqrt(b),
@@ -137,11 +152,12 @@ def erode_influence(influence, delta, beta):
 
 
 def assign_and_balance(points, w_eff, centers, influence, A_old, ub, lb,
-                       cfg, target_weight, valid=None, n_valid=None):
+                       cfg, target_weight, valid=None, n_valid=None,
+                       layout=None):
     """Algorithm 1. Returns (A, influence, ub, lb, sizes, csum, rad2sum,
     stats). Every balance iteration is one fused sweep; the sizes and the
     movement moments come out of it. ``valid`` and ``n_valid`` only shape
-    the skip statistic."""
+    the skip statistic; ``layout`` goes to every sweep."""
     n, d = points.shape
     d_eff = cfg.d_eff or d
     k = cfg.k
@@ -154,7 +170,7 @@ def assign_and_balance(points, w_eff, centers, influence, A_old, ub, lb,
     i, done = 0, False
     while i < cfg.max_balance_iter and not done:
         idx, best, second, csum, cw, rad2raw = assign_reduce(
-            points, w_eff, centers, infl, cfg)
+            points, w_eff, centers, infl, cfg, layout)
         skip = ub < lb                            # Hamerly test
         skip_stat = skip if valid is None else (skip & valid)
         A = idx
@@ -219,8 +235,13 @@ def balanced_kmeans(points, cfg: BKMConfig, weights=None, centers0=None,
     base_target = (total_w * _f32_reciprocal(k) if target_weight is None
                    else torch.as_tensor(target_weight, dtype=dtype,
                                         device=dev))
-    lo = torch.min(points, dim=0).values
-    hi = torch.max(points, dim=0).values
+    # the points enter the solve here: their layout is built once
+    layout = solve_layout(points, cfg.backend, cfg.block_p)
+    if layout is None:
+        lo = torch.min(points, dim=0).values
+        hi = torch.max(points, dim=0).values
+    else:
+        lo, hi = layout.lo, layout.hi
     diag = torch.sqrt(torch.sum((hi - lo) ** 2))
     delta_threshold = float(cfg.delta_tol * diag)
 
@@ -241,7 +262,7 @@ def balanced_kmeans(points, cfg: BKMConfig, weights=None, centers0=None,
     if warm_start:
         # convergence pre-pass under the previous (centers, influence)
         A, ub, lb, csum0, cw0, _ = assign_reduce(points, w, centers, infl,
-                                                 cfg)
+                                                 cfg, layout)
         cand0 = torch.where(cw0[:, None] > 0,
                             csum0 / torch.clamp_min(cw0, 1e-12)[:, None],
                             centers)
@@ -281,7 +302,7 @@ def balanced_kmeans(points, cfg: BKMConfig, weights=None, centers0=None,
         target = base_target * (w_round / total_w)
         A, infl, ub, lb, sizes, csum, rad2_l, st = assign_and_balance(
             points, w_eff, centers, infl, A, ub, lb, cfg, target,
-            valid=valid, n_valid=n_global)
+            valid=valid, n_valid=n_global, layout=layout)
         # movement phase (Alg. 2 lines 12-13) from the last sweep's moments
         cw = sizes
         new_centers = torch.where(
@@ -316,7 +337,7 @@ def balanced_kmeans(points, cfg: BKMConfig, weights=None, centers0=None,
         points, w, centers, infl, A,
         torch.full((n,), float("inf"), dtype=dtype, device=dev),
         torch.zeros(n, dtype=dtype, device=dev), cfg, target,
-        valid=valid, n_valid=n_global)
+        valid=valid, n_valid=n_global, layout=layout)
     from repro_torch.kernels.ops import tile_prune_fraction
     frac = tile_prune_fraction(points, centers, infl, lb * lb,
                                cfg.block_p, cfg.block_c)

@@ -35,10 +35,8 @@ _F = ctypes.c_float
 # C signatures of the entry points, by library (see the sources)
 _SIGNATURES = {
     "assign": {
-        "repro_assign_argmin": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _P, _P, _P, _P],
-        "repro_assign_reduce": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _I, _P, _P, _P, _P, _P],
+        "repro_assign_argmin": [_P] * 4 + [_I] * 8 + [_P] * 5,
+        "repro_assign_reduce": [_P] * 5 + [_I] * 8 + [_P] * 6,
         "repro_assign_occupancy": [_I, _I, _I, _I, _I, _P],
     },
     "scan": {

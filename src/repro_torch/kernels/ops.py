@@ -12,7 +12,11 @@ Every backend has the same contract::
 Backends registered with ``supports_moments=True`` also take
 ``weights=[n], return_moments=True`` and then return
 ``(idx, best, second, csum [k,d], cw [k], rad2 [k])`` from the same pass
-over the points.
+over the points. Every backend takes ``layout=`` (None by default); those
+registered with ``supports_layout=True`` use it, and the solver builds one
+(``point_layout(points, block_p)``, once per solve) only for them: the
+kernel then reads the points in Hilbert order, where it can skip most
+centers, while weights and results stay in the caller's order.
 
 Registered backends:
 
@@ -27,6 +31,7 @@ Registered backends:
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 
 import torch
 
@@ -49,15 +54,21 @@ def default_chunk(k: int) -> int:
 
 _ASSIGN_BACKENDS: dict = {}
 _ASSIGN_MOMENTS: set = set()   # backends accepting return_moments=True
+_ASSIGN_LAYOUT: set = set()    # backends that use a layout
 
 
-def register_assign_backend(name: str, *, supports_moments: bool = False):
+def register_assign_backend(name: str, *, supports_moments: bool = False,
+                            supports_layout: bool = False):
     """Decorator: register an effective-distance assignment backend.
-    ``supports_moments=True`` declares the fused assign+reduce contract."""
+    ``supports_moments=True`` declares the fused assign+reduce contract,
+    ``supports_layout=True`` that the backend uses ``layout=`` (every
+    backend accepts it)."""
     def deco(fn):
         _ASSIGN_BACKENDS[name] = fn
         if supports_moments:
             _ASSIGN_MOMENTS.add(name)
+        if supports_layout:
+            _ASSIGN_LAYOUT.add(name)
         return fn
     return deco
 
@@ -97,6 +108,11 @@ def assign_backend(name: str = "auto", device=None):
 def backend_supports_moments(name: str = "auto", device=None) -> bool:
     """True when ``name`` (resolved) implements fused assign+reduce."""
     return resolve_assign_backend(name, device) in _ASSIGN_MOMENTS
+
+
+def backend_supports_layout(name: str = "auto", device=None) -> bool:
+    """True when ``name`` (resolved) uses a ``point_layout``."""
+    return resolve_assign_backend(name, device) in _ASSIGN_LAYOUT
 
 
 # ---------------------------------------------------------------------------
@@ -166,12 +182,13 @@ def assign_argmin_torch(points, centers, influence, *,
                         chunk: int | None = None,
                         block_p: int = 1024, block_c: int = 128,
                         weights=None, return_moments: bool = False,
-                        precision: str = "f32"):
+                        precision: str = "f32", layout=None):
     """Chunked dense path (reference: ``assign_argmin_jnp``).
-    ``block_p``/``block_c`` are accepted for the contract and ignored.
+    ``block_p``/``block_c``/``layout`` are accepted for the contract and
+    ignored.
     With ``return_moments=True`` the moments come out of the same chunk
     loop, summed across chunks in chunk order."""
-    del block_p, block_c
+    del block_p, block_c, layout
     if return_moments and weights is None:
         raise ValueError("return_moments=True requires weights")
     k = centers.shape[0]
@@ -211,15 +228,72 @@ def _pad_rows(x, multiple: int, value: float):
     return torch.cat([x, fill])
 
 
-def _bbox_order(points, centers, inv2):
+def _bbox(points):
+    """(lo, hi) [d]: the points' bounding box."""
+    return torch.min(points, dim=0).values, torch.max(points, dim=0).values
+
+
+def _bbox_order(lo, hi, centers, inv2):
     """Stable order of the centers by effective squared distance to the
-    points' bounding box (paper Alg. 1 line 6)."""
-    lo = torch.min(points, dim=0).values
-    hi = torch.max(points, dim=0).values
+    points' bounding box [lo, hi] (paper Alg. 1 line 6)."""
     gap = torch.clamp_min(torch.maximum(lo[None] - centers,
                                         centers - hi[None]), 0.0)
     key = torch.sum(gap * gap, dim=1) * inv2
     return torch.argsort(key, stable=True)
+
+
+@dataclass(frozen=True)
+class PointLayout:
+    """A solve's points in Hilbert order, built once by ``point_layout``.
+
+    ``points`` [N, d] float32 holds row ``order[i]`` of the solver's
+    points at row i, padded to ``N`` (a ``block_p`` multiple) with copies
+    of the last row; ``order`` [N] int32 maps the padding rows to
+    positions n..N-1, so results sized N and sliced to n lie in the
+    solver's order. ``lo``/``hi`` [d] are the bounding box of the n
+    points; the kernel takes each point tile's box itself."""
+    order: torch.Tensor
+    points: torch.Tensor
+    lo: torch.Tensor
+    hi: torch.Tensor
+    n: int
+    block_p: int
+
+
+def point_layout(points, block_p: int = 1024) -> PointLayout:
+    """The stable Hilbert order of ``points`` [n, d] (d = 2 or 3, keys of
+    ``core.sfc.hilbert_index_torch`` on the points' device), a contiguous
+    float32 copy of the points in that order and their bounding box. In
+    this order a tile of consecutive rows covers a small box of space,
+    which is what lets the CUDA sweep skip centers."""
+    from repro_torch.core.sfc import hilbert_index_torch
+    n, d = points.shape
+    if d not in (2, 3) or n == 0:
+        raise ValueError(f"point_layout takes n > 0 points in 2 or 3 "
+                         f"dimensions, got {tuple(points.shape)}")
+    perm = torch.sort(hilbert_index_torch(points.to(torch.float64)),
+                      stable=True).indices
+    pts = points[perm].float()
+    pad = (-n) % block_p
+    order = torch.cat([perm, torch.arange(n, n + pad, device=perm.device)])
+    pts = torch.cat([pts, pts[-1:].expand(pad, d)]).contiguous()
+    lo, hi = _bbox(points)
+    return PointLayout(order.to(torch.int32).contiguous(), pts, lo, hi, n,
+                       block_p)
+
+
+def _layout_rows(points, layout, block_p, entry):
+    """(kernel points, order, lo, hi) for a sweep over ``points``: the
+    layout's when one is given, else the points zero-padded in their own
+    order."""
+    if layout is None:
+        return (_pad_rows(points, block_p, 0.0).float().contiguous(), None,
+                *_bbox(points))
+    if layout.n != points.shape[0] or layout.block_p != block_p:
+        raise ValueError(f"{entry}: the layout was built for n={layout.n}, "
+                         f"block_p={layout.block_p}; this sweep has "
+                         f"n={points.shape[0]}, block_p={block_p}")
+    return layout.points, layout.order, layout.lo, layout.hi
 
 
 def _tile_bounds(points, centers, inv2, block_p, block_c):
@@ -241,17 +315,22 @@ def _tile_bounds(points, centers, inv2, block_p, block_c):
 
 def assign_argmin(points, centers, influence, block_p: int = 1024,
                   block_c: int = 128, weights=None,
-                  return_moments: bool = False, precision: str = "f32"):
+                  return_moments: bool = False, precision: str = "f32",
+                  layout: PointLayout | None = None):
     """Sorted-configuration wrapper (reference: ``ops.assign_argmin``):
     centers sorted by bbox distance, padded with ``_FAR`` rows, points
     padded with zeros (zero weight), the kernel launched, and labels and
-    moments mapped back to the original center order. The tile bounds
-    are not computed: the CUDA kernel does not prune."""
+    moments mapped back to the original center order. With a ``layout``
+    the kernel reads its Hilbert-ordered copy of the points and the box
+    is the layout's (no reduction over the points). The sort only decides
+    which center wins an exact tie, as in the reference; the kernel skips
+    centers by its own per-tile bounds, whatever their order."""
     n, d = points.shape
     k = centers.shape[0]
     inv2 = 1.0 / (influence * influence)
-    order = _bbox_order(points, centers, inv2)
-    pts = _pad_rows(points, block_p, 0.0).float().contiguous()
+    pts, rows, lo, hi = _layout_rows(points, layout, block_p,
+                                     "assign_argmin")
+    order = _bbox_order(lo, hi, centers, inv2)
     cts = _pad_rows(centers[order], block_c, _FAR).float().contiguous()
     iv2 = _pad_rows(inv2[order], block_c, 1.0).float().contiguous()
     if return_moments:
@@ -260,7 +339,7 @@ def assign_argmin(points, centers, influence, block_p: int = 1024,
         w = _pad_rows(weights, block_p, 0.0).float().contiguous()
         idx_s, best, second, m = assign_reduce_cuda(
             pts, cts, iv2, w, k_real=k, block_p=block_p, block_c=block_c,
-            precision=precision)
+            precision=precision, order=rows)
         # sorted column j belongs to original center order[j]
         m_orig = torch.zeros(k, d + 2, dtype=torch.float32,
                              device=points.device)
@@ -270,34 +349,39 @@ def assign_argmin(points, centers, influence, block_p: int = 1024,
                 m_orig[:, :d], m_orig[:, d], m_orig[:, d + 1])
     idx_s, best, second = assign_argmin_cuda(
         pts, cts, iv2, k_real=k, block_p=block_p, block_c=block_c,
-        precision=precision)
+        precision=precision, order=rows)
     idx = order[torch.clamp(idx_s[:n], 0, k - 1).long()].to(torch.int32)
     return idx, best[:n], second[:n]
 
 
-@register_assign_backend("cuda", supports_moments=True)
+@register_assign_backend("cuda", supports_moments=True, supports_layout=True)
 def assign_argmin_cuda_backend(points, centers, influence, *,
                                chunk: int | None = None,
                                block_p: int = 1024, block_c: int = 128,
                                weights=None, return_moments: bool = False,
-                               precision: str = "f32"):
+                               precision: str = "f32",
+                               layout: PointLayout | None = None):
     """Registry adapter for the sorted CUDA sweep (``chunk`` ignored)."""
     del chunk
     return assign_argmin(points, centers, influence, block_p=block_p,
                          block_c=block_c, weights=weights,
-                         return_moments=return_moments, precision=precision)
+                         return_moments=return_moments, precision=precision,
+                         layout=layout)
 
 
 def tile_prune_fraction(points, centers, influence, second_sq,
                         block_p: int = 1024, block_c: int = 128):
     """Fraction of (point-tile x center-tile) pairs whose bbox bound
-    cannot beat the tile's worst converged second-best: what a pruning
-    kernel would skip at the final state (``stats["tiles_pruned_frac"]``).
-    The first center tile never counts. Points are edge-padded so tile
-    bboxes stay tight."""
+    cannot beat the tile's worst converged second-best, over the points
+    in the solver's order (``stats["tiles_pruned_frac"]``): the
+    reference's estimate of what its TPU kernel skips at the final state,
+    kept for parity. The first center tile never counts. Points are
+    edge-padded so tile bboxes stay tight. What the CUDA kernel skips is
+    another quantity (per center, over the Hilbert-ordered layout): it
+    counts the pairs it computes (``pairs=`` of the kernel wrappers)."""
     n, d = points.shape
     inv2 = 1.0 / (influence * influence)
-    order = _bbox_order(points, centers, inv2)
+    order = _bbox_order(*_bbox(points), centers, inv2)
     pad_n = (-n) % block_p
     pts = points
     sec = second_sq

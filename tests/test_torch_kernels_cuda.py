@@ -1,4 +1,6 @@
-"""The language-model kernels on the card against their plain versions.
+"""The hand-written kernels on the card against their plain versions:
+the assignment sweep on the Hilbert-ordered layout, where it prunes, and
+the language-model kernels.
 
 Marked ``cuda``: they need a CUDA device and skip without one (this file
 imports neither JAX nor the JAX package, so it runs on a machine with
@@ -13,12 +15,16 @@ chip_smoke.py holds it to (set from the kernel's and SDPA's measured
 errors, PERF.md); the router's effective distances 1e-4 (those of
 tests/test_kernels_flash_router.py), with every index held against the
 plain version's dense [T, E] distances: distinct experts, each named
-expert's distance, the stable order except at a tie.
+expert's distance, the stable order except at a tie. The pruned sweep
+must equal the same kernel with pruning off bit for bit (idx, best,
+second, moments) and its plain version within the tolerances of
+tests/test_kernels.py.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import assign_kernel as ak
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_router_kernel as mr
 from repro_torch.kernels import ops
@@ -83,3 +89,48 @@ def test_router_kernel_matches_plain(cuda_device, T, dtype):
     torch.testing.assert_close(eff, peff, rtol=1e-4, atol=1e-4)
     assert router_topk_disagreements(idx, eff, full, rtol=1e-4,
                                      atol=1e-4) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,precision", [("uniform", "f32"),
+                                            ("clustered", "f32"),
+                                            ("lattice", "f32"),
+                                            ("uniform", "bf16")])
+def test_pruned_sweep_equals_unpruned(cuda_device, kind, precision):
+    """n = 2^16 points in the layout, k = 64 SFC-picked centers (lattice
+    points on the lattice: exact ties), fused sorted entry point."""
+    from repro_torch.core.sfc import sfc_initial_centers
+    rng = np.random.default_rng(11)
+    n, k, bp = 1 << 16, 64, 1024
+    if kind == "lattice":
+        grid = np.stack(np.meshgrid(*[np.arange(41)] * 3), -1).reshape(-1, 3)
+        pts = grid[rng.permutation(len(grid))[:n]] * 0.125
+    elif kind == "clustered":
+        pts = rng.uniform(0, 1, (32, 3))[rng.integers(0, 32, n)] \
+            + rng.normal(0, 0.01, (n, 3))
+    else:
+        pts = rng.uniform(0, 1, (n, 3))
+    ctr = sfc_initial_centers(pts, k)
+    f = dict(dtype=torch.float32, device=cuda_device)
+    p = torch.tensor(pts, **f)
+    lay = ops.point_layout(p, bp)
+    c = torch.tensor(ctr, **f)
+    iv = torch.tensor(rng.uniform(0.8, 1.25, k) ** -2, **f)
+    w = torch.tensor(rng.uniform(0.5, 2.0, n), **f)
+    pairs = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    got = ak.assign_reduce_cuda(lay.points, c, iv, w, k, block_p=bp,
+                                block_c=64, precision=precision,
+                                order=lay.order, pairs=pairs)
+    idx, best, second, part = ak.launch_sweep(
+        lay.points, c, iv, w, k, 4, precision, lay.order, prune=False)
+    want = ak.assign_reduce_plain(lay.points, c, iv, w, k, precision,
+                                  lay.order)
+    torch.cuda.synchronize()
+    for a, b in zip(got, (idx, best, second, torch.sum(part, 0))):
+        assert torch.equal(a, b)
+    assert float((got[0] == want[0]).float().mean()) >= 0.99
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-5)
+    if kind == "uniform":
+        # 1024 points a center: ~46% of the pairs survive on the CPU's
+        # emulation of the rule (at the main shape ~2%)
+        assert int(pairs) < 0.6 * n * k
