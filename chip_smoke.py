@@ -44,7 +44,6 @@ PHASES = ("card", "build", "kernels", "lm_kernels", "main", "paths",
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12   # tensor cores
-PEAK_F64_FLOPS = 34e12     # outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 MAIN_N = 1 << 22
@@ -520,24 +519,51 @@ def router_inputs(torch, T, E, D, seed, x_dtype, unit_influence):
     return x, c, torch.tensor(infl, dtype=torch.float32, device=DEVICE)
 
 
-def compare_router(torch, T, E, D, K, seed, x_dtype, unit_influence):
-    """ops.router_topk on the card (kernel) against the plain version on
-    the same inputs: the effective distances within the tolerance, and
-    each index held against the dense [T, E] distances the plain version
-    sorts (ref.router_topk_disagreements: distinct experts, each named
-    expert's distance, the stable order except at a tie)."""
+ROUTER_MODES = ("unit", "multiply", "divide")
+
+
+def router_call(torch, mode, x, c, infl, K, plain=False):
+    """The kernel (through ``ops``) or its plain version in one of the three
+    modes, and the dense [T, E] distances the plain version sorts."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.moe_router_kernel import router_topk_plain
-    from repro_torch.kernels.ref import (router_eff_ref,
-                                         router_topk_disagreements)
-    x, c, infl = router_inputs(torch, T, E, D, seed, x_dtype, unit_influence)
-    idx, eff = ops.router_topk(x, c, infl, top_k=K)
+    from repro_torch.kernels import moe_router_kernel as mr
+    from repro_torch.kernels.ref import router_eff_div_ref, router_eff_ref
+    if mode == "multiply":
+        inv2 = 1.0 / (infl * infl)
+        if plain:
+            return mr.router_topk_plain(x, c, inv2, K), \
+                router_eff_ref(x, c, inv2)
+        return ops.router_topk(x, c, infl, top_k=K)
+    i = infl if mode == "divide" else None
+    if plain:
+        return mr.router_topk_divide_plain(x, c, i, K), \
+            router_eff_div_ref(x, c, i)
+    return ops.router_topk_divide(x, c, i, top_k=K)
+
+
+def same_bits(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def compare_router(torch, T, E, D, K, seed, x_dtype, mode):
+    """The kernel on the card against the plain version on the same inputs
+    in one mode: the effective distances within the tolerance, each index
+    held against the dense [T, E] distances the plain version sorts
+    (ref.router_topk_disagreements: distinct experts, each named expert's
+    distance, the stable order except at a tie), and a second launch
+    bit-identical to the first."""
+    from repro_torch.kernels.ref import router_topk_disagreements
+    x, c, infl = router_inputs(torch, T, E, D, seed, x_dtype,
+                               mode == "unit")
+    idx, eff = router_call(torch, mode, x, c, infl, K)
+    idx2, eff2 = router_call(torch, mode, x, c, infl, K)
+    (pidx, peff), full = router_call(torch, mode, x, c, infl, K, plain=True)
     torch.cuda.synchronize()
-    inv2 = 1.0 / (infl * infl)
-    pidx, peff = router_topk_plain(x, c, inv2, K)
-    full = router_eff_ref(x, c, inv2)
-    torch.cuda.synchronize()
-    what = f"router_topk T={T} E={E} D={D} K={K} {x_dtype}"
+    what = (f"router_topk T={T} E={E} D={D} K={K} "
+            f"{str(x_dtype).rsplit('.', 1)[-1]} {mode}")
+    check(torch.equal(idx, idx2) and same_bits(torch, eff, eff2),
+          f"{what}: two launches differ")
     err = float(torch.max(torch.abs(eff - peff)))
     check(torch.allclose(eff, peff, rtol=ROUTER_TOL, atol=ROUTER_TOL),
           f"{what}: eff differs (max |err| {err:.3g})")
@@ -547,7 +573,60 @@ def compare_router(torch, T, E, D, K, seed, x_dtype, unit_influence):
     check(bool((torch.diff(eff, dim=1) >= 0).all()), f"{what}: not ascending")
     same = float((idx == pidx).float().mean())
     log("lm_kernels", f"{what}: indices equal {same:.6f} (the rest at "
-        f"ties), max |eff err| {err:.3g}")
+        f"ties), max |eff err| {err:.3g}, repeat bit-identical")
+    return err
+
+
+def router_planted(torch, T, K, x_dtype):
+    """Planted near-ties (ref.router_near_tie_case: integer-valued inputs,
+    exact dot products) at granite's widths: the divide form must equal the
+    reference's arithmetic (the plain divide on the card) bit for bit in
+    idx and eff, and the multiply form must rank every planted pair the
+    other way, so that a kernel that multiplied would fail here."""
+    from repro_torch.configs import granite_moe_3b_a800m as granite
+    from repro_torch.kernels.ref import router_near_tie_case
+    cfg = granite.CONFIG
+    E, D = cfg.moe.n_experts, cfg.d_model
+    x, c, infl = (torch.from_numpy(a).to(DEVICE) for a in
+                  router_near_tie_case(T, E, D, seed=T + K))
+    x = x.to(x_dtype)
+    idx, eff = router_call(torch, "divide", x, c, infl, K)
+    midx, _ = router_call(torch, "multiply", x, c, infl, K)
+    (pidx, peff), _ = router_call(torch, "divide", x, c, infl, K, plain=True)
+    torch.cuda.synchronize()
+    what = (f"router_topk planted near-ties T={T} E={E} D={D} K={K} "
+            f"{str(x_dtype).rsplit('.', 1)[-1]}")
+    check(torch.equal(idx, pidx) and same_bits(torch, eff, peff),
+          f"{what}: the divide form differs from the reference's arithmetic")
+    check(bool((midx[:, 1] != pidx[:, 1]).all()),
+          f"{what}: the multiply form did not flip every planted pair")
+    log("lm_kernels", f"{what}: divide form bit-equal to the reference's "
+        "arithmetic; the multiply form flips every planted pair")
+
+
+def router_exact_ties(torch, T, x_dtype):
+    """Each centroid twice (expert e and e + E/2): the kernel computes the
+    twins' distances alike, so they tie exactly, and the lower index must
+    come first in every pair of the top-k."""
+    from repro_torch.configs import granite_moe_3b_a800m as granite
+    cfg = granite.CONFIG
+    E, K, D = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
+    x, c, _ = router_inputs(torch, T, E // 2, D, T + 1, x_dtype, True)
+    c = torch.cat([c, c]).contiguous()
+    idx, eff = router_call(torch, "unit", x, c, None, K)
+    torch.cuda.synchronize()
+    what = (f"router_topk exact ties T={T} E={E} D={D} K={K} "
+            f"{str(x_dtype).rsplit('.', 1)[-1]}")
+    check(same_bits(torch, eff[:, 0::2], eff[:, 1::2]),
+          f"{what}: twin experts do not tie exactly")
+    # at |x|^2 ~ D the distances are coarse, so distinct experts can tie
+    # too: the rule is that indices rise across every exact tie
+    tie = eff[:, 1:] == eff[:, :-1]
+    check(bool((idx[:, 1:] > idx[:, :-1])[tie].all() and
+               (idx[:, 0] < E // 2).all()),
+          f"{what}: the higher index came first at a tie")
+    log("lm_kernels", f"{what}: every twin pair tied, indices rise across "
+        f"all {int(tie.sum())} exact ties")
 
 
 def flash_inputs(torch, B, S, H, KV, dh, dtype, seed):
@@ -621,15 +700,40 @@ def phase_lm_kernels(torch):
     from repro_torch.configs import granite_moe_3b_a800m as granite
     cfg = granite.CONFIG
     E, K, D = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
-    # the path's shapes: decode (T = batch 4) and a 4096-token prefill,
-    # bf16 tokens at unit influence as the model hands them
-    for T in (SERVE_BATCH, PREFILL_S):
-        compare_router(torch, T, E, D, K, T, torch.bfloat16, True)
-    # tests/test_kernels_flash_router.py's cases, float32 tokens
+    # the router first (tools/router_variants.py's mutants fail here):
+    # planted near-ties and exact ties on both forms of the kernel (decode
+    # at T <= 32, tiled above), then every mode at granite's widths on both
+    # sides of the threshold in bf16 and float32, then the reference
+    # tests' float32 cases (E up to 384, top_k up to 8) in every mode and
+    # at decode sizes
+    for T in (4, 48, PREFILL_S):
+        for x_dtype in (torch.bfloat16, torch.float32):
+            for k in (2, K):
+                router_planted(torch, T, k, x_dtype)
+            router_exact_ties(torch, T, x_dtype)
+    errs = []
+    for T in (1, SERVE_BATCH, 31, 33, 48, PREFILL_S, PREFILL_S + 4):
+        for x_dtype in (torch.bfloat16, torch.float32):
+            for mode in ROUTER_MODES:
+                errs.append(compare_router(torch, T, E, D, K, T, x_dtype,
+                                           mode))
     for T, e, d, k in ((512, 8, 64, 1), (512, 16, 64, 2), (512, 40, 32, 8),
                        (300, 128, 128, 2), (512, 200, 64, 4),
-                       (300, 256, 32, 8), (256, 384, 16, 2)):
-        compare_router(torch, T, e, d, k, T + e, torch.float32, False)
+                       (300, 256, 32, 8), (256, 384, 16, 2),
+                       (4, 384, 16, 2), (31, 200, 64, 4), (2, 8, 64, 1)):
+        for mode in ROUTER_MODES:
+            errs.append(compare_router(torch, T, e, d, k, T + e,
+                                       torch.float32, mode))
+    # D off the 16-byte copies: the tiled form's synchronous staging
+    for T, e, d, k, x_dtype in ((100, 24, 30, 4, torch.float32),
+                                (100, 24, 100, 4, torch.bfloat16),
+                                (5, 24, 30, 4, torch.bfloat16)):
+        for mode in ROUTER_MODES:
+            errs.append(compare_router(torch, T, e, d, k, T + d, x_dtype,
+                                       mode))
+    log("lm_kernels", f"router: {len(errs)} cases agree with the plain "
+        f"version (max |eff err| {max(errs):.3g}, tolerance {ROUTER_TOL}), "
+        "each launched twice with the same bits")
     # flash in bf16 (the tensor-core kernel): the path's shape first, then
     # all five head dims, the softcap, GQA 3:1 and 4:1, MQA, ragged S and
     # B = 2
@@ -981,6 +1085,14 @@ def profile_decode(torch, ctx, engine, step_fn, steps=4):
         f"{sum(r[1] for r in rows) // steps} device events a step  "
         f"[{ctx['card']}]")
     log_rows("serve", rows, n=10)
+    router = [r for r in rows if "router_" in r[2]]
+    check(bool(router), "serve profile: no router kernel on the device")
+    router_ms = sum(r[0] for r in router) / steps / 1e3
+    log("serve", f"router kernel device time {router_ms:.4f} ms a decode "
+        f"step, "
+        f"{sum(r[1] for r in router) // steps} launches a step "
+        f"({', '.join(sorted({router_name(r[2]) for r in router}))})  "
+        f"[{ctx['card']}]")
 
 
 def serve_agreement(torch):
@@ -1288,7 +1400,8 @@ def time_assign(torch, ctx):
 
 def time_scan(torch, ctx):
     import numpy as np
-    from repro_torch.kernels.scan import prefix_sum, prefix_sum_plain
+    from repro_torch.kernels.scan import (add_chain, prefix_sum,
+                                          prefix_sum_plain)
     w = np.random.default_rng(1).lognormal(0.0, 0.5, MAIN_N)
     x = torch.from_numpy(w).to(DEVICE)
     rec = ctx["kernels"].setdefault("prefix_sum", {})
@@ -1299,14 +1412,26 @@ def time_scan(torch, ctx):
     rec["plain_ms"] = time_ms(torch, lambda: prefix_sum_plain(x), iters=20)
     rec["library_ms"] = time_ms(torch, lambda: torch.cumsum(x, dim=0),
                                 iters=20)
-    rec["bound_ms"], rec["bound_by"] = larger_bound(
-        MAIN_N / PEAK_F64_FLOPS, 16 * MAIN_N)
+    # the bound: n dependent float64 additions, one after another (numpy's
+    # rounding admits no other order), at the latency the card takes for
+    # one; add_chain times that chain alone on one thread
+    chain = add_chain(0.1, MAIN_N, DEVICE)
+    check(float(chain) == float(np.cumsum(np.full(MAIN_N, 0.1))[-1]),
+          "add_chain: not n additions in order")
+    chain_ms = time_ms(torch, lambda: add_chain(0.1, MAIN_N, DEVICE),
+                       iters=5)
+    bytes_ms, _ = larger_bound(0.0, 16 * MAIN_N)
+    rec["bound_ms"], rec["bound_by"] = chain_ms, "operations"
     log("timing", f"prefix_sum n={MAIN_N} float64: kernel {rec['ms']:.4f} "
         f"ms, plain (torch.cumsum) {rec['plain_ms']:.4f} ms, library "
         f"{rec['library_ms']:.4f} ms, max |err| against np.cumsum "
-        f"{rec['max_abs_err']:.3g}, bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']}), launches {rec.get('launches')} on the "
-        f"{rec.get('path')} path  [{ctx['card']}]")
+        f"{rec['max_abs_err']:.3g}; bound {chain_ms:.4f} ms (latency: "
+        f"{MAIN_N} dependent float64 adds at {chain_ms / MAIN_N * 1e6:.3f} "
+        f"ns each, timed alone), {chain_ms / rec['ms']:.1%} of the kernel's "
+        f"time ({'at or above' if chain_ms >= rec['ms'] / 2 else 'below'} "
+        f"half); the bytes alone {bytes_ms:.4f} ms; launches "
+        f"{rec.get('launches')} on the {rec.get('path')} path  "
+        f"[{ctx['card']}]")
     # the weighted picks on the card against the host step they replaced:
     # the order to the host, numpy's gather, cumsum and searchsorted, and
     # the picks back (host clock, each ended by a synchronize)
@@ -1342,41 +1467,121 @@ def wall_ms(torch, fn, iters: int = 5) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def router_launcher(torch, x, c, scale, K, multiply=False):
+    """One launch of the router kernel through its C entry, with the
+    outputs, scratch and ticket made once: the kernel's own time under
+    CUDA events. (The wrappers check, allocate and look up the stream on
+    every call; on the card's host that takes longer than the kernel.)"""
+    from repro_torch.kernels import moe_router_kernel as mr
+    from repro_torch.kernels.build import load_library
+    T, D = x.shape
+    E = c.shape[0]
+    mode = mr.MULTIPLY if multiply else (mr.UNIT if scale is None
+                                         else mr.DIVIDE)
+    idx = torch.empty(T, K, dtype=torch.int32, device=DEVICE)
+    eff = torch.empty(T, K, dtype=torch.float32, device=DEVICE)
+    scratch = torch.empty(T * E, dtype=torch.float32, device=DEVICE)
+    stream = torch.cuda.current_stream()
+    lib = load_library("router")
+    args = (x.data_ptr(), c.data_ptr(),
+            None if scale is None else scale.data_ptr(), mode,
+            int(x.dtype == torch.bfloat16), T, E, D, K, idx.data_ptr(),
+            eff.data_ptr(), scratch.data_ptr(),
+            mr._ticket(stream).data_ptr(), stream.cuda_stream)
+
+    def launch():
+        lib.call("repro_router_topk", *args)
+        return idx, eff
+    return launch
+
+
+def router_name(key: str) -> str:
+    """The router kernel's name in a profiler key."""
+    return re.sub(r".*::(router_\w+).*", r"\1", key)
+
+
+def router_device_ms(torch, fn, calls: int = 50):
+    """Device milliseconds a call of ``fn`` by torch.profiler: the sum of
+    the router kernels' times over ``calls`` calls, and each kernel's (the
+    tiled form's two overlap: the second starts while the first runs)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows, _ = device_rows(prof)
+    mine = [r for r in rows if "router_" in r[2]]
+    each = ", ".join(f"{router_name(r[2])} {r[0] / calls / 1e3:.4f} ms"
+                     for r in sorted(mine, key=lambda r: r[2]))
+    return sum(r[0] for r in mine) / calls / 1e3, each
+
+
 def time_lm(torch, ctx):
     """The language-model kernels at the path's shapes: the router at
-    granite's prefill (T = 4096, bf16 tokens) and decode (T = 4), both
-    flash kernels at one granite layer of a 4096-token prefill. Each row's
-    error comes from the instance and inputs it times."""
+    granite's decode (T = 4) and prefill (T = 4096, bf16 tokens) in the
+    path's unit form, beside the divide and multiply forms and the plain
+    version; both flash kernels at one granite layer of a 4096-token
+    prefill. Each row's error comes from the instance and inputs it
+    times."""
+    import numpy as np
     from repro_torch.configs import granite_moe_3b_a800m as granite
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.moe_router_kernel import (router_topk_cuda,
-                                                       router_topk_plain)
+    from repro_torch.kernels import moe_router_kernel as mr
     cfg = granite.CONFIG
     E, K, D = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
     rec = ctx["kernels"].setdefault("router_topk", {})
     for T in (SERVE_BATCH, PREFILL_S):
-        x, c, infl = router_inputs(torch, T, E, D, T, torch.bfloat16, True)
+        x, c, _ = router_inputs(torch, T, E, D, T, torch.bfloat16, True)
+        infl = torch.tensor(np.random.default_rng(T).uniform(0.8, 1.25, E),
+                            dtype=torch.float32, device=DEVICE)
         inv2 = 1.0 / (infl * infl)
-        _, eff = router_topk_cuda(x, c, inv2, K)
-        _, peff = router_topk_plain(x, c, inv2, K)
+        (_, peff), _ = router_call(torch, "unit", x, c, None, K, plain=True)
+        _, eff = router_call(torch, "unit", x, c, None, K)
         err = float(torch.max(torch.abs(eff - peff)))
-        ms = time_ms(torch, lambda: router_topk_cuda(x, c, inv2, K),
-                     iters=50)
-        wrapped = time_ms(torch, lambda: ops.router_topk(x, c, infl,
-                                                         top_k=K), iters=50)
-        plain = time_ms(torch, lambda: router_topk_plain(x, c, inv2, K),
-                        iters=20)
+        # the kernel in each mode, launched through its C entry with its
+        # buffers made once (router_launcher), in turns: unit, divide,
+        # multiply, then the reverse; and through the wrappers, whose
+        # Python checks and allocations the host pays on every call
+        runs = {"unit": router_launcher(torch, x, c, None, K),
+                "divide": router_launcher(torch, x, c, infl, K),
+                "multiply": router_launcher(torch, x, c, inv2, K,
+                                            multiply=True)}
+        times = {mode: [] for mode in runs}
+        for mode in ROUTER_MODES + ROUTER_MODES[::-1]:
+            times[mode].append(time_ms(torch, runs[mode], iters=500))
+        ms = {m: sum(v) / len(v) for m, v in times.items()}
+        wrapped = time_ms(torch, lambda: mr.router_topk_divide_cuda(
+            x, c, None, K), iters=100)
+        dev_ms, kernels = router_device_ms(torch, runs["unit"])
+        plain = time_ms(torch, lambda: router_call(
+            torch, "unit", x, c, None, K, plain=True), iters=20)
         # 2 D + 3 float32 operations a (token, expert) pair; bytes: x in
-        # bf16, centroids and inv2 in f32 read once, idx + eff written
+        # bf16, centroids and the scale in f32 read once, idx + eff written
         bnd, by = larger_bound(T * E * (2 * D + 3) / PEAK_F32_FLOPS,
                                2 * T * D + 4 * E * (D + 1) + 8 * T * K)
-        log("timing", f"router_topk T={T} E={E} D={D} K={K} bf16: kernel "
-            f"{ms:.4f} ms (through ops.router_topk {wrapped:.4f} ms), "
-            f"plain {plain:.4f} ms, max |err| {err:.3g}, bound {bnd:.4f} ms "
-            f"({by})  [{ctx['card']}]")
+        log("timing", f"router_topk T={T} E={E} D={D} K={K} bf16 "
+            f"({'decode' if T <= 32 else 'tiled'} form): unit (the path) "
+            f"{ms['unit']:.4f} ms (runs "
+            f"{', '.join(f'{t:.4f}' for t in times['unit'])}), divide "
+            f"{ms['divide']:.4f} ms, multiply {ms['multiply']:.4f} ms; "
+            f"device time a call {dev_ms:.4f} ms by the profiler "
+            f"({kernels}); through the wrapper {wrapped:.4f} ms; plain "
+            f"{plain:.4f} ms, max |err| {err:.3g}, bound {bnd:.4f} ms ({by})"
+            f" = {bnd / ms['unit']:.1%} of the kernel's time  "
+            f"[{ctx['card']}]")
         if T == PREFILL_S:
-            rec.update(ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=bnd,
-                       bound_by=by, library_ms=None)
+            rec.update(ms=ms["unit"], plain_ms=plain, max_abs_err=err,
+                       bound_ms=bnd, bound_by=by, library_ms=None)
+    # the decode form's floor: one token at granite's widths (a launch,
+    # one round trip to memory, the ticket and the merge)
+    x, c, _ = router_inputs(torch, 1, E, D, 0, torch.bfloat16, True)
+    fn = router_launcher(torch, x, c, None, K)
+    floor = time_ms(torch, fn, iters=500)
+    log("timing", f"router_topk floor: the decode form at T=1 E={E} D={D} "
+        f"{floor:.4f} ms, device {router_device_ms(torch, fn)[0]:.4f} ms  "
+        f"[{ctx['card']}]")
     log("timing", "router_topk: no single PyTorch call computes the top-k "
         "smallest effective distances (a cdist + topk is two calls and "
         "orders ties otherwise): library_ms is null")

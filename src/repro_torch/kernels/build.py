@@ -41,10 +41,10 @@ _SIGNATURES = {
     },
     "scan": {
         "repro_prefix_sum_f64": [_P, _P, _L, _P],
+        "repro_f64_add_chain": [_P, ctypes.c_double, _L, _P],
     },
     "router": {
-        "repro_router_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                              _P],
+        "repro_router_topk": [_P] * 3 + [_I] * 6 + [_P] * 5,
     },
     "flash_attention": {
         "repro_flash_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 12

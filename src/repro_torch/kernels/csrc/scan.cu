@@ -15,7 +15,10 @@
 // on a boundary.
 //
 // What bounds it on the H100: the chain of n dependent float64 additions,
-// one after another, not the 16 n bytes it moves. The design keeps
+// one after another, not the 16 n bytes it moves. add_chain below is that
+// chain alone (one thread, n dependent adds of a value from a register):
+// its time is the latency bound of the scan, timed beside it by
+// chip_smoke.py; it is on no path. The design keeps
 // global memory out of that chain. Two warps share double-buffered
 // shared memory: while lane 0 of warp 0 adds chunk c out of one buffer,
 // warp 1 writes the sums of chunk c - 1 from the other buffer and loads
@@ -73,6 +76,15 @@ prefix_sum_kernel(const double* __restrict__ w, double* __restrict__ out,
   }
 }
 
+// out[0] = (((0 + v) + v) + ...) + v, n additions, each waiting for the
+// last: v comes from a kernel argument, so the compiler cannot fold them
+__global__ void add_chain(double* __restrict__ out, double v, long long n) {
+  double s = 0.0;
+#pragma unroll 8
+  for (long long i = 0; i < n; ++i) s += v;
+  out[0] = s;
+}
+
 }  // namespace
 
 extern "C" const char* repro_error_name(int err) {
@@ -85,5 +97,12 @@ extern "C" int repro_prefix_sum_f64(const double* w, double* out,
   if (n == 0) return static_cast<int>(cudaSuccess);
   prefix_sum_kernel<<<1, 2 * WARP, 0, static_cast<cudaStream_t>(stream)>>>(
       w, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_f64_add_chain(double* out, double v, long long n,
+                                   void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  add_chain<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(out, v, n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -423,16 +423,31 @@ def router_topk(x, centroids, influence, top_k: int, bt: int = 256,
     """Fused balanced-k-means MoE routing. x: [T, D], centroids: [E, D],
     influence: [E]. Returns (idx [T, top_k] int32, eff [T, top_k]
     float32), ascending in eff, the lower expert index first on ties.
+    eff multiplies by ``1 / influence^2``, as the reference wrapper does.
 
     ``bt`` and ``block_e`` are the TPU kernel's tiles, kept for the
-    reference's signature. The CUDA kernel has its own (32 tokens, 64
-    experts) and masks a ragged last tile of either itself, so neither
-    axis is padded; x is handed over as it is (bfloat16 or float32)."""
+    reference's signature. The CUDA kernel has its own and masks a ragged
+    last tile of either axis itself, so neither is padded; x is handed
+    over as it is (bfloat16 or float32)."""
     from .moe_router_kernel import router_topk_cuda
     del bt, block_e
     inv2 = (1.0 / (influence * influence)).float()
     return router_topk_cuda(x.contiguous(), centroids.float().contiguous(),
                             inv2.contiguous(), top_k)
+
+
+def router_topk_divide(x, centroids, influence, top_k: int):
+    """``router_topk`` in the reference model's arithmetic: eff is
+    ``max(sq, 0) / (influence * influence)``, bit for bit the model's
+    ``router_logits`` for the same ``sq``, so the top-k is its
+    ``router_logits`` + ``top_k``. ``influence=None`` routes unscaled (the
+    serving paths), which equals both forms at influence 1."""
+    from .moe_router_kernel import router_topk_divide_cuda
+    if influence is not None:
+        influence = influence.float().contiguous()
+    return router_topk_divide_cuda(x.contiguous(),
+                                   centroids.float().contiguous(), influence,
+                                   top_k)
 
 
 def _counted():

@@ -41,5 +41,18 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def add_chain(v: float, n: int, device) -> torch.Tensor:
+    """``n`` dependent float64 additions of ``v`` on one thread of the card
+    (``csrc/scan.cu`` ``add_chain``): a float64 [1] tensor equal to
+    ``np.cumsum(np.full(n, v))[-1]``. Its time is the latency bound of
+    ``prefix_sum``; it is on no path and is not counted."""
+    from .build import load_library
+    out = torch.empty(1, dtype=torch.float64, device=device)
+    load_library("scan").call(
+        "repro_f64_add_chain", out.data_ptr(), float(v), int(n),
+        torch.cuda.current_stream(out.device).cuda_stream)
+    return out
+
+
 prefix_sum.launches = 0
 prefix_sum_plain.calls = 0

@@ -8,10 +8,12 @@
   from the realized loads with the paper's Eq. (1)
   (``repro_torch.core.balanced_kmeans.adapt_influence``).
 
-The balanced-k-means top-k is the CUDA router kernel
-(``ops.router_topk``), which multiplies by ``1 / influence^2`` where the
-reference divides by ``influence^2``: the same bits where influence is 1,
-as on the serving paths (``decode_step`` and ``prefill`` pass none).
+The balanced-k-means top-k is the CUDA router kernel in its divide form
+(``ops.router_topk_divide``): ``max(sq, 0) / influence^2`` as the
+reference's ``router_logits`` computes it, so the experts and gates are
+the reference's bit for bit for the same ``sq``; without an influence (the
+serving paths: ``decode_step`` and ``prefill`` pass none) it routes
+unscaled, which is the reference's division by ones.
 
 Dispatch is the reference's gather-based scheme, integer for integer: the
 capacity ``C``, the stable argsort of expert ids, ``starts``, ``valid``
@@ -87,14 +89,12 @@ def moe_apply(params, x, cfg, rules=None, influence=None):
     dt = x.dtype
     dev = x.device
 
-    infl = influence if influence is not None else \
-        torch.ones(E, dtype=torch.float32, device=dev)
     if m.router == "balanced_kmeans":
-        eidx, eff = ops.router_topk(x.reshape(B * S, D), params["centroids"],
-                                    infl, K)
+        eidx, eff = ops.router_topk_divide(x.reshape(B * S, D),
+                                           params["centroids"], influence, K)
         gates = -eff                      # top-k logits, descending
     else:
-        logits = router_logits(params, x.reshape(B * S, D), m, infl)
+        logits = router_logits(params, x.reshape(B * S, D), m, influence)
         # stable descending sort: ties keep the lower expert first, as
         # jax.lax.top_k orders them
         gates, eidx = torch.sort(logits, dim=-1, descending=True,
@@ -151,8 +151,11 @@ def moe_apply(params, x, cfg, rules=None, influence=None):
     new_infl = None
     if m.router == "balanced_kmeans":
         target = K * B * S / E
-        new_infl, _ = adapt_influence(infl, load, target, m.router_d_eff,
-                                      m.router_influence_clip)
+        # no influence: the reference's ones, as the scalar 1.0 (the same
+        # bits, one launch fewer)
+        new_infl, _ = adapt_influence(
+            1.0 if influence is None else influence, load, target,
+            m.router_d_eff, m.router_influence_clip)
         # only influence ratios matter; renormalize to geometric mean 1
         new_infl = new_infl * torch.exp(-torch.mean(torch.log(
             torch.clamp_min(new_infl, 1e-12))))

@@ -21,7 +21,12 @@ from repro_torch.models import model as M
 def make_serve_step(cfg, rules=None, sample: str = "greedy",
                     unroll: bool = False):
     """Returns serve_step(params, cache, tokens, pos) ->
-    (next_tokens [B,1] int32, cache, logits)."""
+    (next_tokens [B,1] int32, cache, logits).
+
+    Only greedy decoding exists. The reference accepts any ``sample`` and
+    decodes greedily all the same; the port raises ``ValueError`` for
+    anything but ``"greedy"`` instead, on purpose, so that a caller who
+    asks for sampling is not handed argmax tokens silently."""
     if sample != "greedy":
         raise ValueError(f"sample={sample!r}: only greedy is implemented")
 

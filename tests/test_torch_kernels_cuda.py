@@ -15,7 +15,11 @@ chip_smoke.py holds it to (set from the kernel's and SDPA's measured
 errors, PERF.md); the router's effective distances 1e-4 (those of
 tests/test_kernels_flash_router.py), with every index held against the
 plain version's dense [T, E] distances: distinct experts, each named
-expert's distance, the stable order except at a tie. The pruned sweep
+expert's distance, the stable order except at a tie. The router is held in
+its three modes on both sides of its T threshold (decode form at T <= 32,
+tiled above), two launches must give the same bits, and on planted
+near-ties (integer-valued inputs, exact dot products) its divide form
+must equal the reference's arithmetic bit for bit. The pruned sweep
 must equal the same kernel with pruning off bit for bit (idx, best,
 second, moments) and its plain version within the tolerances of
 tests/test_kernels.py.
@@ -28,7 +32,9 @@ from repro_torch.kernels import assign_kernel as ak
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_router_kernel as mr
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import (router_eff_ref, router_topk_disagreements,
+from repro_torch.kernels.ref import (router_eff_div_ref, router_eff_ref,
+                                     router_near_tie_case,
+                                     router_topk_disagreements,
                                      row_relative_error)
 
 
@@ -89,6 +95,103 @@ def test_router_kernel_matches_plain(cuda_device, T, dtype):
     torch.testing.assert_close(eff, peff, rtol=1e-4, atol=1e-4)
     assert router_topk_disagreements(idx, eff, full, rtol=1e-4,
                                      atol=1e-4) == []
+
+
+def _router_mode(mode, x, c, infl, K):
+    """(kernel result, plain result, dense distances) in one mode."""
+    if mode == "multiply":
+        inv2 = 1.0 / (infl * infl)
+        return (mr.router_topk_cuda(x, c, inv2, K),
+                mr.router_topk_plain(x, c, inv2, K),
+                router_eff_ref(x, c, inv2))
+    i = infl if mode == "divide" else None
+    return (mr.router_topk_divide_cuda(x, c, i, K),
+            mr.router_topk_divide_plain(x, c, i, K),
+            router_eff_div_ref(x, c, i))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["unit", "multiply", "divide"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", [1, 4, 31, 33, 48, 4096, 4100])
+def test_router_forms_match_plain(cuda_device, T, dtype, mode):
+    """granite's widths (E = 40, D = 1536, top-8) in every mode, on both
+    sides of the kernel's T threshold; a second launch gives the same
+    bits."""
+    rng = np.random.default_rng(T)
+    x = torch.tensor(rng.standard_normal((T, 1536)), dtype=torch.float32,
+                     device=cuda_device).to(dtype)
+    c = torch.tensor(rng.standard_normal((40, 1536)) / 1536 ** 0.5,
+                     dtype=torch.float32, device=cuda_device)
+    infl = torch.tensor(rng.uniform(0.5, 2.0, 40), dtype=torch.float32,
+                        device=cuda_device)
+    (idx, eff), (_, peff), full = _router_mode(mode, x, c, infl, 8)
+    again = _router_mode(mode, x, c, infl, 8)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(idx, again[0])
+    assert torch.equal(eff.view(torch.int32), again[1].view(torch.int32))
+    torch.testing.assert_close(eff, peff, rtol=1e-4, atol=1e-4)
+    assert router_topk_disagreements(idx, eff, full, rtol=1e-4,
+                                     atol=1e-4) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,dtype", [(100, 30, torch.float32),
+                                       (100, 100, torch.bfloat16),
+                                       (5, 30, torch.bfloat16)])
+def test_router_unaligned_widths_match_plain(cuda_device, T, D, dtype):
+    """D off the 16-byte copies: the tiled form stages synchronously."""
+    rng = np.random.default_rng(D)
+    x = torch.tensor(rng.standard_normal((T, D)), dtype=torch.float32,
+                     device=cuda_device).to(dtype)
+    c = torch.tensor(rng.standard_normal((24, D)) / D ** 0.5,
+                     dtype=torch.float32, device=cuda_device)
+    infl = torch.tensor(rng.uniform(0.5, 2.0, 24), dtype=torch.float32,
+                        device=cuda_device)
+    for mode in ("unit", "multiply", "divide"):
+        (idx, eff), (_, peff), full = _router_mode(mode, x, c, infl, 4)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(eff, peff, rtol=1e-4, atol=1e-4)
+        assert router_topk_disagreements(idx, eff, full, rtol=1e-4,
+                                         atol=1e-4) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [4, 48, 4096])
+@pytest.mark.parametrize("K", [2, 8])
+def test_router_divide_form_at_planted_near_ties(cuda_device, T, K):
+    """Integer-valued tokens and centroids with planted near-ties
+    (ref.router_near_tie_case): the divide form equals the plain divide's
+    arithmetic bit for bit in idx and eff; the multiply form ranks every
+    planted pair the other way."""
+    x, c, infl = (torch.from_numpy(a).to(cuda_device)
+                  for a in router_near_tie_case(T, 40, 1536, seed=T + K))
+    idx, eff = mr.router_topk_divide_cuda(x.bfloat16(), c, infl, K)
+    pidx, peff = mr.router_topk_divide_plain(x, c, infl, K)
+    midx, _ = mr.router_topk_cuda(x, c, 1.0 / (infl * infl), K)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, pidx)
+    assert torch.equal(eff.view(torch.int32), peff.view(torch.int32))
+    assert bool((midx[:, 1] != pidx[:, 1]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [4, 4096])
+def test_router_exact_ties_keep_the_lower_expert(cuda_device, T):
+    """Every centroid twice: the twins tie exactly, and indices rise
+    across every exact tie (distinct experts can tie too: at |x|^2 ~ D the
+    distances are coarse)."""
+    rng = np.random.default_rng(T)
+    x = torch.tensor(rng.standard_normal((T, 1536)), dtype=torch.bfloat16,
+                     device=cuda_device)
+    c = torch.tensor(rng.standard_normal((20, 1536)) / 1536 ** 0.5,
+                     dtype=torch.float32, device=cuda_device)
+    idx, eff = mr.router_topk_divide_cuda(x, torch.cat([c, c]), None, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(eff[:, 0::2], eff[:, 1::2])
+    tie = eff[:, 1:] == eff[:, :-1]
+    assert bool((idx[:, 1:] > idx[:, :-1])[tie].all())
+    assert bool((idx[:, 0] < 20).all())
 
 
 @pytest.mark.cuda

@@ -30,6 +30,7 @@ from repro_torch import configs
 from repro_torch.configs import granite_moe_3b_a800m as granite
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import router_near_tie_case
 from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
 from repro_torch.partition import NotYetPortedError
@@ -139,6 +140,47 @@ def test_forward_influence_update_matches_reference(params):
     _, got, _ = M.forward(port_p, {"tokens": torch.from_numpy(toks)}, pcfg,
                           influence=torch.from_numpy(infl0))
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-6)
+
+
+def test_moe_apply_at_planted_near_ties_matches_reference(monkeypatch):
+    """moe_apply with an adapted influence on integer-valued tokens and
+    centroids whose planted pairs tie under the reference's divide
+    (ref.router_near_tie_case, top_k 2, drop-free capacity): the port picks
+    the reference's experts, so its output, new influence and load stats
+    agree; routed by the multiply form instead, each token takes the other
+    expert of its pair and the new influence moves away by the clip."""
+    E, K, S = 18, 2, 6
+    rcfg, pcfg = _cfgs("float32", capacity_factor=E / K)
+    rcfg, pcfg = (dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=E, top_k=K)) for cfg in (rcfg, pcfg))
+    D, F = rcfg.d_model, rcfg.moe.d_ff
+    x, c, infl = router_near_tie_case(S, E, D, seed=10)
+    rng = np.random.default_rng(10)
+    p = {"centroids": c,
+         "router": rng.standard_normal((D, E)) * D ** -0.5,
+         "w_gate": rng.standard_normal((E, D, F)) * D ** -0.5,
+         "w_up": rng.standard_normal((E, D, F)) * D ** -0.5,
+         "w_down": rng.standard_normal((E, F, D)) * F ** -0.5}
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    rules = resolve_rules(MESH, rcfg, "train")
+    want, winf, wst = RMOE.moe_apply({k: jnp.asarray(v) for k, v in
+                                      p.items()}, jnp.asarray(x[None]), rcfg,
+                                     rules, influence=jnp.asarray(infl))
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+
+    def port():
+        return MOE.moe_apply(tp, torch.from_numpy(x[None]), pcfg,
+                             influence=torch.from_numpy(infl))
+
+    got, ginf, gst = port()
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(ginf), _np(winf), rtol=1e-6, atol=0)
+    assert float(gst["load_imbalance"]) == float(wst["load_imbalance"])
+    monkeypatch.setattr(ops, "router_topk_divide",
+                        lambda xx, cc, ii, k: ops.router_topk(xx, cc, ii, k))
+    mout, minf, _ = port()
+    assert not np.allclose(_np(mout), _np(want), rtol=1e-3, atol=1e-3)
+    assert np.max(np.abs(_np(minf) / _np(winf) - 1)) > 0.05
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -299,6 +341,18 @@ def test_registry_knows_every_arch_and_serves_granite_only():
             configs.get(name)
     with pytest.raises(KeyError):
         configs.get("nope")
+
+
+def test_serve_step_refuses_sampling_on_purpose():
+    """A deliberate departure: the reference's make_serve_step accepts any
+    ``sample`` and decodes greedily all the same; the port raises for
+    anything but "greedy" rather than ignore the request."""
+    from repro_torch.serve.engine import make_serve_step
+    _, pcfg = _cfgs("float32")
+    for sample in ("temperature", "top_p", "nucleus"):
+        with pytest.raises(ValueError, match="only greedy"):
+            make_serve_step(pcfg, sample=sample)
+    assert callable(make_serve_step(pcfg, sample="greedy"))
 
 
 def test_entry_points_need_a_card_unless_cpu(monkeypatch):

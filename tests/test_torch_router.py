@@ -11,6 +11,12 @@ within that tolerance (the reference's rule). Both packages' indices are
 held against a float64 dense oracle of all [T, E] distances
 (``ref.router_topk_disagreements``): distinct experts, each named expert's
 distance, the stable order except at a tie.
+
+The divide form (the model path) is held to the reference model's
+``router_logits`` + ``jax.lax.top_k`` bit for bit, on integer-valued
+inputs whose dot products are exact on every backend, with influences
+planted so that the multiply form ranks two experts the other way
+(``ref.router_near_tie_case``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +28,8 @@ from repro.models import moe as RMOE
 from repro.models.config import MoEConfig as RMoEConfig
 from repro_torch.kernels import moe_router_kernel as mr
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import router_topk_disagreements
+from repro_torch.kernels.ref import (router_near_tie_case,
+                                     router_topk_disagreements)
 from repro_torch.models import moe as MOE
 from repro_torch.models.config import MoEConfig
 
@@ -155,12 +162,57 @@ def test_multiply_by_inv2_is_not_the_models_divide():
     torch.testing.assert_close(eff, div, rtol=3e-7, atol=0.0)
 
 
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("K", [2, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_divide_form_is_the_reference_models_routing_at_near_ties(K, dtype):
+    """At adapted influence with planted near-ties the divide form picks
+    the reference model's experts and gates (router_logits + lax.top_k)
+    bit for bit; the multiply form (ops.router_topk) ranks every planted
+    pair the other way: another expert at top_k = 2, another order
+    above."""
+    import jax
+    x, c, infl = router_near_tie_case(24, 40, 48, seed=8)
+    rm = RMoEConfig(n_experts=40, top_k=K, d_ff=16, router="balanced_kmeans")
+    rl = RMOE.router_logits({"centroids": jnp.asarray(c)}, jnp.asarray(x),
+                            rm, jnp.asarray(infl))
+    rg, ri = jax.lax.top_k(rl, K)
+    tx = torch.from_numpy(x).to(dtype)       # small integers: exact in bf16
+    idx, eff = ops.router_topk_divide(tx, torch.from_numpy(c),
+                                      torch.from_numpy(infl), top_k=K)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ri))
+    np.testing.assert_array_equal(_bits(-eff.numpy()), _bits(rg))
+    midx, _ = ops.router_topk(tx, torch.from_numpy(c),
+                              torch.from_numpy(infl), top_k=K)
+    assert (midx.numpy()[:, 1] != np.asarray(ri)[:, 1]).all()
+    assert (np.sort(midx.numpy(), 1) == np.sort(np.asarray(ri), 1)).all() \
+        == (K > 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unit_form_equals_multiply_and_divide_at_influence_one(dtype):
+    """No influence (the serving paths) routes unscaled: the same bits as
+    multiplying by 1 / 1^2 and dividing by 1^2."""
+    x, c, _ = _inputs(300, 40, 48, seed=9)
+    tx, tc, ones = torch.from_numpy(x).to(dtype), torch.from_numpy(c), \
+        torch.ones(40)
+    ui, ue = ops.router_topk_divide(tx, tc, None, top_k=8)
+    for oi, oe in (ops.router_topk_divide(tx, tc, ones, top_k=8),
+                   ops.router_topk(tx, tc, ones, top_k=8)):
+        assert torch.equal(ui, oi)
+        assert torch.equal(ue, oe)
+
+
 def test_kernel_input_checks():
     x = torch.zeros(8, 16)
     c = torch.zeros(64, 16)
     inv2 = torch.ones(64)
     mr._check_inputs(x, c, inv2, top_k=4)
     mr._check_inputs(x, torch.zeros(40, 16), torch.ones(40), top_k=8)
+    mr._check_inputs(x, c, None, top_k=4)               # the unit form
     with pytest.raises(ValueError, match="do not match"):
         mr._check_inputs(x, c, torch.ones(40), top_k=4)
     with pytest.raises(ValueError, match="top_k"):
@@ -178,4 +230,8 @@ def test_cpu_tensor_takes_the_plain_version_and_padding_is_never_chosen():
     counts = ops.launch_counts()
     assert counts["router_topk_plain"] == 1 and counts["router_topk"] == 0
     assert (idx.numpy() < 40).all()
+    ops.router_topk_divide(*_t(x, c, infl), top_k=8)
+    ops.router_topk_divide(*_t(x, c), None, top_k=8)
+    counts = ops.launch_counts()
+    assert counts["router_topk_plain"] == 3 and counts["router_topk"] == 0
 
