@@ -12,7 +12,12 @@ partitioner launches it with among others,
 drives ``partition(problem, method="geographer")`` at n = 2^22 points and
 k = 1024 blocks (unit and lognormal weights) plus the unfused and flat
 paths, checks determinism and agreement with the port's CPU path,
-profiles a short main-shape run (device time by kernel), serves
+profiles a short main-shape run (device time by kernel), drives the
+load-balance time series warm and cold on the main cell's points
+(``simulate_loadbalance``, its scan-semantics twin and ``repartition``)
+and on the repartition benchmark's mesh, the hierarchical (32 x 32)
+solve of the main cell, and the partition server over the serving
+benchmark's tenant fleet, warm and cold, then serves
 granite-moe-3b-a800m at full width through ``ServeEngine.run`` and through
 ``prefill`` -> ``extend_cache`` -> ``decode_step`` at a 4096-token prompt
 (the paths of the MoE-router kernel and of the bf16 tensor-core
@@ -25,7 +30,9 @@ beside it, the script exits non-zero and prints no result.
 
 ``--phases build,lm_kernels,serve,prefill`` runs a subset (the card
 phase always runs); ``--quick`` drops the main-shape kernel comparisons
-(a short first check of a new kernel).
+(a short first check of a new kernel). Every path's kernel launches are
+counted from 0 just before it and read just after; the kernels line
+carries them under ``launches_by_path``.
 """
 from __future__ import annotations
 
@@ -39,7 +46,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("card", "build", "kernels", "lm_kernels", "main", "paths",
-          "agreement", "profile", "serve", "prefill", "timing")
+          "agreement", "profile", "repartition", "hierarchical", "pserve",
+          "serve", "prefill", "timing")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_F32_FLOPS = 67e12
@@ -68,6 +76,19 @@ BF16_FLIP_MAX, BF16_GAP_MAX = 0.05, 2.0 ** -6
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ROUTER_TOL = 1e-4
 LM_BF16_TOL = 5e-2
+
+# the load-balance time series on the main cell's points (T steps), and
+# the full configuration of benchmarks/repartition.py: (family, n, k,
+# seed, T)
+REPART_T = 8
+REPART_BENCH = ("delaunay2d", 30_000, 16, 5, 12)
+HIER = (32, 32)
+HIER_CPU_N, HIER_CPU = 1 << 16, (8, 8)
+# the full configuration of benchmarks/serving.py: (n, k) per tenant on
+# delaunay2d meshes seeded 10 + i, tiers, slots, steps
+PSERVE_TENANTS = ((7000, 16), (8192, 16), (14000, 32), (16000, 32))
+PSERVE_TIERS = (2048, 4096, 8192, 16384)
+PSERVE_SLOTS, PSERVE_T, PSERVE_CACHE = 2, 12, 64
 
 # granite-moe-3b-a800m serving shapes
 SERVE_BATCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 6, 12, 16
@@ -977,6 +998,430 @@ def log_rows(tag, rows, n=12):
 
 
 # ---------------------------------------------------------------------------
+# phases 7b-7d: the load-balance time series, the hierarchical solve and
+# the partition server
+# ---------------------------------------------------------------------------
+
+def run_counted(torch, ctx, tag, fn, allowed=("assign_reduce",)):
+    """``fn()`` with every launch counter set to 0 just before it and read
+    just after. The assign kernel must have launched; nothing outside
+    ``allowed`` (no plain version) may have run. Returns (result, wall
+    seconds, the nonzero counts), and keeps the counts for the kernels
+    line under the path's tag."""
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: c for name, c in launch_counts().items() if c}
+    check(counts.get("assign_reduce", 0) > 0,
+          f"{tag}: the assign kernel never launched")
+    check(set(counts) <= set(allowed),
+          f"{tag}: launched {counts}, only {allowed} expected")
+    ctx["paths"][tag] = counts
+    return out, wall, counts
+
+
+def profile_call(torch, ctx, tag, fn):
+    """Where one call's time goes: ``fn`` under torch.profiler (after the
+    counted runs), its wall time, the device's busy share and device time
+    by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows, device_s = device_rows(prof)
+    log(tag, f"profile: wall {wall:.3f} s under the profiler, device busy "
+        f"{device_s:.3f} s = {device_s / wall:.1%} of wall, "
+        f"{sum(r[1] for r in rows)} device events  [{ctx['card']}]")
+    log_rows(tag, rows, n=10)
+
+
+def host_profile(torch, tag, fn, n=12):
+    """Where one call's host time goes: ``fn`` under cProfile, the
+    functions with the most self time (a blocking read of the device
+    shows as the time of the call that reads)."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    total = sum(v[2] for v in stats.values())
+    log(tag, f"host profile: {total:.3f} s of self time under cProfile")
+    for (path, line, name), (_, calls, tt, ct, _) in sorted(
+            stats.items(), key=lambda kv: -kv[1][2])[:n]:
+        log(tag, f"  {tt * 1e3:9.2f} ms self {ct * 1e3:9.2f} ms cum "
+            f"{calls:7d} calls  {Path(path).name}:{line}({name})")
+
+
+def log_sim(tag, sim, wall, counts, card):
+    for r in sim["per_step"]:
+        log(tag, f"step {r['step']}: iters {r['iters']}, migration "
+            f"fraction {r['migration_fraction']:.6f}, imbalance "
+            f"{r['imbalance']:.6f}, {r['time_s']:.4f} s, assign launches "
+            f"{r['kernel_launches'].get('assign_reduce', 0)}")
+    s = sim["summary"]
+    log(tag, f"n={sim['n']} k={sim['k']} T={sim['steps']} {sim['mode']}: "
+        f"mean iters {s['mean_iters']:.3f}, mean migration "
+        f"{s['mean_migration_fraction']:.6f}, max imbalance "
+        f"{s['max_imbalance']:.6f}, steps {s['total_time_s']:.3f} s "
+        f"(mean {s['total_time_s'] / sim['steps']:.4f} s a step), wall "
+        f"{wall:.3f} s with step 0, launches {counts}  [{card}]")
+    for r in sim["per_step"]:
+        check(r["imbalance"] <= EPS + 1e-6,
+              f"{tag}: step {r['step']} imbalance {r['imbalance']:.6f}")
+
+
+def phase_repartition(torch, ctx):
+    """The load-balance time series on the main cell's points under the
+    drifting hotspot, T steps warm (twice) and cold through
+    ``simulate_loadbalance``; its scan-semantics twin from the same cold
+    start; ``repartition`` of an unchanged problem; then the full
+    configuration of benchmarks/repartition.py with its claims."""
+    import numpy as np
+    from repro_torch.core import meshes
+    from repro_torch.core.balanced_kmeans import BKMConfig
+    from repro_torch.core.timeseries import (simulate_loadbalance,
+                                             simulate_loadbalance_scan)
+    from repro_torch.partition import PartitionProblem, partition, repartition
+    from repro_torch.partition.repartition import WARM_DELTA_TOL
+    pts = np.random.default_rng(0).uniform(0.0, 1.0, (MAIN_N, MAIN_D))
+    prob = PartitionProblem(points=pts, k=MAIN_K, epsilon=EPS, seed=0)
+    wl = meshes.DriftingHotspot()
+    boot = ("assign_reduce", "prefix_sum")   # weighted cold starts
+    sims = {}
+    for tag, mode in (("repartition-warm", "warm"),
+                      ("repartition-warm-repeat", "warm"),
+                      ("repartition-cold", "cold")):
+        sims[tag], wall, counts = run_counted(
+            torch, ctx, tag,
+            lambda: simulate_loadbalance(prob, wl, REPART_T, mode=mode),
+            boot)
+        log_sim(tag, sims[tag], wall, counts, ctx["card"])
+    warm, again = sims["repartition-warm"], sims["repartition-warm-repeat"]
+    check(np.array_equal(warm["final_result"].labels,
+                         again["final_result"].labels) and
+          [r["iters"] for r in warm["per_step"]] ==
+          [r["iters"] for r in again["per_step"]],
+          "repartition: two warm runs differ")
+    log("repartition", "two warm runs: labels bit-identical, the same "
+        "iterations every step")
+    sw, sc = warm["summary"], sims["repartition-cold"]["summary"]
+    mig = (sw["mean_migration_fraction"]
+           / max(sc["mean_migration_fraction"], 1e-9))
+    log("repartition", f"main cell, cold/warm mean iters "
+        f"{sc['mean_iters'] / max(sw['mean_iters'], 1e-9):.3f}, warm/cold "
+        f"migration {mig:.4f}, seconds a step warm {sw['total_time_s'] / REPART_T:.4f} / cold "
+        f"{sc['total_time_s'] / REPART_T:.4f}  [{ctx['card']}]")
+    # the scan's semantics from the same cold start, on the permuted points
+    dev_pts = torch.from_numpy(pts).to(DEVICE)
+    prev = partition(prob.replace(
+        weights=wl.weights_at(dev_pts, 0).cpu().numpy()))
+    perm = np.random.default_rng(prob.seed).permutation(MAIN_N)
+    cfg = BKMConfig(k=MAIN_K, epsilon=EPS, warmup=False,
+                    delta_tol=WARM_DELTA_TOL)
+    ((_, _, lab), recs), wall, counts = run_counted(
+        torch, ctx, "repartition-scan",
+        lambda: simulate_loadbalance_scan(
+            pts[perm], prev.centers, prev.influence, prev.labels[perm], wl,
+            REPART_T, cfg))
+    host_iters = [r["iters"] for r in warm["per_step"]]
+    host_mig = [r["migration_fraction"] for r in warm["per_step"]]
+    check(recs["iters"].tolist() == host_iters,
+          f"repartition-scan: iters {recs['iters'].tolist()} against the "
+          f"host loop's {host_iters}")
+    check(np.allclose(recs["migration_fraction"].numpy(), host_mig,
+                      rtol=1e-5, atol=1e-7),
+          "repartition-scan: migration differs from the host loop's")
+    check(np.array_equal(lab.cpu().numpy(),
+                         warm["final_result"].labels[perm]),
+          "repartition-scan: final labels differ from the host loop's")
+    rel = np.abs(recs["migration_fraction"].numpy() - host_mig) / host_mig
+    log("repartition", f"scan semantics: iters {host_iters} as the host "
+        f"loop, migration within rtol 1e-5 (max rel {float(rel.max()):.3g}),"
+        f" final labels equal, balance retries "
+        f"{recs['balance_retries'].tolist()}, {wall:.3f} s, launches "
+        f"{counts}  [{ctx['card']}]")
+    # an unchanged problem is a fixed point
+    prob_t = prob.replace(
+        weights=wl.weights_at(dev_pts, REPART_T).cpu().numpy())
+    res, wall, counts = run_counted(
+        torch, ctx, "repartition-fixed-point",
+        lambda: repartition(prob_t, warm["final_result"]))
+    check(res.stats["iters"] == 0 and
+          res.stats["migration"]["volume"] == 0.0,
+          f"repartition: unchanged problem took {res.stats['iters']} "
+          f"iterations, migrated {res.stats['migration']['volume']}")
+    log("repartition", f"unchanged problem: 0 iterations, 0 migration, "
+        f"{wall:.3f} s, launches {counts}")
+    prob_1 = prob.replace(weights=wl.weights_at(dev_pts, 1).cpu().numpy())
+    profile_call(torch, ctx, "repartition",
+                 lambda: repartition(prob_1, prev))
+    host_profile(torch, "repartition", lambda: repartition(prob_1, prev))
+    # the full configuration of benchmarks/repartition.py
+    fam, n, k, seed, steps = REPART_BENCH
+    bprob = PartitionProblem.from_mesh(meshes.REGISTRY[fam](n, seed=seed),
+                                       k, epsilon=EPS, seed=seed)
+    bench = {}
+    for mode in ("warm", "cold"):
+        tag = f"repartition-bench-{mode}"
+        bench[mode], wall, counts = run_counted(
+            torch, ctx, tag,
+            lambda: simulate_loadbalance(bprob, wl, steps, mode=mode), boot)
+        log_sim(tag, bench[mode], wall, counts, ctx["card"])
+    sw, sc = bench["warm"]["summary"], bench["cold"]["summary"]
+    iters_ratio = sc["mean_iters"] / max(sw["mean_iters"], 1e-9)
+    mig_ratio = (sw["mean_migration_fraction"]
+                 / max(sc["mean_migration_fraction"], 1e-9))
+    check(iters_ratio >= 3.0, f"repartition bench: cold/warm iters "
+          f"{iters_ratio:.3f} < 3")
+    check(mig_ratio <= 0.30, f"repartition bench: warm/cold migration "
+          f"{mig_ratio:.4f} > 0.30")
+    log("repartition", f"{fam} n={n} k={k} T={steps}: cold/warm mean iters "
+        f"{sc['mean_iters']:.3f} / {sw['mean_iters']:.3f} = "
+        f"{iters_ratio:.3f} (claim >= 3), warm/cold migration "
+        f"{mig_ratio:.4f} (claim <= 0.30), every step balanced  "
+        f"[{ctx['card']}]")
+
+
+def phase_hierarchical(torch, ctx):
+    """``partition(main problem, hierarchy=(32, 32))`` twice, and once with
+    the one-lane-a-call refinement: bit-identical; then the card against
+    the port on the CPU at n = 2^16, (8, 8)."""
+    import numpy as np
+    from repro_torch.partition import PartitionProblem, partition
+    pts = np.random.default_rng(0).uniform(0.0, 1.0, (MAIN_N, MAIN_D))
+    prob = PartitionProblem(points=pts, k=HIER[0] * HIER[1], epsilon=EPS,
+                            seed=0)
+    runs = {}
+    for tag, batched in (("hierarchical", True),
+                         ("hierarchical-repeat", True),
+                         ("hierarchical-sequential", False)):
+        runs[tag], wall, counts = run_counted(
+            torch, ctx, tag,
+            lambda: partition(prob, hierarchy=HIER, batched=batched))
+        res = runs[tag]
+        coarse, fine = res.stats["levels"]
+        imb = res.imbalance()
+        log(tag, f"n={MAIN_N} k={prob.k} hierarchy={HIER}: wall "
+            f"{wall:.3f} s = coarse {coarse['seconds']:.3f} s (imbalance "
+            f"{coarse['imbalance']:.5f} at eps {coarse['epsilon']}) + "
+            f"refine {fine['seconds']:.3f} s (of it the host's batch and "
+            f"bootstraps {fine['prep_seconds']:.3f} s); lanes' iters "
+            f"{fine['iters']}; "
+            f"final imbalance {imb:.6f}; launches {counts}  [{ctx['card']}]")
+        check(imb <= EPS + 1e-6, f"{tag}: imbalance {imb:.6f}")
+    a = runs["hierarchical"]
+    for tag in ("hierarchical-repeat", "hierarchical-sequential"):
+        b = runs[tag]
+        check(np.array_equal(a.labels, b.labels) and
+              np.array_equal(a.centers, b.centers) and
+              np.array_equal(a.influence, b.influence),
+              f"hierarchical: {tag} differs from the first run")
+    log("hierarchical", "two batched runs and the sequential one: labels, "
+        "centers and influence bit-identical")
+    profile_call(torch, ctx, "hierarchical",
+                 lambda: partition(prob, hierarchy=HIER))
+    host_profile(torch, "hierarchical",
+                 lambda: partition(prob, hierarchy=HIER))
+    lane_layout(torch, ctx, "hierarchical", pts[: MAIN_N // HIER[0]])
+    hierarchical_agreement(torch, ctx, pts[:HIER_CPU_N])
+
+
+def lane_layout(torch, ctx, tag, pts):
+    """The point layout one lane builds (``ops.point_layout``: Hilbert
+    keys, stable sort, copy, box), at a lane's size: host clock around
+    the call and a synchronize, and the device time by CUDA events."""
+    from repro_torch.kernels.ops import point_layout
+    p = torch.tensor(pts, dtype=torch.float32, device=DEVICE)
+    host = wall_ms(torch, lambda: point_layout(p, path_block_p()))
+    dev = time_ms(torch, lambda: point_layout(p, path_block_p()), iters=5)
+    log(tag, f"point layout of one lane, n={len(pts)} d={pts.shape[1]}: "
+        f"{host:.3f} ms by the host clock (median of 5), {dev:.3f} ms by "
+        f"CUDA events  [{ctx['card']}]")
+
+
+def hierarchical_agreement(torch, ctx, pts):
+    """The card against the port on the CPU at n = 2^16, (8, 8), stage by
+    stage: the coarse cut, then the refinement lanes from the same coarse
+    labels, each at least 0.99 in agreement. End to end the two differ
+    more: a lane whose block lost or gained a few points to a coarse
+    near-tie settles in another local optimum (the reference against the
+    port on the CPU reads the same on this instance; PERF.md, PR 17), so
+    the composition is printed, not gated."""
+    import numpy as np
+    from repro_torch.core.balanced_kmeans import BKMConfig
+    from repro_torch.core.sfc import sfc_initial_centers
+    from repro_torch.partition import (PartitionProblem,
+                                       batched_balanced_kmeans,
+                                       build_refinement_batch, partition)
+    k1, k2 = HIER_CPU
+    small = PartitionProblem(points=pts, k=k1 * k2, epsilon=EPS, seed=0)
+    coarse = small.replace(k=k1, epsilon=EPS / 2)
+    gpu_c, _, _ = run_counted(torch, ctx, "hierarchical-agreement",
+                              lambda: partition(coarse))
+    cpu_c = partition(coarse, device="cpu")
+    agree_c = float(np.mean(gpu_c.labels == cpu_c.labels))
+    bpts, bw, gather, counts = build_refinement_batch(pts, None,
+                                                      gpu_c.labels, k1)
+    c0 = np.stack([sfc_initial_centers(bpts[b, :counts[b]], k2,
+                                       np.ones(counts[b]))
+                   for b in range(k1)])
+    cfg = BKMConfig(k=k2, epsilon=EPS, warmup=False)
+    target = small.total_weight / (k1 * k2)
+    lanes = [batched_balanced_kmeans(bpts, bw, c0, cfg, target, device=dev)
+             for dev in (DEVICE, "cpu")]
+    real = np.arange(bpts.shape[1])[None, :] < counts[:, None]
+    agree_r = float(np.mean((lanes[0][0].cpu().numpy() ==
+                             lanes[1][0].numpy())[real]))
+    iters = [lane[3]["iters"].cpu().tolist() for lane in lanes]
+    gpu = partition(small, hierarchy=HIER_CPU)
+    cpu = partition(small, hierarchy=HIER_CPU, device="cpu")
+    agree = float(np.mean(gpu.labels == cpu.labels))
+    log("hierarchical", f"n={len(pts)} hierarchy={HIER_CPU}, CUDA vs CPU: "
+        f"coarse labels {agree_c:.4f}; refinement lanes from the same "
+        f"coarse labels {agree_r:.4f} (iters {iters[0]} / {iters[1]}); "
+        f"end to end {agree:.4f} (not gated), imbalance "
+        f"{gpu.imbalance():.5f} / {cpu.imbalance():.5f}")
+    check(agree_c >= 0.99,
+          f"hierarchical: coarse CUDA vs CPU agreement {agree_c:.4f}")
+    check(agree_r >= 0.99,
+          f"hierarchical: refinement CUDA vs CPU agreement {agree_r:.4f}")
+
+
+def pserve_fleet():
+    from repro_torch.core import meshes
+    from repro_torch.partition import PartitionProblem
+    return [PartitionProblem(points=meshes.REGISTRY["delaunay2d"](
+        n, seed=10 + i).points, k=k, epsilon=EPS, seed=10 + i)
+        for i, (n, k) in enumerate(PSERVE_TENANTS)]
+
+
+def serve_stream(server, stream, order=None):
+    """Serve every step's requests (in ``order``); per step (seconds,
+    responses by tenant)."""
+    out = []
+    for batch in stream:
+        if order is not None:
+            batch = [batch[i] for i in order]
+        t0 = time.perf_counter()
+        resp = server.serve(batch)
+        out.append((time.perf_counter() - t0,
+                    {r.tenant: r for r in resp}))
+    return out
+
+
+def phase_pserve(torch, ctx):
+    """The serving benchmark's fleet through ``PartitionServer``, T steps
+    of the drifting hotspot, warm (cache) and cold (no cache); the cold
+    request at n == cap against ``partition()``, the warm hit against
+    ``repartition()``, interleaving, and padded duplicates."""
+    import numpy as np
+    from repro_torch.core import meshes
+    from repro_torch.core.balanced_kmeans import BKMConfig
+    from repro_torch.partition import (bucket_balanced_kmeans, partition,
+                                       repartition)
+    from repro_torch.serve import PartitionServer, request_stream
+    probs = pserve_fleet()
+    wl = meshes.DriftingHotspot()
+    runs = {}
+    for mode, cache in (("warm", PSERVE_CACHE), ("cold", 0)):
+        server = PartitionServer(tiers=PSERVE_TIERS, slots=PSERVE_SLOTS,
+                                 cache_slots=cache)
+        stream = list(request_stream(probs, wl, PSERVE_T))
+        steps, wall, counts = run_counted(
+            torch, ctx, f"pserve-{mode}",
+            lambda: serve_stream(server, stream))
+        runs[mode] = (steps, server)
+        for t, (dt, resp) in enumerate(steps):
+            for r in resp.values():
+                check(r.balanced, f"pserve {mode}: step {t} tenant "
+                      f"{r.tenant} imbalance {r.imbalance:.6f}")
+            log(f"pserve-{mode}", f"step {t}: {dt:.4f} s, iters "
+                f"{[resp[i].iters for i in range(len(probs))]}, warm "
+                f"{sum(r.warm for r in resp.values())}")
+        steady = [dt for dt, _ in steps[2:]]
+        log(f"pserve-{mode}", f"{len(probs)} tenants x {PSERVE_T} steps, "
+            f"tiers {PSERVE_TIERS}, slots {PSERVE_SLOTS}, cache {cache}: "
+            f"wall {wall:.3f} s, steady state (steps >= 2) "
+            f"{np.mean(steady):.4f} s a step, server stats {server.stats}, "
+            f"launches {counts}  [{ctx['card']}]")
+    warm_steps, warm_server = runs["warm"]
+    hits = warm_server.stats["warm_hits"]
+    check(hits == len(probs) * (PSERVE_T - 1),
+          f"pserve: {hits} warm hits, expected {len(probs)} x "
+          f"{PSERVE_T - 1}")
+    steady = {m: np.mean([dt for dt, _ in runs[m][0][2:]]) for m in runs}
+    last = list(request_stream(probs, wl, PSERVE_T + 1))[-1]
+    profile_call(torch, ctx, "pserve-warm",
+                 lambda: warm_server.serve(last))
+    host_profile(torch, "pserve-warm", lambda: warm_server.serve(
+        list(request_stream(probs, wl, PSERVE_T + 2))[-1]))
+    log("pserve", f"warm hits {hits} = {len(probs)} x {PSERVE_T - 1}; "
+        f"steady-state seconds a step warm {steady['warm']:.4f} / cold "
+        f"{steady['cold']:.4f}  [{ctx['card']}]")
+    # the tenant at n == cap: cold step 0 is partition(), warm step 1 is
+    # repartition() from it
+    tenant = next(i for i, (n, _) in enumerate(PSERVE_TENANTS)
+                  if n in PSERVE_TIERS)
+    p = probs[tenant]
+    dev_pts = torch.from_numpy(p.points).to(DEVICE)
+    w0, w1 = (wl.weights_at(dev_pts, t).cpu().numpy() for t in (0, 1))
+    prev = partition(p.replace(weights=w0))
+    nxt = repartition(p.replace(weights=w1), prev)
+    r0, r1 = warm_steps[0][1][tenant], warm_steps[1][1][tenant]
+    check(np.array_equal(r0.labels, prev.labels),
+          "pserve: the cold request at n == cap differs from partition()")
+    check(r1.warm and np.array_equal(r1.labels, nxt.labels) and
+          r1.iters == nxt.stats["iters"],
+          "pserve: the warm hit differs from repartition()")
+    log("pserve", f"tenant {tenant} (n = cap = {p.n}): cold step equals "
+        f"partition() bit for bit, warm hit equals repartition() bit for "
+        f"bit with {r1.iters} iterations")
+    # the same stream interleaved otherwise: the same responses
+    order = list(range(len(probs)))[::-1]
+    other = serve_stream(
+        PartitionServer(tiers=PSERVE_TIERS, slots=PSERVE_SLOTS,
+                        cache_slots=PSERVE_CACHE),
+        list(request_stream(probs, wl, 3)), order)
+    for t, (_, resp) in enumerate(other):
+        for i, r in resp.items():
+            w = warm_steps[t][1][i]
+            check(np.array_equal(r.labels, w.labels) and r.iters == w.iters,
+                  f"pserve: interleaved step {t} tenant {i} differs")
+    log("pserve", "the first 3 steps served in reverse order: the same "
+        "labels and iterations")
+    # padded duplicates take their source's label (n < cap)
+    small = next(i for i, (n, _) in enumerate(PSERVE_TENANTS)
+                 if n not in PSERVE_TIERS)
+    server = PartitionServer(tiers=PSERVE_TIERS, slots=1)
+    req = list(request_stream(probs, wl, 1))[0][small]
+    cap = server.tier_for(req.n)
+    _, spts, sw, c0, _, _ = server._prep_slot(req, cap, None)
+    (A, *_), _, _ = run_counted(
+        torch, ctx, "pserve-duplicates",
+        lambda: bucket_balanced_kmeans(spts[None], sw[None], c0[None],
+                                       BKMConfig(k=req.k, epsilon=EPS),
+                                       counts=[req.n]))
+    lab = A[0].cpu().numpy()
+    check(np.array_equal(lab, lab[np.arange(cap) % req.n]),
+          "pserve: a padded duplicate and its source got different labels")
+    log("pserve", f"tenant {small} (n={req.n}, cap {cap}): every padded "
+        "duplicate has its source's label")
+    lane_layout(torch, ctx, "pserve", spts)
+
+
+# ---------------------------------------------------------------------------
 # phases 9-10: granite-moe-3b-a800m served at full width
 # ---------------------------------------------------------------------------
 
@@ -1673,6 +2118,10 @@ def kernels_json(ctx) -> str:
                  "source": f"src/repro_torch/kernels/csrc/{source}",
                  "replaces": replaces}
         entry.update({k: rec.get(k) for k in keys})
+        # the later slices' paths, each counted from 0 on its own
+        entry["launches_by_path"] = {tag: counts[name] for tag, counts
+                                     in ctx["paths"].items()
+                                     if name in counts}
         out.append(entry)
     return json.dumps({"kernels": out})
 
@@ -1697,7 +2146,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    ctx = {"kernels": {}}
+    ctx = {"kernels": {}, "paths": {}}
     phase_card(torch, ctx)
     run = {"build": lambda: phase_build(torch, ctx),
            "kernels": lambda: phase_kernels(torch, args.quick),
@@ -1706,6 +2155,9 @@ def main() -> int:
            "paths": lambda: phase_paths(torch, ctx),
            "agreement": lambda: phase_agreement(torch, ctx),
            "profile": lambda: phase_profile(torch, ctx),
+           "repartition": lambda: phase_repartition(torch, ctx),
+           "hierarchical": lambda: phase_hierarchical(torch, ctx),
+           "pserve": lambda: phase_pserve(torch, ctx),
            "serve": lambda: phase_serve(torch, ctx),
            "prefill": lambda: phase_prefill(torch, ctx),
            "timing": lambda: phase_timing(torch, ctx)}

@@ -8,6 +8,11 @@ objects of the reference, so the port still imports nothing of it.
   such as ``"float32"``) into the port's ``BKMConfig``;
 * ``state_from_numpy`` turns a reference result's warm-start pair
   (centers, influence) into tensors on a device;
+* ``result_from_numpy`` turns the fields of a reference
+  ``PartitionResult`` or ``WarmState`` (numpy ``labels``, ``centers``,
+  ``influence``) into the port's ``PartitionResult``, so that both
+  packages can resume from the same previous state (the port's
+  ``WarmState`` holds numpy fields as the reference's does);
 * ``params_from_numpy`` turns a reference model's parameter tree (numpy
   leaves) into the port's tree of tensors.
 """
@@ -48,6 +53,23 @@ def state_from_numpy(centers: np.ndarray, influence: np.ndarray | None,
     infl = (None if influence is None else
             torch.tensor(np.asarray(influence), device=device).to(dtype))
     return c, infl
+
+
+def result_from_numpy(problem, labels: np.ndarray,
+                      centers: np.ndarray | None = None,
+                      influence: np.ndarray | None = None,
+                      method: str = "geographer"):
+    """The port's ``PartitionResult`` of ``problem`` (a port
+    ``PartitionProblem``) from a reference result's fields: what
+    ``repartition()`` takes as ``previous``."""
+    from repro_torch.partition.problem import PartitionResult
+    res = PartitionResult(
+        labels=np.array(labels, dtype=np.int64), k=problem.k,
+        method=method, problem=problem,
+        centers=None if centers is None else np.array(centers),
+        influence=None if influence is None else np.array(influence))
+    res.stats = {"final_imbalance": res.imbalance()}
+    return res
 
 
 def params_from_numpy(tree, device, dtype: torch.dtype | None = None):

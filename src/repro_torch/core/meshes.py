@@ -2,8 +2,8 @@
 (the mesh zoo). Counterpart of ``repro/core/meshes.py``: the same numpy
 generators, so a seed gives the same mesh in both packages.
 
-The time-evolving workload fields of the reference (drifting hotspot,
-rotating wave, moving refinement) belong to the repartitioning slice.
+The time-evolving workload fields (drifting hotspot, rotating wave,
+moving refinement) are written in torch float32 on the points' device.
 
 Graphs are returned in CSR form: (indptr [n+1], indices [nnz]) int64 numpy.
 """
@@ -12,6 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -225,6 +226,100 @@ def climate_mesh_25d(n: int, seed: int = 0) -> Mesh:
         w += 40.0 * np.exp(-d2 / 0.02)
     mesh.weights = w
     return mesh
+
+
+# ---------------------------------------------------------------------------
+# Time-evolving workloads (dynamic repartitioning)
+#
+# A time-dependent node-weight field over a FIXED point set: w(t) =
+# workload.weights_at(points, t), float32 on the points' device. The
+# reference computes these in jnp float32; eagerly (its host loop) a
+# division by a constant is a true division, and that is what these do.
+# Under jit (its scan driver) XLA multiplies by the constant's reciprocal
+# and contracts multiply-adds, so the reference's two drivers see weights
+# a few ulps apart (tests/test_torch_repartition.py measures both).
+# ---------------------------------------------------------------------------
+
+def _f32(points) -> torch.Tensor:
+    """``points`` as float32: a tensor keeps its device, anything else
+    becomes a CPU tensor."""
+    if isinstance(points, torch.Tensor):
+        return points.to(torch.float32)
+    return torch.from_numpy(np.asarray(points, dtype=np.float32))
+
+
+def _const(x: torch.Tensor, value) -> torch.Tensor:
+    """``value`` as a float32 tensor on ``x``'s device: a division by it is
+    a true division (CUDA divides by a host scalar as a multiplication by
+    its reciprocal)."""
+    return torch.tensor(value, dtype=torch.float32, device=x.device)
+
+
+@dataclass(frozen=True)
+class DriftingHotspot:
+    """A Gaussian load hotspot whose center drifts linearly with time:
+    ``w = base + amplitude * exp(-|x - c(t)|^2 / (2 sigma^2))`` with
+    ``c(t) = start + t*velocity``."""
+    amplitude: float = 8.0
+    sigma: float = 0.14          # sqrt(0.02): matches the 2.5D climate mesh
+    start: tuple = (0.25, 0.25)
+    velocity: tuple = (0.01, 0.008)
+    base: float = 1.0
+
+    def weights_at(self, points, t) -> torch.Tensor:
+        """[n] float32 weights at step ``t`` on the points' device."""
+        p = _f32(points)
+        c = _const(p, self.start) + t * _const(p, self.velocity)
+        d2 = torch.sum((p[:, :len(self.start)] - c) ** 2, dim=1)
+        return self.base + self.amplitude * torch.exp(
+            -d2 / _const(p, 2.0 * self.sigma ** 2))
+
+
+@dataclass(frozen=True)
+class RotatingWave:
+    """An angular density wave rotating around a fixed pivot:
+    ``w = base + amplitude * (1 + cos(lobes * theta(x) - omega * t)) / 2``.
+    """
+    amplitude: float = 6.0
+    lobes: int = 2
+    omega: float = 0.35          # radians per step
+    center: tuple = (0.5, 0.5)
+    base: float = 1.0
+
+    def weights_at(self, points, t) -> torch.Tensor:
+        """[n] float32 weights at step ``t`` on the points' device."""
+        p = _f32(points)
+        c = _const(p, self.center)
+        theta = torch.atan2(p[:, 1] - c[1], p[:, 0] - c[0])
+        phase = torch.cos(self.lobes * theta - self.omega * t)
+        return self.base + self.amplitude * 0.5 * (1.0 + phase)
+
+
+@dataclass(frozen=True)
+class MovingRefinement:
+    """AMR-style local refinement: node weights are multiplied by
+    ``factor`` inside a disc of ``radius`` around a moving center."""
+    factor: float = 8.0
+    radius: float = 0.18
+    start: tuple = (0.3, 0.3)
+    velocity: tuple = (0.012, 0.009)
+    base: float = 1.0
+
+    def weights_at(self, points, t) -> torch.Tensor:
+        """[n] float32 weights at step ``t`` on the points' device."""
+        p = _f32(points)
+        c = _const(p, self.start) + t * _const(p, self.velocity)
+        d2 = torch.sum((p[:, :len(self.start)] - c) ** 2, dim=1)
+        inside = d2 < _const(p, self.radius ** 2)
+        return self.base * torch.where(inside, _const(p, self.factor),
+                                       _const(p, 1.0))
+
+
+WORKLOADS = {
+    "drifting_hotspot": DriftingHotspot,
+    "rotating_wave": RotatingWave,
+    "amr_refine": MovingRefinement,
+}
 
 
 REGISTRY = {

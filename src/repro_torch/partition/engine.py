@@ -8,8 +8,10 @@
     res = partition(prob, method="rcb", device="cpu")    # any registry name
     res.labels, res.imbalance(), res.evaluate()
 
-The flat path only: ``hierarchy=``, ``devices=`` and ``refine=`` raise
-``NotYetPortedError`` until their slices land.
+    res = partition(prob, hierarchy=(8, 8))              # k1 x k2 blocks
+
+``devices=`` and ``refine=`` raise ``NotYetPortedError`` until their
+slices land.
 """
 from __future__ import annotations
 
@@ -17,8 +19,20 @@ import torch
 
 from repro_torch.device import resolve_device
 
+from .hierarchical import hierarchical_partition
 from .problem import NotYetPortedError, PartitionProblem, PartitionResult
 from .registry import get_algorithm, resolve_method
+
+
+def _parse_hierarchy(hierarchy) -> tuple[int, int]:
+    if isinstance(hierarchy, str):
+        parts = hierarchy.lower().split("x")
+        if len(parts) != 2:
+            raise ValueError(f"hierarchy string must be 'k1xk2', "
+                             f"got {hierarchy!r}")
+        return int(parts[0]), int(parts[1])
+    k1, k2 = hierarchy
+    return int(k1), int(k2)
 
 
 def partition(problem: PartitionProblem, method: str = "geographer", *,
@@ -36,12 +50,16 @@ def partition(problem: PartitionProblem, method: str = "geographer", *,
         device: where the solve runs; None means ``cuda``, and a machine
             without a card raises instead of running on the CPU. Pass
             ``"cpu"`` to run on the host.
-        hierarchy, devices, refine, refine_eps: not ported yet; any value
-            other than None raises ``NotYetPortedError``.
+        hierarchy: ``(k1, k2)`` tuple or ``"k1xk2"`` string — two-level
+            recursive partitioning with ``k1*k2 == problem.k``.
+        devices, refine, refine_eps: not ported yet; any value other than
+            None raises ``NotYetPortedError``.
         evaluate: fill ``result.quality`` with the paper's metric set.
         with_diameter: include per-block diameters in the evaluation.
         **opts: BKMConfig fields for geographer (``backend``, ``fused``,
-            ``assign_precision``, ...); unknown options raise TypeError.
+            ``assign_precision``, ...), or ``refine_method`` /
+            ``batched`` / ``coarse_epsilon`` in hierarchical mode; unknown
+            options raise TypeError.
 
     Returns:
         A ``PartitionResult`` (labels in original point order, the
@@ -53,7 +71,6 @@ def partition(problem: PartitionProblem, method: str = "geographer", *,
             "wrap raw arrays with PartitionProblem(points=..., k=...)")
     resolve_method(method)                 # fail fast on unknown names
     for name, value, slice_ in (
-            ("hierarchy", hierarchy, "the batched/hierarchical slice"),
             ("devices", devices, "the torch.distributed slice"),
             ("refine", refine, "the refinement slice"),
             ("refine_eps", refine_eps, "the refinement slice")):
@@ -61,7 +78,12 @@ def partition(problem: PartitionProblem, method: str = "geographer", *,
             raise NotYetPortedError(f"partition({name}=...) comes with "
                                     f"{slice_}")
     dev = resolve_device(device)
-    result = get_algorithm(method)(problem, device=dev, **opts)
+    if hierarchy is not None:
+        k1, k2 = _parse_hierarchy(hierarchy)
+        result = hierarchical_partition(problem, k1, k2, method=method,
+                                        device=dev, **opts)
+    else:
+        result = get_algorithm(method)(problem, device=dev, **opts)
     if evaluate:
         result.evaluate(with_diameter=with_diameter)
     return result

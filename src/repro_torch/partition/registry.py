@@ -18,8 +18,8 @@ Two capability flags ride on each registration:
   path. No method of the port has one yet (it comes with the
   torch.distributed slice), so ``partition()`` rejects ``devices=``.
 * ``supports_warm_start`` — the algorithm can resume from a previous
-  ``PartitionResult``'s (centers, influence) state. ``repartition()``,
-  which reads this flag, comes with the warm-repartitioning slice.
+  ``PartitionResult``'s (centers, influence) state; ``repartition()``
+  reads this flag.
 """
 from __future__ import annotations
 

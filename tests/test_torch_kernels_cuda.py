@@ -237,3 +237,81 @@ def test_pruned_sweep_equals_unpruned(cuda_device, kind, precision):
         # 1024 points a center: ~46% of the pairs survive on the CPU's
         # emulation of the rule (at the main shape ~2%)
         assert int(pairs) < 0.6 * n * k
+
+
+# ---------------------------------------------------------------------------
+# the batched, warm and served paths on the card: the same bit-equalities
+# the CPU tests hold, with the assign kernel in every sweep
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_batched_equals_sequential_on_card(cuda_device):
+    from repro_torch.core.balanced_kmeans import BKMConfig
+    from repro_torch.core.sfc import sfc_initial_centers
+    from repro_torch.partition import (batched_balanced_kmeans,
+                                       sequential_balanced_kmeans)
+    rng = np.random.default_rng(12)
+    real, n, k = 3000, 4096, 16
+    pts = rng.uniform(0, 1, (3, real, 3))[:, np.arange(n) % real]
+    w = np.where(np.arange(n) < real, rng.uniform(1, 2, (3, n)), 0.0)
+    c0 = np.stack([sfc_initial_centers(p[:real], k) for p in pts])
+    ops.reset_launch_counts()
+    a = batched_balanced_kmeans(pts, w, c0, BKMConfig(k=k),
+                                device=cuda_device)
+    assert ops.launch_counts()["assign_reduce"] > 0
+    b = sequential_balanced_kmeans(pts, w, c0, BKMConfig(k=k),
+                                   device=cuda_device)
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x, y)
+    assert torch.equal(a[3]["iters"], b[3]["iters"])
+    # a padded duplicate takes its source's label
+    src = np.arange(n) % real
+    assert torch.equal(a[0], a[0][:, torch.from_numpy(src).to(cuda_device)])
+
+
+@pytest.mark.cuda
+def test_server_equals_partition_and_repartition_on_card(cuda_device):
+    from repro_torch.partition import (PartitionProblem, partition,
+                                       repartition)
+    from repro_torch.serve import PartitionRequest, PartitionServer
+    pts = np.random.default_rng(13).uniform(0, 1, (2048, 2))
+    w = 1.0 + 6 * np.exp(-np.sum((pts - 0.3) ** 2, axis=1) / 0.03)
+    server = PartitionServer(tiers=(2048,), slots=2, device=cuda_device)
+    [r0] = server.serve([PartitionRequest(tenant=0, points=pts, k=16,
+                                          seed=13)])
+    [r1] = server.serve([PartitionRequest(tenant=0, points=pts, k=16,
+                                          weights=w, seed=13)])
+    prob = PartitionProblem(points=pts, k=16, seed=13)
+    prev = partition(prob, device=cuda_device)
+    ref = repartition(prob.replace(weights=w), prev, device=cuda_device)
+    np.testing.assert_array_equal(r0.labels, prev.labels)
+    assert r1.warm
+    np.testing.assert_array_equal(r1.labels, ref.labels)
+    assert r1.iters == ref.stats["iters"]
+
+
+@pytest.mark.cuda
+def test_scan_semantics_equals_host_loop_on_card(cuda_device):
+    from repro_torch.core.balanced_kmeans import BKMConfig
+    from repro_torch.core.meshes import DriftingHotspot
+    from repro_torch.core.timeseries import (simulate_loadbalance,
+                                             simulate_loadbalance_scan)
+    from repro_torch.partition import PartitionProblem, partition
+    from repro_torch.partition.repartition import WARM_DELTA_TOL
+    pts = np.random.default_rng(14).uniform(0, 1, (20000, 2))
+    prob = PartitionProblem(points=pts, k=32, seed=14)
+    wl = DriftingHotspot()
+    host = simulate_loadbalance(prob, wl, steps=3, device=cuda_device)
+    w0 = wl.weights_at(torch.from_numpy(pts).to(cuda_device), 0)
+    prev = partition(prob.replace(weights=w0.cpu().numpy()),
+                     device=cuda_device)
+    perm = np.random.default_rng(14).permutation(prob.n)
+    _, recs = simulate_loadbalance_scan(
+        pts[perm], prev.centers, prev.influence, prev.labels[perm], wl, 3,
+        BKMConfig(k=32, warmup=False, delta_tol=WARM_DELTA_TOL),
+        device=cuda_device)
+    assert recs["iters"].tolist() == [r["iters"] for r in host["per_step"]]
+    np.testing.assert_allclose(
+        recs["migration_fraction"].numpy(),
+        [r["migration_fraction"] for r in host["per_step"]], rtol=1e-5,
+        atol=1e-7)

@@ -172,10 +172,13 @@ def test_known_unbalanced_reference_instance_is_reproduced():
 
 def test_unported_options_raise():
     prob = PartitionProblem.from_mesh(_mesh("tri", 400), k=4)
-    for kw in ({"hierarchy": (2, 2)}, {"devices": 2}, {"refine": True},
-               {"refine_eps": 0.05}):
+    for kw in ({"devices": 2}, {"refine": True}, {"refine_eps": 0.05},
+               {"hierarchy": (2, 2), "devices": 2}):
         with pytest.raises(NotImplementedError, match="slice"):
             partition(prob, device="cpu", **kw)
+    # hierarchy= is ported (tests/test_torch_batched.py holds it)
+    res = partition(prob, device="cpu", hierarchy=(2, 2))
+    assert res.k == 4 and res.stats["k1"] == 2 and res.stats["k2"] == 2
     res = partition(prob, method="sfc", device="cpu")
     with pytest.raises(NotYetPortedError, match="refinement"):
         res.refine()
