@@ -17,7 +17,10 @@ load-balance time series warm and cold on the main cell's points
 (``simulate_loadbalance``, its scan-semantics twin and ``repartition``)
 and on the repartition benchmark's mesh, the hierarchical (32 x 32)
 solve of the main cell, and the partition server over the serving
-benchmark's tenant fleet, warm and cold, then serves
+benchmark's tenant fleet, warm and cold, refines with label propagation
+(the rounds on the card against the CPU and the dense plain version on
+the quality mesh; ``partition(refine=True)`` on a 2048 x 2048 triangle
+mesh at k = 1024, and ``repartition(refine=True)`` warm on it), then serves
 granite-moe-3b-a800m at full width through ``ServeEngine.run`` and through
 ``prefill`` -> ``extend_cache`` -> ``decode_step`` at a 4096-token prompt
 (the paths of the MoE-router kernel and of the bf16 tensor-core
@@ -47,7 +50,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("card", "build", "kernels", "lm_kernels", "main", "paths",
           "agreement", "profile", "repartition", "hierarchical", "pserve",
-          "serve", "prefill", "timing")
+          "refine", "serve", "prefill", "timing")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_F32_FLOPS = 67e12
@@ -89,6 +92,12 @@ HIER_CPU_N, HIER_CPU = 1 << 16, (8, 8)
 PSERVE_TENANTS = ((7000, 16), (8192, 16), (14000, 32), (16000, 32))
 PSERVE_TIERS = (2048, 4096, 8192, 16384)
 PSERVE_SLOTS, PSERVE_T, PSERVE_CACHE = 2, 12, 64
+# refinement: the quality mesh at k = 64 for the agreement; tri at n = 2^22
+# (2048 x 2048) with k = MAIN_K, then T warm steps, for the full size
+QUALITY_N = 131072
+REFINE_QUALITY_K = 64
+REFINE_N = 1 << 22
+REFINE_T = 3
 
 # granite-moe-3b-a800m serving shapes
 SERVE_BATCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 6, 12, 16
@@ -926,10 +935,7 @@ def phase_agreement(torch, ctx):
         check(agree >= 0.99, f"{fam}: CUDA vs CPU agreement {agree:.4f}")
         check(max(gpu.imbalance(), cpu.imbalance()) <= EPS + 1e-6,
               f"{fam}: unbalanced")
-    t0 = time.perf_counter()
-    mesh = meshes.REGISTRY["delaunay3d"](131072, seed=0)
-    log("quality", f"delaunay3d n={mesh.n} m={mesh.m} built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    mesh = quality_mesh(ctx)
     prob = PartitionProblem.from_mesh(mesh, k=64)
     for method in ("geographer", "sfc"):
         q = partition(prob, method=method, evaluate=True).quality
@@ -1419,6 +1425,254 @@ def phase_pserve(torch, ctx):
     log("pserve", f"tenant {small} (n={req.n}, cap {cap}): every padded "
         "duplicate has its source's label")
     lane_layout(torch, ctx, "pserve", spts)
+
+
+# ---------------------------------------------------------------------------
+# phase 7e: label-propagation refinement
+# ---------------------------------------------------------------------------
+
+def quality_mesh(ctx):
+    """The quality mesh, delaunay3d at n = 131,072, built once."""
+    if "quality_mesh" not in ctx:
+        from repro_torch.core import meshes
+        t0 = time.perf_counter()
+        mesh = meshes.REGISTRY["delaunay3d"](QUALITY_N, seed=0)
+        log("quality", f"delaunay3d n={mesh.n} m={mesh.m} built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        ctx["quality_mesh"] = mesh
+    return ctx["quality_mesh"]
+
+
+def timed(torch, fn):
+    """(fn(), host seconds) around work ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def round_inputs(prob, labels, node_order=None):
+    """The rounds' inputs as ``label_prop_refine`` makes them: canonical
+    labels, CSR, quantized weights, keys, k, limit, the round cap."""
+    import numpy as np
+    from repro_torch.partition.refine import (DEFAULT_MAX_ROUNDS,
+                                              _canonicalize, _node_keys,
+                                              refinement_quantization)
+    keys = _node_keys(prob, node_order)
+    iw, limit = refinement_quantization(prob)
+    lc, _ = _canonicalize(np.asarray(labels, np.int64), keys, prob.k)
+    return (lc, prob.indptr, prob.indices, iw, keys, prob.k, limit,
+            DEFAULT_MAX_ROUNDS)
+
+
+def no_better_move(torch, prob, labels, chunk=1 << 18) -> bool:
+    """True when no admissible single move lowers the edge cut. Moving v
+    from block a to block b changes the cut by H[v, a] - H[v, b] (H: the
+    count of v's neighbours in a block), so no admissible b
+    (``iw[v] <= budget[b]``) may have H[v, b] > H[v, a]. Dense histograms
+    of ``chunk`` nodes at a time on the card, independent of the rounds'
+    sparse form."""
+    import numpy as np
+    from repro_torch.partition import refinement_budgets
+    iw, budget = refinement_budgets(prob, labels)
+    lab = torch.from_numpy(np.asarray(labels, np.int64)).to(DEVICE)
+    iw_t = torch.from_numpy(iw).to(DEVICE)
+    budget_t = torch.from_numpy(budget).to(DEVICE)
+    indptr = np.asarray(prob.indptr, np.int64)
+    nbr = lab[torch.from_numpy(np.asarray(prob.indices, np.int64))
+              .to(DEVICE)]
+    for lo in range(0, prob.n, chunk):
+        hi = min(lo + chunk, prob.n)
+        e0, e1 = int(indptr[lo]), int(indptr[hi])
+        row = torch.repeat_interleave(
+            torch.arange(hi - lo, device=DEVICE),
+            torch.from_numpy(np.diff(indptr[lo:hi + 1])).to(DEVICE),
+            output_size=e1 - e0)
+        H = torch.zeros((hi - lo, prob.k), dtype=torch.int32, device=DEVICE)
+        H.index_put_((row, nbr[e0:e1]),
+                     torch.ones(e1 - e0, dtype=torch.int32, device=DEVICE),
+                     accumulate=True)
+        own = H.gather(1, lab[lo:hi, None])
+        adm = budget_t[None, :] >= iw_t[lo:hi, None]
+        if bool(((H > own) & adm).any()):
+            return False
+    return True
+
+
+def refine_agreement(torch, ctx):
+    """The rounds on the card against the port's rounds on the CPU and the
+    dense plain version on the card, from geographer's labels of the
+    quality mesh at k = 64: unit and lognormal weights, and a permuted
+    node order. Labels, rounds, moves and gains bit-equal."""
+    import numpy as np
+    from repro_torch.partition import PartitionProblem, partition
+    from repro_torch.partition.refine import _lp_rounds, _lp_rounds_plain
+    mesh = quality_mesh(ctx)
+    unit = PartitionProblem.from_mesh(mesh, k=REFINE_QUALITY_K, epsilon=EPS)
+    w = np.random.default_rng(1).lognormal(0.0, 0.5, mesh.n)
+    perm = np.random.default_rng(2).permutation(mesh.n)
+    for tag, prob, order in (("unit", unit, None),
+                             ("lognormal", unit.replace(weights=w), None),
+                             ("unit, permuted node_order", unit, perm)):
+        args = round_inputs(prob, partition(prob, device=DEVICE).labels,
+                            order)
+        card, t_card = timed(torch, lambda: _lp_rounds(*args, device=DEVICE))
+        cpu, t_cpu = timed(torch, lambda: _lp_rounds(*args, device="cpu"))
+        plain, t_plain = timed(
+            torch, lambda: _lp_rounds_plain(*args, device=DEVICE))
+        for name, other in (("the CPU", cpu), ("the plain version", plain)):
+            check(np.array_equal(card[0], other[0]) and
+                  card[1:] == other[1:],
+                  f"refine agreement ({tag}): the card's rounds "
+                  f"{card[1:]} differ from {name}'s {other[1:]}")
+        log("refine", f"agreement, {mesh.name} k={prob.k} {tag}: rounds "
+            f"{card[1]}, moves {card[2]}, gain {card[4]}; card, CPU and "
+            f"plain bit-equal (card {t_card:.3f} s, CPU {t_cpu:.3f} s, "
+            f"plain on the card {t_plain:.3f} s)  [{ctx['card']}]")
+
+
+def refine_full(torch, ctx):
+    """``partition(tri n = 2^22, k = 1024, refine=True)`` twice on the card:
+    converged, the cut not raised and fallen by the accepted gains,
+    balanced, no admissible positive-gain move left, bit-identical; then
+    each part of the refinement timed on its own."""
+    import numpy as np
+    from repro_torch.core import meshes, metrics
+    from repro_torch.partition import PartitionProblem, partition
+    from repro_torch.partition.refine import (_canonicalize, _lp_rounds,
+                                              label_prop_refine)
+    mesh, t_mesh = timed(torch, lambda: meshes.REGISTRY["tri"](REFINE_N,
+                                                               seed=0))
+    log("refine", f"{mesh.name} n={mesh.n} m={mesh.m} built in "
+        f"{t_mesh:.1f} s")
+    prob = PartitionProblem.from_mesh(mesh, k=MAIN_K, epsilon=EPS)
+    runs = {}
+    for tag in ("refine", "refine-repeat"):
+        runs[tag], wall, counts = run_counted(
+            torch, ctx, tag, lambda: partition(prob, refine=True,
+                                               device=DEVICE))
+        st = runs[tag].stats["refine"]
+        log(tag, f"partition({mesh.name}, k={prob.k}, refine=True): wall "
+            f"{wall:.3f} s, rounds {st['rounds']}, moves {st['moves']}, "
+            f"converged {st['converged']}, cut {st['cut_before']} -> "
+            f"{st['cut_after']}, imbalance {runs[tag].imbalance():.6f}, "
+            f"launches {counts}  [{ctx['card']}]")
+    res = runs["refine"]
+    st = res.stats["refine"]
+    check(np.array_equal(res.labels, runs["refine-repeat"].labels),
+          "refine: two runs gave different labels")
+    check(st["converged"], f"refine: not converged in {st['rounds']} rounds")
+    check(st["cut_after"] <= st["cut_before"],
+          f"refine: cut rose {st['cut_before']} -> {st['cut_after']}")
+    imb = res.imbalance()
+    check(imb <= EPS + 1e-6, f"refine: imbalance {imb:.6f} > {EPS}")
+    # the parts, each on its own
+    base, t_solve = timed(torch, lambda: partition(prob, device=DEVICE))
+    (out, info), t_lp = timed(torch, lambda: label_prop_refine(
+        prob, base.labels, device=DEVICE))
+    check(np.array_equal(out, res.labels), "refine: label_prop_refine of "
+          "the solve's labels differs from partition(refine=True)")
+    check(info["gain"] == st["cut_before"] - st["cut_after"],
+          f"refine: accepted gains {info['gain']} against the cut's fall "
+          f"{st['cut_before'] - st['cut_after']}")
+    args, t_prep = timed(torch, lambda: round_inputs(prob, base.labels))
+    _, t_canon = timed(torch, lambda: _canonicalize(
+        base.labels.astype(np.int64), args[4], prob.k))
+    _, t_rounds = timed(torch, lambda: _lp_rounds(*args, device=DEVICE))
+    _, t_cut = timed(torch, lambda: metrics.edge_cut(
+        res.labels, prob.indptr, prob.indices))
+    t_refine = t_lp + 2 * t_cut
+    log("refine", f"{mesh.name} k={prob.k}: solve {t_solve:.3f} s, "
+        f"refinement {t_refine:.3f} s = label_prop_refine {t_lp:.3f} s "
+        f"(rounds on the card {t_rounds:.3f} s for {st['rounds']} rounds, "
+        f"{t_rounds / st['rounds'] * 1e3:.2f} ms a round with the edges' "
+        f"copy; host: keys, quantization and canonicalization "
+        f"{t_prep:.3f} s, of it canonicalization {t_canon:.3f} s) + host "
+        f"edge_cut 2 x {t_cut:.3f} s; host share "
+        f"{(t_prep + 2 * t_cut) / t_refine:.1%}  [{ctx['card']}]")
+    check(no_better_move(torch, prob, res.labels),
+          "refine: an admissible positive-gain move remains")
+    q0 = metrics.evaluate_problem(prob, base.labels)
+    q1 = metrics.evaluate_problem(prob, res.labels)
+    log("refine", f"{mesh.name} k={prob.k}: cut {q0['cut']} -> {q1['cut']}"
+        f" ({1 - q1['cut'] / q0['cut']:.2%} fewer), totalCommVol "
+        f"{q0['totalCommVol']} -> {q1['totalCommVol']}, maxCommVol "
+        f"{q0['maxCommVol']} -> {q1['maxCommVol']}, imbalance "
+        f"{q0['imbalance']:.6f} -> {q1['imbalance']:.6f}; cut fell by the "
+        "accepted gains; no admissible positive-gain move left (dense "
+        "check)")
+    profile_call(torch, ctx, "refine", lambda: label_prop_refine(
+        prob, base.labels, device=DEVICE))
+    return mesh, res
+
+
+def refine_warm(torch, ctx, mesh, start):
+    """``repartition(..., refine=True)`` over T steps of the drifting
+    hotspot on the same mesh, from the refined unit-weight partition
+    ``start``, twice: every step balanced, the migration counted over the
+    refined labels, the two series bit-identical."""
+    import numpy as np
+    from repro_torch.core import meshes, metrics
+    from repro_torch.partition import PartitionProblem, repartition
+    from repro_torch.partition.refine import refinement_quantization
+    wl = meshes.DriftingHotspot()
+    # the workload is defined on the unit square; the grid spans [0, 2048)
+    pts = torch.from_numpy(mesh.points).to(DEVICE)
+    lo, hi = pts.min(0).values, pts.max(0).values
+    unit = (pts - lo) / (hi - lo)
+    prob = PartitionProblem.from_mesh(mesh, k=MAIN_K, epsilon=EPS)
+    ws = [wl.weights_at(unit, t).cpu().numpy() for t in range(REFINE_T + 1)]
+    _, limit = refinement_quantization(prob.replace(weights=ws[1]))
+    log("refine-warm", f"weights {ws[1].min():.3f}-{ws[1].max():.3f}; "
+        f"refinement limit {limit} quantized units a block (float weights: "
+        f"floor((1+eps) W/k) less a margin of n = {prob.n} units, W ~ 2^30;"
+        " 0 leaves every budget at 0)")
+
+    def series():
+        out, secs = [start], []
+        for t in range(1, REFINE_T + 1):
+            res, sec = timed(torch, lambda: repartition(
+                prob.replace(weights=ws[t]), out[-1], refine=True,
+                device=DEVICE))
+            out.append(res)
+            secs.append(sec)
+        return out, secs
+
+    runs = {}
+    for tag in ("refine-warm", "refine-warm-repeat"):
+        (steps, secs), wall, counts = run_counted(torch, ctx, tag, series)
+        runs[tag] = steps
+        for t in range(1, REFINE_T + 1):
+            res = steps[t]
+            st = res.stats["refine"]
+            imb = res.imbalance()
+            mig = res.stats["migration"]["fraction"]
+            want = float(metrics.migration_fraction(
+                steps[t - 1].labels, res.labels, ws[t]))
+            log(tag, f"step {t}: iters {res.stats['iters']}, retries "
+                f"{res.stats['balance_retries']}, rounds {st['rounds']}, "
+                f"moves {st['moves']}, cut {st['cut_before']} -> "
+                f"{st['cut_after']}, imbalance {imb:.6f}, migration "
+                f"{mig:.6f}, {secs[t - 1]:.3f} s")
+            check(imb <= EPS + 1e-6, f"{tag}: step {t} imbalance {imb:.6f}")
+            check(st["cut_after"] <= st["cut_before"],
+                  f"{tag}: step {t} cut rose")
+            check(mig == want, f"{tag}: step {t} migration {mig} is not "
+                  f"that of the refined labels, {want}")
+        log(tag, f"{mesh.name} k={MAIN_K} T={REFINE_T} warm with refine: "
+            f"wall {wall:.3f} s, mean {np.mean(secs):.3f} s a step, "
+            f"launches {counts}  [{ctx['card']}]")
+    for a, b in zip(runs["refine-warm"], runs["refine-warm-repeat"]):
+        check(np.array_equal(a.labels, b.labels),
+              "refine-warm: two series gave different labels")
+    log("refine", "warm: every step balanced, migration over the refined "
+        "labels, two series bit-identical")
+
+
+def phase_refine(torch, ctx):
+    refine_agreement(torch, ctx)
+    refine_warm(torch, ctx, *refine_full(torch, ctx))
 
 
 # ---------------------------------------------------------------------------
@@ -2158,6 +2412,7 @@ def main() -> int:
            "repartition": lambda: phase_repartition(torch, ctx),
            "hierarchical": lambda: phase_hierarchical(torch, ctx),
            "pserve": lambda: phase_pserve(torch, ctx),
+           "refine": lambda: phase_refine(torch, ctx),
            "serve": lambda: phase_serve(torch, ctx),
            "prefill": lambda: phase_prefill(torch, ctx),
            "timing": lambda: phase_timing(torch, ctx)}

@@ -9,9 +9,10 @@
     res.labels, res.imbalance(), res.evaluate()
 
     res = partition(prob, hierarchy=(8, 8))              # k1 x k2 blocks
+    res = partition(prob, method="rcb", refine=True)     # + label propagation
 
-``devices=`` and ``refine=`` raise ``NotYetPortedError`` until their
-slices land.
+``devices=`` raises ``NotYetPortedError`` until the torch.distributed
+slice lands.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ from repro_torch.device import resolve_device
 
 from .hierarchical import hierarchical_partition
 from .problem import NotYetPortedError, PartitionProblem, PartitionResult
+from .refine import refine as _refine
+from .refine import resolve_refiner
 from .registry import get_algorithm, resolve_method
 
 
@@ -52,8 +55,15 @@ def partition(problem: PartitionProblem, method: str = "geographer", *,
             ``"cpu"`` to run on the host.
         hierarchy: ``(k1, k2)`` tuple or ``"k1xk2"`` string — two-level
             recursive partitioning with ``k1*k2 == problem.k``.
-        devices, refine, refine_eps: not ported yet; any value other than
-            None raises ``NotYetPortedError``.
+        devices: not ported yet; any value other than None raises
+            ``NotYetPortedError``.
+        refine: quality-recovery post-pass over the solver's labels —
+            True (= ``"label_prop"``) or a refiner registry name (see
+            ``repro_torch.partition.refine``), run on ``device``. Requires
+            the problem to carry a CSR graph; the returned result's
+            ``method`` gains the refiner suffix (e.g. ``"sfc+lp"``).
+        refine_eps: balance slack for the refinement budgets (None =
+            ``problem.epsilon``); only meaningful with ``refine``.
         evaluate: fill ``result.quality`` with the paper's metric set.
         with_diameter: include per-block diameters in the evaluation.
         **opts: BKMConfig fields for geographer (``backend``, ``fused``,
@@ -70,13 +80,13 @@ def partition(problem: PartitionProblem, method: str = "geographer", *,
             f"partition() takes a PartitionProblem, got {type(problem)}; "
             "wrap raw arrays with PartitionProblem(points=..., k=...)")
     resolve_method(method)                 # fail fast on unknown names
-    for name, value, slice_ in (
-            ("devices", devices, "the torch.distributed slice"),
-            ("refine", refine, "the refinement slice"),
-            ("refine_eps", refine_eps, "the refinement slice")):
-        if value is not None and value is not False:
-            raise NotYetPortedError(f"partition({name}=...) comes with "
-                                    f"{slice_}")
+    if devices is not None and devices is not False:
+        raise NotYetPortedError("partition(devices=...) comes with the "
+                                "torch.distributed slice")
+    if refine is not None and refine is not False:
+        refine = resolve_refiner(refine)   # fail fast, before the solve
+    else:
+        refine = None
     dev = resolve_device(device)
     if hierarchy is not None:
         k1, k2 = _parse_hierarchy(hierarchy)
@@ -84,6 +94,9 @@ def partition(problem: PartitionProblem, method: str = "geographer", *,
                                         device=dev, **opts)
     else:
         result = get_algorithm(method)(problem, device=dev, **opts)
+    if refine is not None:
+        result = _refine(problem, result, refine, device=dev,
+                         eps=refine_eps)
     if evaluate:
         result.evaluate(with_diameter=with_diameter)
     return result

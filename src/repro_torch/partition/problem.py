@@ -5,8 +5,8 @@ Counterpart of ``repro/partition/problem.py``.
 with optional node weights and an optional CSR graph (for the quality
 metrics), plus the balance constraint (k, epsilon). ``PartitionResult``
 is the output: labels, optional centers / influence, stats and lazily
-computed quality metrics. The sharded views and refinement raise
-``NotYetPortedError`` until their slices land.
+computed quality metrics. The sharded views raise ``NotYetPortedError``
+until the torch.distributed slice lands.
 """
 from __future__ import annotations
 
@@ -196,13 +196,38 @@ class PartitionResult:
             with_diameter=with_diameter)
         return self.quality
 
-    def refine(self, method="label_prop", *, devices: int | None = None,
-               eps: float | None = None, evaluate: bool = False,
-               **opts) -> "PartitionResult":
-        """Quality-recovery post-pass (not ported yet)."""
-        raise NotYetPortedError(
-            "PartitionResult.refine: label-propagation refinement comes "
-            "with the refinement slice")
+    def refine(self, method="label_prop", *, device=None,
+               devices: int | None = None, eps: float | None = None,
+               evaluate: bool = False, **opts) -> "PartitionResult":
+        """Quality-recovery post-pass over this result's labels (the
+        ``repro_torch.partition.refine`` front door bound to ``self``).
+
+        Args:
+            method: refiner registry name (default size-constrained label
+                propagation).
+            device: where the rounds run; None means ``cuda`` and raises
+                without a card.
+            devices: the sharded path; not ported yet (raises
+                ``NotYetPortedError``).
+            eps: balance slack for the refinement budgets (None = the
+                problem's epsilon).
+            evaluate: fill ``quality`` on the refined result.
+            **opts: forwarded to the refiner (e.g. ``max_rounds``).
+
+        Returns:
+            A new ``PartitionResult`` with refined labels, ``method``
+            suffixed (e.g. ``"geographer+lp"``) and
+            ``stats["refine"]`` recording rounds/moves/cut delta.
+
+        Raises:
+            ValueError: the result has no problem attached, or the
+                problem carries no CSR graph.
+        """
+        if self.problem is None:
+            raise ValueError("result has no problem attached")
+        from .refine import refine as _refine
+        return _refine(self.problem, self, method, device=device,
+                       devices=devices, eps=eps, evaluate=evaluate, **opts)
 
     def summary(self) -> dict[str, Any]:
         out = {"method": self.method, "k": self.k,

@@ -14,9 +14,9 @@ Warm-starting from the previous partition's (centers, influence) skips
 the SFC bootstrap and the sampled warm-up and moves little weight.
 Methods without a warm-startable state (sfc/rcb/rib/multijagged) cold
 start and are relabelled by greedy center matching, so block ids stay
-stable across steps. The solve runs on ``device`` (default ``cuda``);
-``devices=`` and ``refine=`` raise ``NotYetPortedError`` until their
-slices land.
+stable across steps. The solve, and the refinement when ``refine=`` asks
+for one, run on ``device`` (default ``cuda``); ``devices=`` raises
+``NotYetPortedError`` until the torch.distributed slice lands.
 """
 from __future__ import annotations
 
@@ -31,6 +31,8 @@ from repro_torch.device import resolve_device
 
 from .engine import partition
 from .problem import NotYetPortedError, PartitionProblem, PartitionResult
+from .refine import refine as _refine
+from .refine import resolve_refiner
 from .registry import resolve_method, supports_warm_start
 
 # Warm-start movement threshold (x bbox diagonal): a warm start resumes
@@ -262,11 +264,18 @@ def repartition(problem: PartitionProblem, previous: PartitionResult,
             all others cold start and are relabel-matched.
         device: where the solve runs; None means ``cuda`` and raises
             without a card.
-        devices, refine, refine_eps: not ported yet; any value other than
-            None raises ``NotYetPortedError``.
+        devices: not ported yet; any value other than None raises
+            ``NotYetPortedError``.
         warm: force (True) or forbid (False) warm starting; None picks
             warm whenever the method supports it and ``previous`` carries
             centers. ``warm=False`` is the fair cold-restart baseline.
+        refine: quality-recovery post-pass applied after the warm (or
+            cold-relabelled) solve and before the migration accounting —
+            True (= ``"label_prop"``) or a refiner registry name, run on
+            ``device``. Migration is then measured on the refined labels,
+            the ones the simulation redistributes to.
+        refine_eps: balance slack for the refinement budgets (None =
+            ``problem.epsilon``); only meaningful with ``refine``.
         evaluate: fill ``result.quality`` with the paper metric set.
         with_diameter: include block diameters in the evaluation.
         **opts: BKMConfig fields for geographer; warm solves default
@@ -289,13 +298,9 @@ def repartition(problem: PartitionProblem, previous: PartitionResult,
             f"repartition() takes a PartitionProblem, got {type(problem)}")
     _check_previous(problem, previous)
     name = resolve_method(method)
-    for opt, value, slice_ in (
-            ("devices", devices, "the torch.distributed slice"),
-            ("refine", refine, "the refinement slice"),
-            ("refine_eps", refine_eps, "the refinement slice")):
-        if value is not None and value is not False:
-            raise NotYetPortedError(f"repartition({opt}=...) comes with "
-                                    f"{slice_}")
+    if devices is not None and devices is not False:
+        raise NotYetPortedError("repartition(devices=...) comes with the "
+                                "torch.distributed slice")
     can_warm = supports_warm_start(name) and previous.centers is not None
     if warm is None:
         warm = can_warm
@@ -307,11 +312,17 @@ def repartition(problem: PartitionProblem, previous: PartitionResult,
         raise ValueError(
             "previous result carries no centers to warm-start from "
             "(was it produced by a center-based method?)")
+    if refine is not None and refine is not False:
+        refine = resolve_refiner(refine)   # fail fast, before the solve
+    else:
+        refine = None
     dev = resolve_device(device)
     if warm:
         res = _warm_geographer(problem, previous, dev, **opts)
     else:
         res = _cold_relabel(problem, previous, name, dev, **opts)
+    if refine is not None:
+        res = _refine(problem, res, refine, device=dev, eps=refine_eps)
     res.stats["migration"] = _migration_stats(previous, res.labels,
                                               problem.weights)
     if evaluate:

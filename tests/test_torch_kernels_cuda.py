@@ -315,3 +315,41 @@ def test_scan_semantics_equals_host_loop_on_card(cuda_device):
         recs["migration_fraction"].numpy(),
         [r["migration_fraction"] for r in host["per_step"]], rtol=1e-5,
         atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# label-propagation refinement: the sparse rounds on the card against the
+# dense plain version on the card and the rounds on the CPU, bit for bit
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+def test_refinement_rounds_on_card_equal_plain(cuda_device, weighted):
+    from repro_torch.core import meshes
+    from repro_torch.partition import PartitionProblem, partition, refine
+    from repro_torch.partition.refine import (DEFAULT_MAX_ROUNDS,
+                                              _canonicalize, _lp_rounds,
+                                              _lp_rounds_plain, _node_keys,
+                                              refinement_quantization)
+    mesh = meshes.REGISTRY["delaunay2d"](20000, seed=15)
+    prob = PartitionProblem.from_mesh(mesh, k=24, seed=15)
+    if weighted:
+        prob = prob.replace(weights=np.random.default_rng(15).lognormal(
+            0.0, 0.5, prob.n))
+    rng = np.random.default_rng(16)
+    for labels in (partition(prob, device=cuda_device).labels,
+                   rng.integers(0, prob.k, prob.n)):
+        keys = _node_keys(prob, rng.permutation(prob.n))
+        iw, limit = refinement_quantization(prob)
+        lc, _ = _canonicalize(np.asarray(labels, np.int64), keys, prob.k)
+        args = (lc, prob.indptr, prob.indices, iw, keys, prob.k, limit,
+                DEFAULT_MAX_ROUNDS)
+        card = _lp_rounds(*args, device=cuda_device)
+        for other in (_lp_rounds_plain(*args, device=cuda_device),
+                      _lp_rounds(*args, device="cpu")):
+            np.testing.assert_array_equal(card[0], other[0])
+            assert card[1:] == other[1:]
+        assert card[2] > 0
+    out = refine(prob, labels)                  # on the card by default
+    np.testing.assert_array_equal(out.labels,
+                                  refine(prob, labels, device="cpu").labels)

@@ -172,16 +172,18 @@ def test_known_unbalanced_reference_instance_is_reproduced():
 
 def test_unported_options_raise():
     prob = PartitionProblem.from_mesh(_mesh("tri", 400), k=4)
-    for kw in ({"devices": 2}, {"refine": True}, {"refine_eps": 0.05},
-               {"hierarchy": (2, 2), "devices": 2}):
+    for kw in ({"devices": 2}, {"hierarchy": (2, 2), "devices": 2},
+               {"devices": 2, "refine": True}):
         with pytest.raises(NotImplementedError, match="slice"):
             partition(prob, device="cpu", **kw)
     # hierarchy= is ported (tests/test_torch_batched.py holds it)
     res = partition(prob, device="cpu", hierarchy=(2, 2))
     assert res.k == 4 and res.stats["k1"] == 2 and res.stats["k2"] == 2
+    # refine= is ported (tests/test_torch_refine.py holds it); its sharded
+    # path is not
     res = partition(prob, method="sfc", device="cpu")
-    with pytest.raises(NotYetPortedError, match="refinement"):
-        res.refine()
+    with pytest.raises(NotYetPortedError, match="slice"):
+        res.refine(device="cpu", devices=2)
     with pytest.raises(NotYetPortedError):
         res.evaluate(devices=2)
     with pytest.raises(NotYetPortedError):

@@ -254,7 +254,7 @@ def test_error_paths_raise_the_reference_types(case):
 def test_unported_options_and_the_default_device(monkeypatch):
     prob = _problem(n=300, k=4)
     prev = partition(prob, device=CPU)
-    for kw in ({"devices": 2}, {"refine": True}, {"refine_eps": 0.05}):
+    for kw in ({"devices": 2}, {"devices": 2, "refine": True}):
         with pytest.raises(NotYetPortedError):
             repartition(prob, prev, device=CPU, **kw)
     with pytest.raises(NotYetPortedError):
