@@ -20,7 +20,11 @@ solve of the main cell, and the partition server over the serving
 benchmark's tenant fleet, warm and cold, refines with label propagation
 (the rounds on the card against the CPU and the dense plain version on
 the quality mesh; ``partition(refine=True)`` on a 2048 x 2048 triangle
-mesh at k = 1024, and ``repartition(refine=True)`` warm on it), then serves
+mesh at k = 1024, and ``repartition(refine=True)`` warm on it), drives the
+multi-device path (``partition(devices=1)`` over NCCL against
+``partition()``; four gloo ranks sharing the card for ``devices=4`` and
+``(2, 2)``, the device bootstrap, the agreement with CPU ranks,
+``evaluate_sharded``, warm steps and the hierarchy), then serves
 granite-moe-3b-a800m at full width through ``ServeEngine.run`` and through
 ``prefill`` -> ``extend_cache`` -> ``decode_step`` at a 4096-token prompt
 (the paths of the MoE-router kernel and of the bf16 tensor-core
@@ -40,6 +44,7 @@ carries them under ``launches_by_path``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -50,7 +55,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("card", "build", "kernels", "lm_kernels", "main", "paths",
           "agreement", "profile", "repartition", "hierarchical", "pserve",
-          "refine", "serve", "prefill", "timing")
+          "refine", "sharded", "serve", "prefill", "timing")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_F32_FLOPS = 67e12
@@ -98,6 +103,15 @@ QUALITY_N = 131072
 REFINE_QUALITY_K = 64
 REFINE_N = 1 << 22
 REFINE_T = 3
+# the multi-device path: P ranks on the one card (gloo), the 2-D mesh, the
+# agreement cell (the main cell's first 2^16 points at k = 64: at k = 1024
+# such a cut has 64 points a block, where the solver itself does not
+# balance, ROADMAP.md queue 3 item 5), T warm steps, the hierarchy
+SHARDED_P = 4
+SHARDED_MESH = (2, 2)
+SHARDED_AGREE_N, SHARDED_AGREE_K = 1 << 16, 64
+SHARDED_T = 3
+SHARDED_HIER = (8, 8)
 
 # granite-moe-3b-a800m serving shapes
 SERVE_BATCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 6, 12, 16
@@ -1676,6 +1690,301 @@ def phase_refine(torch, ctx):
 
 
 # ---------------------------------------------------------------------------
+# phase 8b: the multi-device path over torch.distributed
+# ---------------------------------------------------------------------------
+
+def rank_run(torch, fn, allowed=("assign_reduce",)):
+    """Inside a rank of a launch: ``fn()`` with the launch counts set to 0
+    just before it and read just after, the host clock around it ended by
+    a synchronize, and this rank's all-reduces over the world group. The
+    assign kernel must have launched on this rank, unless ``allowed`` is
+    empty (then no kernel may run), and nothing outside ``allowed``. Every
+    rank's numbers go into one [P, 4] table by one sum all-reduce (row r:
+    wall s, assign launches, all-reduces, all-reduce s of rank r). Returns
+    (fn's value, the table as a list, this rank's nonzero counts)."""
+    from repro_torch.dist import current
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    comm = current()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    before = comm.counters()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: c for name, c in launch_counts().items() if c}
+    after = comm.counters()
+    check(counts.get("assign_reduce", 0) > 0 or not allowed,
+          f"rank {comm.rank}: the assign kernel never launched")
+    check(set(counts) <= set(allowed),
+          f"rank {comm.rank}: launched {counts}, only {allowed} expected")
+    # on the rank's device: NCCL reduces only CUDA tensors
+    row = torch.zeros(comm.size, 4, dtype=torch.float64, device=DEVICE)
+    row[comm.rank] = torch.tensor(
+        [wall, counts.get("assign_reduce", 0),
+         after["all_reduces"] - before["all_reduces"],
+         after["seconds"] - before["seconds"]], dtype=torch.float64)
+    return out, comm.all_reduce(row).tolist(), counts
+
+
+def run_summary(res, table, counts):
+    """What a rank sends home of one partition run: its numbers, not its
+    labels (the labels stay in the ranks and are compared there)."""
+    st = res.stats["levels"][0]
+    return {"imbalance": res.imbalance(), "iters": int(st["iters"]),
+            "sweeps": sweeps_of(st), "backend": st["backend"],
+            "seconds": st["seconds"], "collectives": st["collectives"],
+            "table": table, "counts": counts}
+
+
+def same_result(np, a, b) -> bool:
+    return (np.array_equal(a.labels, b.labels)
+            and np.array_equal(a.centers, b.centers)
+            and np.array_equal(a.influence, b.influence))
+
+
+def sharded_one(prob):
+    """Rank body of the ``devices=1`` launch (NCCL), run twice: the first
+    solve of the process and a second one. The first's labels come home
+    to be held against the single-device run; the second must equal it."""
+    import numpy as np
+    import torch
+    from repro_torch.partition import partition
+    res, table, counts = rank_run(torch, lambda: partition(prob, devices=1))
+    again, table2, counts2 = rank_run(torch,
+                                      lambda: partition(prob, devices=1))
+    check(same_result(np, res, again), "devices=1: two runs differ")
+    return (res.labels, res.centers, res.influence,
+            run_summary(res, table, counts),
+            run_summary(again, table2, counts2))
+
+
+def sharded_suite(prob, sub, qprob, qlabels):
+    """Rank body of the ``devices=4`` launch (four gloo ranks on the one
+    card): every P=4 gate of the phase, the comparisons made in the
+    ranks. Returns rank 0's summary."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import meshes
+    from repro_torch.core.timeseries import simulate_loadbalance
+    from repro_torch.dist import current
+    from repro_torch.eval import evaluate_sharded
+    from repro_torch.partition import partition
+    comm = current()
+    P = comm.size
+    out = {"backend": comm.backend,
+           "rank_device": torch.cuda.current_device()}
+    # gloo reduces CUDA tensors: sum, min and max on the card
+    x = torch.tensor([comm.rank + 1.0, -float(comm.rank)], device=DEVICE)
+    out["probe"] = {op: comm.all_reduce(x, op).cpu().tolist()
+                    for op in ("sum", "min", "max")}
+    runs = {}
+    for tag, devices, opts in (("flat", P, {}), ("flat-repeat", P, {}),
+                               ("mesh", SHARDED_MESH, {}),
+                               ("device-bootstrap", P,
+                                {"bootstrap": "device"})):
+        res, table, counts = rank_run(
+            torch, lambda: partition(prob, devices=devices, **opts))
+        runs[tag] = res
+        out[tag] = run_summary(res, table, counts)
+    out["flat-repeat"]["equal"] = same_result(np, runs["flat"],
+                                              runs["flat-repeat"])
+    out["mesh"]["equal"] = same_result(np, runs["flat"], runs["mesh"])
+    out["device-bootstrap"]["blocks_used"] = int(
+        len(np.unique(runs["device-bootstrap"].labels)))
+    # where a rank's time goes: rank 0 under the profiler, every rank
+    # solving
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 ) if comm.rank == 0 else contextlib.nullcontext() as prof:
+        t0 = time.perf_counter()
+        partition(prob, devices=P)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if comm.rank == 0:
+        rows, device_s = device_rows(prof)
+        out["profile"] = {"wall": wall, "device_s": device_s,
+                          "rows": [(r[0], r[1], r[2]) for r in rows[:10]]}
+    del runs
+    # agreement: the card against CPU ranks on the same deal
+    card, table, counts = rank_run(
+        torch, lambda: partition(sub, devices=P, warmup=False))
+    cpu = partition(sub, devices=P, warmup=False, device="cpu")
+    out["agreement"] = {
+        "card": run_summary(card, table, counts),
+        "cpu_imbalance": cpu.imbalance(),
+        "agree": float(np.mean(card.labels == cpu.labels))}
+    # sharded evaluation on the quality mesh
+    quality, table, counts = rank_run(
+        torch, lambda: evaluate_sharded(qprob, qlabels, P), allowed=())
+    out["evaluate"] = {"quality": quality, "table": table}
+    # warm repartitioning: a cold step 0, then T warm steps
+    sim, table, counts = rank_run(
+        torch, lambda: simulate_loadbalance(prob, meshes.DriftingHotspot(),
+                                            SHARDED_T, devices=P),
+        allowed=("assign_reduce", "prefix_sum"))
+    sim.pop("final_result")
+    out["repartition"] = {"sim": sim, "table": table, "counts": counts}
+    # the hierarchy: the coarse cut over all ranks, the lanes flat or over
+    # the refine axis
+    hier = {}
+    hprob = prob.replace(k=SHARDED_HIER[0] * SHARDED_HIER[1])
+    for tag, devices in (("hier-flat", P), ("hier-mesh", SHARDED_MESH)):
+        res, table, counts = rank_run(
+            torch, lambda: partition(hprob, hierarchy=SHARDED_HIER,
+                                     devices=devices))
+        hier[tag] = res
+        coarse, fine = res.stats["levels"]
+        out[tag] = {"imbalance": res.imbalance(), "table": table,
+                    "counts": counts, "coarse_s": coarse["seconds"],
+                    "refine_s": fine["seconds"],
+                    "prep_s": fine["prep_seconds"],
+                    "refine_devices": fine["refine_devices"]}
+    out["hier-mesh"]["equal"] = same_result(np, hier["hier-flat"],
+                                            hier["hier-mesh"])
+    return out
+
+
+def log_run(tag, s, card):
+    """One sharded run's numbers: wall and solve seconds per rank, sweeps
+    and row-1 launches per rank, all-reduces per balance iteration and
+    their time, the backend."""
+    walls = ", ".join(f"{r[0]:.3f}" for r in s["table"])
+    launches = [int(r[1]) for r in s["table"]]
+    ars = [int(r[2]) for r in s["table"]]
+    ar_s = ", ".join(f"{r[3]:.3f}" for r in s["table"])
+    sec = s["seconds"]
+    log(tag, f"backend {s['backend']}: wall per rank {walls} s (rank 0: "
+        f"deal and bootstrap {sec['bootstrap']:.3f} s, k-means "
+        f"{sec['kmeans']:.3f} s, labels home {sec['labels_home']:.3f} s); "
+        f"iters {s['iters']}, sweeps {s['sweeps']}, assign launches per "
+        f"rank {launches}; all-reduces per rank {ars} "
+        f"({ars[0] / max(s['sweeps'], 1):.2f} a balance iteration), their "
+        f"seconds per rank {ar_s}; imbalance {s['imbalance']:.6f}  [{card}]")
+    check(all(n == s["sweeps"] for n in launches),
+          f"{tag}: assign launches {launches} != sweeps {s['sweeps']}")
+
+
+def phase_sharded(torch, ctx):
+    """The multi-device path: ``partition(devices=1)`` over NCCL against
+    ``partition()`` on the main cell; then one launch of four gloo ranks
+    sharing the card for ``devices=4`` (twice), ``(2, 2)``, the device
+    bootstrap, the agreement with CPU ranks, ``evaluate_sharded``, warm
+    repartitioning and the hierarchy."""
+    import numpy as np
+    from repro_torch.core import metrics
+    from repro_torch.dist import launch
+    from repro_torch.partition import PartitionProblem, partition
+    log("sharded", f"backend rule: devices=1 -> "
+        f"{launch.choose_backend('cuda', 1)}, devices={SHARDED_P} -> "
+        f"{launch.choose_backend('cuda', SHARDED_P)} "
+        f"({torch.cuda.device_count()} card(s))")
+    pts = np.random.default_rng(0).uniform(0.0, 1.0, (MAIN_N, MAIN_D))
+    prob = PartitionProblem(points=pts, k=MAIN_K, epsilon=EPS, seed=0)
+    single = partition(prob)
+    t0 = time.perf_counter()
+    labels, centers, infl, s, s2 = launch.launch(
+        sharded_one, 1, args=(prob,), device="cuda", timeout=600)
+    wall = time.perf_counter() - t0
+    log_run("sharded-1", s, ctx["card"])
+    log_run("sharded-1-repeat", s2, ctx["card"])
+    ctx["paths"]["sharded-1"] = s["counts"]
+    log("sharded-1", f"launch of 1 rank, two solves: {wall:.1f} s with the "
+        f"process start; the two runs bit-identical")
+    check(s["backend"] == launch.choose_backend("cuda", 1),
+          f"devices=1 ran on {s['backend']}")
+    check(np.array_equal(labels, single.labels)
+          and np.array_equal(centers, single.centers)
+          and np.array_equal(infl, single.influence),
+          "devices=1 differs from partition() on the card")
+    log("sharded-1", "labels, centers and influence bit-equal to "
+        "partition() on the card")
+    sub = PartitionProblem(points=pts[:SHARDED_AGREE_N], k=SHARDED_AGREE_K,
+                           epsilon=EPS, seed=0)
+    qprob = PartitionProblem.from_mesh(quality_mesh(ctx), k=REFINE_QUALITY_K)
+    qlabels = partition(qprob).labels
+    t0 = time.perf_counter()
+    out = launch.launch(sharded_suite, SHARDED_P,
+                        args=(prob, sub, qprob, qlabels), device="cuda",
+                        timeout=900)
+    wall = time.perf_counter() - t0
+    log("sharded", f"launch of {SHARDED_P} ranks on card(s) "
+        f"{out['rank_device']}: {wall:.1f} s with the process starts; "
+        f"backend {out['backend']}; gloo all-reduce of CUDA tensors "
+        f"{out['probe']}")
+    check(out["backend"] == launch.choose_backend("cuda", SHARDED_P),
+          "the launch did not follow the backend rule")
+    want = {"sum": [10.0, -6.0], "min": [1.0, -3.0], "max": [4.0, 0.0]}
+    check(out["probe"] == want, f"gloo all-reduce on the card gave "
+          f"{out['probe']}, want {want}")
+    for tag in ("flat", "flat-repeat", "mesh", "device-bootstrap"):
+        s = out[tag]
+        log_run(f"sharded-{tag}", s, ctx["card"])
+        check(s["imbalance"] <= EPS + 1e-6,
+              f"sharded {tag}: imbalance {s['imbalance']:.6f}")
+        for r in range(SHARDED_P):
+            ctx["paths"][f"sharded-{tag} rank {r}"] = {
+                "assign_reduce": int(s["table"][r][1])}
+    check(out["flat-repeat"]["equal"], "devices=4: two runs differ")
+    check(out["mesh"]["equal"], "devices=(2, 2) differs from devices=4")
+    check(out["device-bootstrap"]["blocks_used"] == MAIN_K,
+          "device bootstrap left blocks empty")
+    log("sharded", "devices=4 twice and devices=(2, 2): labels, centers "
+        "and influence bit-identical; every run balanced")
+    p = out["profile"]
+    log("sharded-profile", f"rank 0 of {SHARDED_P}, devices={SHARDED_P}: "
+        f"wall {p['wall']:.3f} s under the profiler, device busy "
+        f"{p['device_s']:.3f} s = {p['device_s'] / p['wall']:.1%} of wall "
+        f" [{ctx['card']}]")
+    log_rows("sharded-profile", [r + ("CUDA",) for r in p["rows"]], n=8)
+    a = out["agreement"]
+    log_run("sharded-agreement", a["card"], ctx["card"])
+    log("sharded-agreement", f"first {SHARDED_AGREE_N} points, k="
+        f"{SHARDED_AGREE_K}, warmup=False, {SHARDED_P} ranks: card vs CPU "
+        f"ranks labels {a['agree']:.4f}, imbalance "
+        f"{a['card']['imbalance']:.5f} / {a['cpu_imbalance']:.5f}")
+    check(a["agree"] >= 0.99, f"sharded agreement {a['agree']:.4f}")
+    host = metrics.evaluate_problem(qprob, qlabels)
+    got = out["evaluate"]["quality"]
+    walls = ", ".join(f"{r[0]:.3f}" for r in out["evaluate"]["table"])
+    log("sharded-evaluate", f"delaunay3d n={qprob.n} k={qprob.k}: "
+        f"{got}; wall per rank {walls} s  [{ctx['card']}]")
+    check(got == host, f"evaluate_sharded {got} != host {host}")
+    rep = out["repartition"]
+    sim = rep["sim"]
+    for r in sim["per_step"]:
+        log("sharded-repartition", f"step {r['step']}: iters {r['iters']}, "
+            f"migration {r['migration_fraction']:.6f}, imbalance "
+            f"{r['imbalance']:.6f}, {r['time_s']:.3f} s (rank 0)")
+        check(r["imbalance"] <= EPS + 1e-6,
+              f"sharded repartition step {r['step']} unbalanced")
+    walls = ", ".join(f"{r[0]:.3f}" for r in rep["table"])
+    log("sharded-repartition", f"T={SHARDED_T} warm after a cold step 0: "
+        f"wall per rank {walls} s, assign launches per rank "
+        f"{[int(r[1]) for r in rep['table']]}, all-reduces per rank "
+        f"{[int(r[2]) for r in rep['table']]}  [{ctx['card']}]")
+    for r in range(SHARDED_P):
+        ctx["paths"][f"sharded-repartition rank {r}"] = {
+            "assign_reduce": int(rep["table"][r][1])}
+    for tag in ("hier-flat", "hier-mesh"):
+        h = out[tag]
+        walls = ", ".join(f"{r[0]:.3f}" for r in h["table"])
+        log(f"sharded-{tag}", f"hierarchy={SHARDED_HIER}: wall per rank "
+            f"{walls} s (rank 0: coarse {h['coarse_s']:.3f} s, refine "
+            f"{h['refine_s']:.3f} s of which the host's batch and "
+            f"bootstraps {h['prep_s']:.3f} s), lanes over "
+            f"{h['refine_devices']}, assign launches per rank "
+            f"{[int(r[1]) for r in h['table']]}, imbalance "
+            f"{h['imbalance']:.6f}  [{ctx['card']}]")
+        check(h["imbalance"] <= EPS + 1e-6, f"sharded {tag} unbalanced")
+    check(out["hier-mesh"]["equal"],
+          "hierarchy over (2, 2) differs from devices=4")
+    log("sharded", f"hierarchy={SHARDED_HIER}: devices=(2, 2) bit-equal to "
+        f"devices={SHARDED_P}")
+
+
+# ---------------------------------------------------------------------------
 # phases 9-10: granite-moe-3b-a800m served at full width
 # ---------------------------------------------------------------------------
 
@@ -2413,6 +2722,7 @@ def main() -> int:
            "hierarchical": lambda: phase_hierarchical(torch, ctx),
            "pserve": lambda: phase_pserve(torch, ctx),
            "refine": lambda: phase_refine(torch, ctx),
+           "sharded": lambda: phase_sharded(torch, ctx),
            "serve": lambda: phase_serve(torch, ctx),
            "prefill": lambda: phase_prefill(torch, ctx),
            "timing": lambda: phase_timing(torch, ctx)}

@@ -16,8 +16,13 @@ constant into a multiplication by its float32 reciprocal. Where that
 changes a result the port does the same: the warm-up sample size, the
 balance target ``W/k`` and the mean of the cluster radii.
 
-Single device only: the multi-device path (the reference's
-``axis_name``) comes with a later slice.
+The same code runs on one device or on one rank of a mesh: pass the
+rank's ``dist.Communicator`` as ``comm`` (the reference's ``axis_name``).
+Centers and influence are then replicated, the points are the rank's
+shard, and the only communication is the all-reduces of sums, minima and
+maxima of ``_reduce``, at the reference's call sites. Every exit
+predicate reads a reduced value, so all ranks take the same branches.
+``comm=None`` is the identity: the single-device path is unchanged.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.dist.comm import reduce as _reduce
 
 PRECISIONS = ("f32", "bf16")
 
@@ -153,11 +160,14 @@ def erode_influence(influence, delta, beta):
 
 def assign_and_balance(points, w_eff, centers, influence, A_old, ub, lb,
                        cfg, target_weight, valid=None, n_valid=None,
-                       layout=None):
+                       layout=None, comm=None):
     """Algorithm 1. Returns (A, influence, ub, lb, sizes, csum, rad2sum,
     stats). Every balance iteration is one fused sweep; the sizes and the
     movement moments come out of it. ``valid`` and ``n_valid`` only shape
-    the skip statistic; ``layout`` goes to every sweep."""
+    the skip statistic; ``layout`` goes to every sweep. With ``comm`` the
+    sizes are summed over the ranks (one all-reduce a balance iteration),
+    ``csum`` and ``rad2sum`` stay this rank's (the caller reduces them)
+    and the skip count is summed once at the end."""
     n, d = points.shape
     d_eff = cfg.d_eff or d
     k = cfg.k
@@ -176,7 +186,7 @@ def assign_and_balance(points, w_eff, centers, influence, A_old, ub, lb,
         A = idx
         ub_n = torch.where(skip, ub, best)
         lb_n = torch.where(skip, lb, second)
-        sizes = cw
+        sizes = _reduce(cw, comm)
         # true-distance^2 radius numerator (invariant under later rescale)
         rad2sum = rad2raw * (infl * infl)
         imb = torch.max(sizes) / target_weight - 1.0
@@ -193,8 +203,10 @@ def assign_and_balance(points, w_eff, centers, influence, A_old, ub, lb,
             infl = infl_new
         skips = skips + torch.sum(skip_stat.to(torch.float32))
         i += 1
+    # the global skip rate: the summed count over the global point count
+    skips = _reduce(skips, comm)
     if n_valid is None:
-        n_valid = n
+        n_valid = n * (1 if comm is None else comm.size)
     count = torch.tensor(float(max(i, 1) * n_valid), dtype=torch.float32,
                          device=dev)         # a true division, not a recip
     stats = {"balance_iters": i, "balanced": done,
@@ -204,7 +216,7 @@ def assign_and_balance(points, w_eff, centers, influence, A_old, ub, lb,
 
 def balanced_kmeans(points, cfg: BKMConfig, weights=None, centers0=None,
                     n_global=None, target_weight=None, influence0=None,
-                    warm_start=False, prev_assignment=None):
+                    warm_start=False, prev_assignment=None, comm=None):
     """Algorithm 2 (minus the SFC sort, done by the partitioner).
 
     ``points`` [n, d] on the solve's device, already randomly permuted if
@@ -213,6 +225,12 @@ def balanced_kmeans(points, cfg: BKMConfig, weights=None, centers0=None,
     bounds and measures the movement ``delta0``; below the threshold the
     movement loop never runs. ``prev_assignment`` (warm only) adds no-op
     detection: an unchanged, still balanced assignment is re-emitted.
+
+    ``comm`` (a ``dist.Communicator``): ``points`` are this rank's shard,
+    ``centers0`` / ``influence0`` are the same on every rank, and
+    ``n_global`` is the global point count (default ``n * comm.size``);
+    the warm-up samples a prefix of every shard, sized against
+    ``n_global``.
 
     Returns (assignment, centers, influence, stats); stats holds tensors
     on the solve's device and ``history`` the per-iteration records.
@@ -228,10 +246,10 @@ def balanced_kmeans(points, cfg: BKMConfig, weights=None, centers0=None,
         pick = torch.from_numpy(np.linspace(0, n - 1, k).astype(np.int32))
         centers0 = points[pick.to(dev).long()]
     if n_global is None:
-        n_global = n
+        n_global = n * (1 if comm is None else comm.size)
     valid = w > 0
 
-    total_w = torch.clamp_min(torch.sum(w), 1e-12)
+    total_w = torch.clamp_min(_reduce(torch.sum(w), comm), 1e-12)
     base_target = (total_w * _f32_reciprocal(k) if target_weight is None
                    else torch.as_tensor(target_weight, dtype=dtype,
                                         device=dev))
@@ -242,6 +260,7 @@ def balanced_kmeans(points, cfg: BKMConfig, weights=None, centers0=None,
         hi = torch.max(points, dim=0).values
     else:
         lo, hi = layout.lo, layout.hi
+    lo, hi = _reduce(lo, comm, "min"), _reduce(hi, comm, "max")
     diag = torch.sqrt(torch.sum((hi - lo) ** 2))
     delta_threshold = float(cfg.delta_tol * diag)
 
@@ -263,6 +282,7 @@ def balanced_kmeans(points, cfg: BKMConfig, weights=None, centers0=None,
         # convergence pre-pass under the previous (centers, influence)
         A, ub, lb, csum0, cw0, _ = assign_reduce(points, w, centers, infl,
                                                  cfg, layout)
+        csum0, cw0 = _reduce(csum0, comm), _reduce(cw0, comm)
         cand0 = torch.where(cw0[:, None] > 0,
                             csum0 / torch.clamp_min(cw0, 1e-12)[:, None],
                             centers)
@@ -273,7 +293,10 @@ def balanced_kmeans(points, cfg: BKMConfig, weights=None, centers0=None,
         if not balanced0:
             delta0 = float("inf")
         if prev_assignment is not None:
-            same = bool(torch.all(A == prev_assignment.to(torch.int32)))
+            mismatches = _reduce(torch.sum(
+                (A != prev_assignment.to(torch.int32)).to(torch.int32)),
+                comm)
+            same = bool(mismatches == 0)
             if same and balanced0:
                 delta0 = 0.0
         max_delta = float(np.float32(delta0))
@@ -298,19 +321,22 @@ def balanced_kmeans(points, cfg: BKMConfig, weights=None, centers0=None,
         else:
             w_eff = w
         # the target scales with the sampled weight fraction
-        w_round = torch.clamp_min(torch.sum(w_eff), 1e-12)
+        w_round = torch.clamp_min(_reduce(torch.sum(w_eff), comm), 1e-12)
         target = base_target * (w_round / total_w)
-        A, infl, ub, lb, sizes, csum, rad2_l, st = assign_and_balance(
+        A, infl, ub, lb, sizes, csum_l, rad2_l, st = assign_and_balance(
             points, w_eff, centers, infl, A, ub, lb, cfg, target,
-            valid=valid, n_valid=n_global, layout=layout)
-        # movement phase (Alg. 2 lines 12-13) from the last sweep's moments
+            valid=valid, n_valid=n_global, layout=layout, comm=comm)
+        # movement phase (Alg. 2 lines 12-13) from the last sweep's moments:
+        # only the paper's global vector sums ([k, d] + [k]; the sizes are
+        # already summed)
+        csum = _reduce(csum_l, comm)
         cw = sizes
         new_centers = torch.where(
             cw[:, None] > 0, csum / torch.clamp_min(cw, 1e-12)[:, None],
             centers)
         delta = torch.sqrt(torch.sum((new_centers - centers) ** 2, dim=1))
         # influence erosion (Eqs. 2-3); beta = 2 * mean cluster radius
-        rad2 = rad2_l / torch.clamp_min(cw, 1e-12)
+        rad2 = _reduce(rad2_l, comm) / torch.clamp_min(cw, 1e-12)
         beta = 2.0 * (torch.sum(torch.sqrt(torch.clamp_min(rad2, 0.0)))
                       * _f32_reciprocal(k))
         infl_new = erode_influence(infl, delta, beta) if cfg.erosion \
@@ -337,10 +363,15 @@ def balanced_kmeans(points, cfg: BKMConfig, weights=None, centers0=None,
         points, w, centers, infl, A,
         torch.full((n,), float("inf"), dtype=dtype, device=dev),
         torch.zeros(n, dtype=dtype, device=dev), cfg, target,
-        valid=valid, n_valid=n_global, layout=layout)
+        valid=valid, n_valid=n_global, layout=layout, comm=comm)
     from repro_torch.kernels.ops import tile_prune_fraction
     frac = tile_prune_fraction(points, centers, infl, lb * lb,
                                cfg.block_p, cfg.block_c)
+    if comm is not None:
+        # the mean of the shards' fractions, divided as the reference
+        # divides by its traced shard count
+        frac = _reduce(frac, comm) / torch.tensor(
+            float(comm.size), dtype=frac.dtype, device=frac.device)
     stats = {"iters": torch.tensor(it, dtype=torch.int32),
              "final_sizes": sizes,
              "final_imbalance": torch.max(sizes) / target - 1.0,

@@ -13,6 +13,11 @@ in 2-D, Skilling's transpose algorithm):
 
 ``sfc_initial_centers_torch`` is the bootstrap the partitioner runs: keys,
 stable sort and the strided or weighted picks on the tensor's device.
+
+The multi-device path adds the reference's in-graph keys: int32, 10 bits
+a dimension in 3-D and 15 in 2-D, quantized against a *global* bounding
+box (``hilbert_index_int32``), and the distributed bootstrap over them
+(``sfc_initial_centers_sharded``, ``bootstrap="device"``).
 """
 from __future__ import annotations
 
@@ -195,3 +200,131 @@ def sfc_initial_centers_torch(points: torch.Tensor, k: int,
                          device=points.device)[order])
     return points[order[_picks_torch(points.shape[0], k, w,
                                      points.device)]]
+
+
+# ---------------------------------------------------------------------------
+# int32 keys and the distributed bootstrap (the reference's jnp versions)
+# ---------------------------------------------------------------------------
+
+def default_bits_int32(d: int) -> int:
+    return 15 if d == 2 else 10
+
+
+def hilbert_index_int32(points: torch.Tensor, bits: int | None = None,
+                        lo: torch.Tensor | None = None,
+                        hi: torch.Tensor | None = None) -> torch.Tensor:
+    """Hilbert key per point, int32, equal to the reference's
+    ``hilbert_index_jnp``. points: [n, d] float32; ``lo``/``hi`` a global
+    bounding box (all-reduced beforehand) so that shards quantize alike.
+    The quantization divides by the span tensor (a true division)."""
+    d = points.shape[1]
+    if bits is None:
+        bits = default_bits_int32(d)
+    if bits * d > 31:
+        raise ValueError(f"{bits} bits x {d} dims do not fit an int32 key")
+    if lo is None:
+        lo = torch.min(points, dim=0).values
+    if hi is None:
+        hi = torch.max(points, dim=0).values
+    span = torch.clamp_min(hi - lo, 1e-30)
+    scaled = (points - lo) / span
+    q = torch.clamp((scaled * float(2 ** bits)).to(torch.int32), 0,
+                    2 ** bits - 1)
+    cols = _axes_to_transpose_torch([q[:, i] for i in range(d)], bits)
+    key = torch.zeros(points.shape[0], dtype=torch.int32,
+                      device=points.device)
+    for b in range(bits - 1, -1, -1):
+        for i in range(d):
+            key = (key << 1) | ((cols[i] >> b) & 1)
+    return key
+
+
+def _bucket_sums(weights: torch.Tensor, bucket: torch.Tensor,
+                 n_buckets: int) -> torch.Tensor:
+    """Per-bucket sums of float32 ``weights`` as float32, the same on
+    every device and in every run (no atomics): the weights stably sorted
+    by bucket, a float64 prefix sum, and its differences at the run ends.
+    Unit weights give the exact counts, as the reference's float32
+    ``segment_sum`` does; other weights may differ from its sequential
+    float32 adds by the rounding of those adds."""
+    order = torch.sort(bucket, stable=True).indices
+    cw = torch.cumsum(weights[order].to(torch.float64), 0)
+    ends = torch.cumsum(torch.bincount(bucket.long(), minlength=n_buckets),
+                        0)
+    upto = torch.cat([torch.zeros(1, dtype=torch.float64,
+                                  device=weights.device), cw])[ends]
+    return torch.diff(upto, prepend=upto.new_zeros(1)).to(weights.dtype)
+
+
+def _nearest_key(keys: torch.Tensor, splitters: torch.Tensor,
+                 chunk: int = 1 << 16) -> tuple[torch.Tensor, torch.Tensor]:
+    """For each splitter, the first index of the key nearest to it and
+    that distance, |float32(key) - splitter| in float32 as the reference
+    computes it, ties to the lowest index. The [k, n] distance matrix is
+    never built: the keys are taken ``chunk`` at a time and a later chunk
+    wins only with a strictly smaller distance."""
+    kf = keys.to(torch.float32)
+    best_d = torch.full_like(splitters, float("inf"))
+    best_i = torch.zeros(splitters.shape[0], dtype=torch.int64,
+                         device=keys.device)
+    for s0 in range(0, kf.shape[0], chunk):
+        kd = torch.abs(kf[None, s0:s0 + chunk] - splitters[:, None])
+        d, i = torch.min(kd, dim=1)
+        better = d < best_d
+        best_d = torch.where(better, d, best_d)
+        best_i = torch.where(better, i + s0, best_i)
+    return best_i, best_d
+
+
+def sfc_initial_centers_sharded(points: torch.Tensor, weights: torch.Tensor,
+                                k: int, comm, n_buckets: int = 1024
+                                ) -> torch.Tensor:
+    """The distributed SFC bootstrap (paper Alg. 2 lines 4-7 on a mesh),
+    the reference's ``sfc_initial_centers_sharded``; ``bootstrap=
+    "device"``. ``points`` [cap, d] float32 and ``weights`` [cap] are this
+    rank's shard (padded slots at weight 0), ``comm`` its communicator.
+    Three steps, each communicating O(k + n_buckets) numbers:
+
+    1. int32 Hilbert keys against the global bounding box (min and max
+       all-reduces);
+    2. a summed weighted histogram of the keys' top bits, whose prefix
+       sums place the k weighted-quantile splitter keys;
+    3. for each splitter the point whose key is globally nearest (a min
+       all-reduce of the distances, ties to the lowest shard id by a
+       second min, the winner's coordinates by a sum).
+
+    Returns [k, d] float32 centers, the same on every rank.
+    """
+    from repro_torch.core.balanced_kmeans import _f32_reciprocal
+    d = points.shape[1]
+    bits = default_bits_int32(d)
+    shift = max(bits * d - int(np.log2(n_buckets)), 0)
+    lo = comm.all_reduce(torch.min(points, dim=0).values, "min")
+    hi = comm.all_reduce(torch.max(points, dim=0).values, "max")
+    keys = hilbert_index_int32(points, bits=bits, lo=lo, hi=hi)
+
+    bucket = keys >> shift
+    hist = comm.all_reduce(_bucket_sums(weights, bucket, n_buckets))
+    cum = torch.cumsum(hist, 0)
+    total = torch.clamp_min(cum[-1], 1e-12)
+    # the reference divides by the constant k under jit: a multiply by its
+    # float32 reciprocal
+    targets = ((torch.arange(k, dtype=cum.dtype, device=cum.device) + 0.5)
+               * (total * _f32_reciprocal(k)))
+    b = torch.clamp(torch.searchsorted(cum, targets), 0, n_buckets - 1)
+    prev = torch.where(b > 0, cum[torch.clamp_min(b - 1, 0)],
+                       torch.zeros_like(targets))
+    frac = torch.clamp((targets - prev) / torch.clamp_min(hist[b], 1e-12),
+                       0.0, 1.0)
+    splitters = (b.to(torch.float32) + frac) * float(2 ** shift)
+
+    # the nearest real point to each splitter: global minimum distance,
+    # ties to the lowest shard id, then the shard's first index
+    loc, loc_d = _nearest_key(keys, splitters)
+    best_d = comm.all_reduce(loc_d, "min")
+    me = comm.shard_id
+    cand = torch.where(loc_d <= best_d, me, comm.size).to(torch.int32)
+    winner = comm.all_reduce(cand, "min")
+    contrib = torch.where((winner == me)[:, None], points[loc],
+                          torch.zeros_like(points[loc]))
+    return comm.all_reduce(contrib)

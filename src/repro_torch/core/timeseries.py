@@ -52,8 +52,10 @@ def simulate_loadbalance(problem, workload, steps: int = 8, *,
         method: registry method for every step.
         mode: "warm" or "cold".
         device: where the solves run; None means ``cuda``.
-        devices: the multi-device path; not ported yet
-            (``NotYetPortedError``).
+        devices: shard count P (or a (P1, P2) mesh) for the multi-device
+            path: every step's solve is sharded over P ranks. Outside a
+            process group the whole series runs in P ranks launched once
+            (``dist.launch``) and rank 0's record comes back.
         **opts: forwarded to ``partition`` / ``repartition``.
 
     Returns:
@@ -63,32 +65,35 @@ def simulate_loadbalance(problem, workload, steps: int = 8, *,
         name), ``"summary"`` (means and maxima across steps), the run
         config, and the final ``PartitionResult`` at ``"final_result"``.
     """
+    from repro_torch.dist import current, launch
     from repro_torch.partition import partition
-    from repro_torch.partition.problem import NotYetPortedError
     from repro_torch.partition.repartition import repartition
 
     if mode not in ("warm", "cold"):
         raise ValueError(f"mode must be 'warm' or 'cold', got {mode!r}")
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
-    if devices is not None:
-        raise NotYetPortedError("simulate_loadbalance(devices=...) comes "
-                                "with the torch.distributed slice")
     dev = resolve_device(device)
+    if launch.needed(devices):
+        return launch.run(simulate_loadbalance, devices, device, problem,
+                          workload, steps, method=method, mode=mode,
+                          device=device, devices=devices, **opts)
+    if devices is not None:
+        dev = launch.rank_device(dev, current().rank)
     pts = torch.from_numpy(np.asarray(problem.points)).to(dev)
 
     def weights(t):
         return workload.weights_at(pts, t).cpu().numpy()
 
     prev = partition(problem.replace(weights=weights(0)), method=method,
-                     device=dev, **opts)
+                     device=dev, devices=devices, **opts)
     records = []
     for t in range(1, steps + 1):
         prob_t = problem.replace(weights=weights(t))
         before = _launches()
         t0 = time.perf_counter()
         res = repartition(prob_t, prev, method=method, device=dev,
-                          warm=(mode == "warm"), **opts)
+                          devices=devices, warm=(mode == "warm"), **opts)
         dt = time.perf_counter() - t0
         after = _launches()
         imb = res.imbalance()

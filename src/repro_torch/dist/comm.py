@@ -1,0 +1,208 @@
+"""The communicator of the multi-device path: what the reference's
+``axis_name`` is under ``shard_map``.
+
+A ``Communicator`` holds one rank's process group, its rank, the world
+size, the mesh shape ``(P,)`` or ``(P1, P2)`` and, for a 2-D mesh, the
+subgroup of its refine axis. It offers the reductions of the paper's
+communication discipline (§4.1) and nothing else: ``all_reduce(x, "sum"
+| "min" | "max")``, plus the shard id (the reference's ``axis_index``).
+The rank order of ``(P1, P2)`` is the row-major flat order of ``P1*P2``,
+so a reduction over the whole mesh runs over the same group in the same
+order as the flat mesh's and gives the same bits.
+
+``current()`` is the communicator of the calling rank: the one a
+launcher (``dist.launch``) or a ``using(comm)`` block made active in
+this thread, else one over the default process group when the caller
+initialized it (as under ``torchrun``), else None: no rank, the
+single-device path.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+
+import torch
+import torch.distributed as tdist
+
+OPS = ("sum", "min", "max")
+
+
+class CancelledError(RuntimeError):
+    """A collective ended because another rank failed."""
+
+
+def _reduce_op(op: str):
+    return {"sum": tdist.ReduceOp.SUM, "min": tdist.ReduceOp.MIN,
+            "max": tdist.ReduceOp.MAX}[op]
+
+
+class _Shared:
+    """What the views of one rank's group share: the collective counters
+    and the refine-axis subgroups, made once per P2."""
+
+    def __init__(self, subgroup_factory, cancel=None):
+        self.subgroup_factory = subgroup_factory
+        self.cancel = cancel
+        self.subgroups: dict = {}
+        self.calls = 0
+        self.seconds = 0.0
+        self.bytes = 0
+
+
+class Communicator:
+    """One rank's view of a process group as a device mesh.
+
+    Args:
+        group: a ``torch.distributed`` process group (``ProcessGroup`` or
+            a backend group such as ``ProcessGroupGloo``); collectives go
+            through its ``allreduce`` method.
+        rank, size: this rank and the group's size.
+        backend: ``"gloo"`` or ``"nccl"``.
+        shape: mesh shape, ``(size,)`` or ``(P1, P2)`` with
+            ``P1 * P2 == size``.
+        subgroup_factory: ``fn(ranks) -> group`` making the subgroup of
+            the given flat ranks; every rank calls it for every coarse row
+            in the same order (``torch.distributed.new_group``'s rule).
+        cancel: a ``threading.Event`` that ends a pending all-reduce
+            with ``CancelledError`` once set (ranks that are threads of
+            one process: a failing rank sets it, so the others do not
+            wait for their collectives' timeout).
+    """
+
+    def __init__(self, group, rank: int, size: int, *, backend: str,
+                 shape=None, subgroup_factory=None, cancel=None,
+                 _shared=None):
+        shape = (int(size),) if shape is None else tuple(int(s)
+                                                         for s in shape)
+        if len(shape) not in (1, 2) or min(shape) < 1 or \
+                int(torch.tensor(shape).prod()) != size:
+            raise ValueError(f"mesh shape {shape} does not cover "
+                             f"{size} ranks")
+        self.group = group
+        self.rank = int(rank)
+        self.size = int(size)
+        self.backend = backend
+        self.shape = shape
+        self._shared = _shared or _Shared(subgroup_factory, cancel)
+
+    @property
+    def shard_id(self) -> int:
+        """This rank's flat index in the mesh (``axis_index`` over the
+        whole mesh)."""
+        return self.rank
+
+    @property
+    def coarse_index(self) -> int:
+        return self.rank // self.shape[-1] if len(self.shape) == 2 else 0
+
+    @property
+    def refine_index(self) -> int:
+        return self.rank % self.shape[-1] if len(self.shape) == 2 \
+            else self.rank
+
+    def with_shape(self, shape) -> "Communicator":
+        """The same ranks viewed as mesh ``shape`` (counters shared)."""
+        return Communicator(self.group, self.rank, self.size,
+                            backend=self.backend, shape=shape,
+                            _shared=self._shared)
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The reduction of ``x`` over every rank of the group, as a new
+        tensor (``x`` is left as it is): ``psum`` / ``pmin`` / ``pmax``.
+        Boolean tensors are reduced as int32 and come back boolean."""
+        if op not in OPS:
+            raise ValueError(f"op must be one of {OPS}, got {op!r}")
+        was_bool = x.dtype == torch.bool
+        out = (x.to(torch.int32) if was_bool else x).clone().contiguous()
+        opts = tdist.AllreduceOptions()
+        opts.reduceOp = _reduce_op(op)
+        sh = self._shared
+        t0 = time.perf_counter()
+        work = self.group.allreduce([out], opts)
+        if sh.cancel is not None:
+            while not work.is_completed():
+                if sh.cancel.is_set():
+                    raise CancelledError("another rank of the launch "
+                                         "failed")
+                time.sleep(2e-5)
+        work.wait()
+        sh.seconds += time.perf_counter() - t0
+        sh.calls += 1
+        sh.bytes += out.numel() * out.element_size()
+        return out.bool() if was_bool else out
+
+    def refine_group(self) -> "Communicator":
+        """The ranks of this rank's coarse row (the refine axis of a
+        ``(P1, P2)`` mesh) as a communicator of size P2. Every rank of the
+        mesh must call this at the same point of the program, as it may
+        create the subgroups."""
+        if len(self.shape) != 2:
+            raise ValueError(f"refine_group needs a (P1, P2) mesh, this "
+                             f"one is {self.shape}")
+        p1, p2 = self.shape
+        sh = self._shared
+        if p2 not in sh.subgroups:
+            if sh.subgroup_factory is None:
+                raise RuntimeError("this communicator cannot make "
+                                   "subgroups")
+            sh.subgroups[p2] = [
+                sh.subgroup_factory([c * p2 + j for j in range(p2)])
+                for c in range(p1)]
+        group = sh.subgroups[p2][self.coarse_index]
+        return Communicator(group, self.refine_index, p2,
+                            backend=self.backend, shape=(p2,),
+                            _shared=_Shared(None, sh.cancel))
+
+    def counters(self) -> dict:
+        """All-reduces of this group so far: ``{"all_reduces", "seconds",
+        "bytes"}`` (host seconds inside ``all_reduce``); callers take the
+        difference around the work they measure."""
+        sh = self._shared
+        return {"all_reduces": sh.calls, "seconds": sh.seconds,
+                "bytes": sh.bytes}
+
+
+def reduce(x: torch.Tensor, comm: Communicator | None, op: str = "sum"):
+    """``x`` reduced over ``comm``'s ranks; the identity when ``comm`` is
+    None (the single-device path)."""
+    return x if comm is None else comm.all_reduce(x, op)
+
+
+_LOCAL = threading.local()
+_WORLD: dict = {}
+
+
+def _world() -> Communicator:
+    """The communicator over the caller's default process group."""
+    group = tdist.group.WORLD
+    comm = _WORLD.get(id(group))
+    if comm is None or comm.group is not group:
+        comm = Communicator(group, tdist.get_rank(), tdist.get_world_size(),
+                            backend=str(tdist.get_backend()),
+                            subgroup_factory=lambda ranks: tdist.new_group(
+                                ranks))
+        _WORLD.clear()
+        _WORLD[id(group)] = comm
+    return comm
+
+
+def current() -> Communicator | None:
+    """The calling rank's communicator, or None outside any rank."""
+    comm = getattr(_LOCAL, "comm", None)
+    if comm is not None:
+        return comm
+    if tdist.is_available() and tdist.is_initialized():
+        return _world()
+    return None
+
+
+@contextlib.contextmanager
+def using(comm: Communicator):
+    """Make ``comm`` the calling thread's communicator inside the block."""
+    prev = getattr(_LOCAL, "comm", None)
+    _LOCAL.comm = comm
+    try:
+        yield comm
+    finally:
+        _LOCAL.comm = prev

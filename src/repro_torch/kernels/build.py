@@ -9,12 +9,20 @@ missing library, all at once. A library is named by a hash of its source and
 flags and kept in ``kernels/_build/`` (listed in ``.gitignore``), so an
 edited source is rebuilt and an unchanged one is loaded as it is.
 
+Ranks that start together (``dist.launch``) would all find a library
+missing and build it at once. Each build holds an exclusive ``flock`` on
+the library's lock file: the first process builds, the others wait and
+then load what it built. The kernel drops the lock when a process ends,
+so a build cut short leaves no stale lock behind.
+
 Nothing here runs at import: the CPU tests import every module, on
 machines that have no CUDA toolkit.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -119,50 +127,68 @@ def _paths(name: str) -> tuple[Path, Path, Path]:
             BUILD_DIR / f"lib{name}_{tag}.log")
 
 
+@contextlib.contextmanager
+def build_lock(target: Path):
+    """Hold an exclusive lock on ``target``'s lock file (its name plus
+    ``.lock``) for the block: one process at a time checks for and builds
+    ``target``."""
+    with open(f"{target}.lock", "a+") as fh:
+        fcntl.flock(fh.fileno(), fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh.fileno(), fcntl.LOCK_UN)
+
+
 def build_libraries(names=LIBRARIES) -> dict[str, KernelLibrary]:
     """Load the libraries ``names``, building the missing ones with one
-    ``nvcc`` each, all started together. A failed build raises after
-    every ``nvcc`` it started has ended."""
+    ``nvcc`` each, all started together. Each library is checked and
+    built under its ``build_lock`` (taken in the order of ``names``), so
+    processes that call this at once build every library once. A failed
+    build raises after every ``nvcc`` it started has ended."""
     unknown = set(names) - set(_SIGNATURES)
     if unknown:
         raise KeyError(f"unknown kernel libraries {sorted(unknown)}; "
                        f"available: {list(LIBRARIES)}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     pending = {}
-    try:
-        for name in names:
-            if name in _LOADED:
-                continue
-            src, lib, log = _paths(name)
-            if lib.is_file():
-                _LOADED[name] = KernelLibrary(
-                    name, lib, 0.0, log.read_text() if log.is_file() else "")
-                continue
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            proc = subprocess.Popen([find_nvcc(), *FLAGS, "-o", tmp,
-                                     str(src)], stdout=subprocess.PIPE,
-                                    stderr=subprocess.PIPE, text=True)
-            pending[name] = (proc, tmp, lib, log, time.perf_counter())
-        errors = []
-        for name, (proc, tmp, lib, log, t0) in pending.items():
-            out, err = proc.communicate()
-            seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                errors.append(f"nvcc failed on {name}.cu "
-                              f"({proc.returncode}):\n{out}\n{err}")
-                continue
-            log.write_text(out + err)
-            os.replace(tmp, lib)
-            _LOADED[name] = KernelLibrary(name, lib, seconds, out + err)
-        if errors:
-            raise RuntimeError("\n".join(errors))
-    finally:
-        for proc, tmp, *_ in pending.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+    with contextlib.ExitStack() as locks:
+        try:
+            for name in names:
+                if name in _LOADED:
+                    continue
+                src, lib, log = _paths(name)
+                locks.enter_context(build_lock(lib))
+                if lib.is_file():
+                    _LOADED[name] = KernelLibrary(
+                        name, lib, 0.0,
+                        log.read_text() if log.is_file() else "")
+                    continue
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                proc = subprocess.Popen([find_nvcc(), *FLAGS, "-o", tmp,
+                                         str(src)], stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+                pending[name] = (proc, tmp, lib, log, time.perf_counter())
+            errors = []
+            for name, (proc, tmp, lib, log, t0) in pending.items():
+                out, err = proc.communicate()
+                seconds = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    os.unlink(tmp)
+                    errors.append(f"nvcc failed on {name}.cu "
+                                  f"({proc.returncode}):\n{out}\n{err}")
+                    continue
+                log.write_text(out + err)
+                os.replace(tmp, lib)
+                _LOADED[name] = KernelLibrary(name, lib, seconds, out + err)
+            if errors:
+                raise RuntimeError("\n".join(errors))
+        finally:
+            for proc, tmp, *_ in pending.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
     return {name: _LOADED[name] for name in names}

@@ -2,7 +2,8 @@
 ``repro/partition/algorithms.py``):
 
 * ``geographer``        — SFC bootstrap + balanced k-means (the paper),
-                          on ``device`` (default ``cuda``);
+                          on ``device`` (default ``cuda``), sharded over
+                          ``devices=P`` ranks (``distributed.py``);
 * ``sfc``  (alias hsfc) — Hilbert-curve chunking;
 * ``rcb``               — recursive coordinate bisection;
 * ``rib``               — recursive inertial bisection;
@@ -41,9 +42,22 @@ def make_bkm_config(problem: PartitionProblem, k: int | None = None,
 
 
 @register_algorithm("geographer", aliases=("balanced_kmeans", "bkm"),
-                    supports_devices=False, supports_warm_start=True)
+                    supports_devices=True, supports_warm_start=True)
 def _geographer(problem: PartitionProblem, device=None,
+                devices: int | tuple[int, int] | None = None,
+                bootstrap: str | None = None, chunk: int | None = None,
                 **opts) -> PartitionResult:
+    if devices is not None:
+        from .distributed import partition_sharded
+        return partition_sharded(problem, devices, device=device,
+                                 bootstrap=bootstrap or "host",
+                                 chunk=chunk, **opts)
+    if bootstrap is not None:
+        raise TypeError("bootstrap= only applies to the multi-device path "
+                        "(pass devices=)")
+    if chunk is not None:
+        raise TypeError("chunk= streams the sharded deal and only applies "
+                        "to the multi-device path (pass devices=)")
     cfg = make_bkm_config(problem, **opts)
     labels, centers, infl, stats = geographer_partition(
         problem.points, problem.k, weights=problem.weights, cfg=cfg,

@@ -11,8 +11,16 @@ own point layout and launches the assign kernel once a sweep) and stacks
 the outputs: the same per-lane ``iters``, ``final_imbalance`` and
 ``history`` (of length ``cfg.max_iter``) as the vmap. A lane dimension in
 the kernel is not there yet (ROADMAP.md, queue 2).
+
+``sharded_batched_balanced_kmeans`` splits the lanes over the refine axis
+of a ``(P1, P2)`` mesh of ranks: each rank solves its share with the same
+lane loop, and one sum all-reduce over the refine axis brings every
+lane's outputs to every rank, equal to ``batched_balanced_kmeans`` bit
+for bit.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -20,8 +28,8 @@ import torch
 from repro_torch.core import metrics
 from repro_torch.core.balanced_kmeans import BKMConfig, balanced_kmeans
 from repro_torch.device import resolve_device
-
-from .problem import NotYetPortedError
+from repro_torch.dist import launch
+from repro_torch.dist.rules import comm_for, mesh_shape
 
 
 def _tensor(x, dtype, dev) -> torch.Tensor:
@@ -135,14 +143,124 @@ def sequential_balanced_kmeans(points, weights, centers0, cfg: BKMConfig,
     return A, C, infl, stats
 
 
+def _leaves(A, C, infl, stats) -> list:
+    """The solve's output tensors in a fixed order."""
+    out = [A, C, infl]
+    for key, val in stats.items():
+        out += ([val[name] for name in val] if isinstance(val, dict)
+                else [val])
+    return out
+
+
+def _with_leaves(stats, leaves):
+    """``stats`` with its tensors replaced by ``leaves`` (same order)."""
+    it = iter(leaves)
+    return {key: ({name: next(it) for name in val}
+                  if isinstance(val, dict) else next(it))
+            for key, val in stats.items()}
+
+
+def _as_int32(x: torch.Tensor) -> torch.Tensor:
+    """The bits of ``x`` as int32 words (booleans as 0/1)."""
+    if x.dtype == torch.bool:
+        return x.to(torch.int32)
+    return x.contiguous().view(torch.int32)
+
+
+def _from_int32(words: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if like.dtype == torch.bool:
+        return words.bool()
+    return words.contiguous().view(like.dtype)
+
+
+def _gather_lanes(leaves: list, mine: slice, lanes: int, comm) -> list:
+    """Every lane's outputs on every rank of ``comm``: each rank's leaves
+    hold the lanes ``mine``; their bits go into a [lanes, words] zero
+    matrix at those rows, and one sum all-reduce fills the others (a
+    word plus zeros is the word, so the floats come back bit for
+    bit)."""
+    words = [_as_int32(x).reshape(x.shape[0], -1) for x in leaves]
+    widths = [w.shape[1] for w in words]
+    full = torch.zeros(lanes, sum(widths), dtype=torch.int32,
+                       device=words[0].device)
+    full[mine] = torch.cat(words, dim=1)
+    full = comm.all_reduce(full)
+    out, c0 = [], 0
+    for x, width in zip(leaves, widths):
+        cols = full[:, c0:c0 + width].contiguous()
+        out.append(_from_int32(cols, x).reshape((lanes,) + x.shape[1:]))
+        c0 += width
+    return out
+
+
+def _to_device(out, dev):
+    """The outputs of a solve (tensors, dicts of tensors) on ``dev``."""
+    if isinstance(out, dict):
+        return {key: _to_device(val, dev) for key, val in out.items()}
+    if isinstance(out, (tuple, list)):
+        return type(out)(_to_device(val, dev) for val in out)
+    return out.to(dev) if isinstance(out, torch.Tensor) else out
+
+
+def _sharded_batched_to_host(*args, **kwargs):
+    """``sharded_batched_balanced_kmeans`` on a rank, its outputs moved
+    to the host (what a launch sends home)."""
+    return _to_device(sharded_batched_balanced_kmeans(*args, **kwargs),
+                      torch.device("cpu"))
+
+
 def sharded_batched_balanced_kmeans(points, weights, centers0,
                                     cfg: BKMConfig, *, devices,
-                                    target_weight=None):
-    """Refinement blocks over the refine axis of a 2-D device mesh: comes
-    with the torch.distributed slice."""
-    raise NotYetPortedError(
-        "sharded_batched_balanced_kmeans: the 2-D device mesh comes with "
-        "the torch.distributed slice")
+                                    target_weight=None,
+                                    device: torch.device | str | None = None
+                                    ):
+    """Solve B refinement subproblems split over the refine axis of the
+    ``(P1, P2)`` mesh of ranks.
+
+    Same contract as ``batched_balanced_kmeans`` plus ``devices=(P1,
+    P2)``: the B lanes are padded to a multiple of P2 with copies of lane
+    0 (their outputs are dropped), the refine column j of every coarse
+    row solves lanes [j*Bp/P2, (j+1)*Bp/P2) with the lane loop (the coarse
+    rows repeat the same work, as the reference's do), and a sum
+    all-reduce over the refine axis gives every rank all B lanes. Each
+    lane is solved exactly as in ``batched_balanced_kmeans``, so the
+    results equal it bit for bit.
+
+    Outside a process group the call launches the P1*P2 ranks and
+    returns rank 0's outputs on ``device``.
+    """
+    shape = mesh_shape(devices)
+    if len(shape) != 2:
+        raise ValueError(f"devices must be a (P1, P2) mesh, got "
+                         f"{devices!r}")
+    if launch.needed(devices):
+        out = launch.run(_sharded_batched_to_host, devices, device, points,
+                         weights, centers0, cfg, devices=devices,
+                         target_weight=target_weight, device=device)
+        return _to_device(out, resolve_device(device))
+    comm = comm_for(devices)
+    dev = launch.rank_device(resolve_device(device), comm.rank)
+    p2 = shape[1]
+    pts, w, c0, tw = _prep(points, weights, centers0, cfg, target_weight,
+                           dev)
+    B = pts.shape[0]
+    Bp = -(-B // p2) * p2                  # pad B to a multiple of P2
+    if Bp != B:
+        idx = torch.cat([torch.arange(B, device=dev),
+                         torch.zeros(Bp - B, dtype=torch.int64,
+                                     device=dev)])
+        pts, w, c0, tw = (x[idx] for x in (pts, w, c0, tw))
+    per = Bp // p2
+    mine = slice(comm.refine_index * per, (comm.refine_index + 1) * per)
+    with (torch.cuda.device(dev) if dev.type == "cuda"
+          else contextlib.nullcontext()):
+        A, C, infl, stats = _solve_lanes(pts[mine], w[mine], c0[mine],
+                                         tw[mine], cfg)
+    leaves = _gather_lanes(_leaves(A, C, infl, stats), mine, Bp,
+                           comm.refine_group())
+    leaves = [x[:B] for x in leaves]
+    return (leaves[0], leaves[1], leaves[2],
+            _with_leaves(stats, leaves[3:]))
 
 
 def _host_weights(weights, shape) -> np.ndarray:

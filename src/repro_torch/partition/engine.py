@@ -10,21 +10,28 @@
 
     res = partition(prob, hierarchy=(8, 8))              # k1 x k2 blocks
     res = partition(prob, method="rcb", refine=True)     # + label propagation
+    res = partition(prob, devices=4)                     # 4 ranks, sharded
 
-``devices=`` raises ``NotYetPortedError`` until the torch.distributed
-slice lands.
+``devices=P`` (or ``(P1, P2)``) runs the sharded path over
+``torch.distributed``: on the calling rank when the caller is one (under
+``torchrun``, every rank calls with the same problem and gets the same
+result), else on P local ranks that this call launches (see
+``repro_torch.dist.launch``). ``devices=`` with ``refine=`` raises
+``NotYetPortedError`` until the sharded refinement rounds land.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import launch
 
 from .hierarchical import hierarchical_partition
 from .problem import NotYetPortedError, PartitionProblem, PartitionResult
 from .refine import refine as _refine
 from .refine import resolve_refiner
-from .registry import get_algorithm, resolve_method
+from .registry import (distributed_methods, get_algorithm, resolve_method,
+                       supports_devices)
 
 
 def _parse_hierarchy(hierarchy) -> tuple[int, int]:
@@ -55,8 +62,15 @@ def partition(problem: PartitionProblem, method: str = "geographer", *,
             ``"cpu"`` to run on the host.
         hierarchy: ``(k1, k2)`` tuple or ``"k1xk2"`` string — two-level
             recursive partitioning with ``k1*k2 == problem.k``.
-        devices: not ported yet; any value other than None raises
-            ``NotYetPortedError``.
+        devices: run the sharded multi-device path over P ranks (the
+            method must be registered with ``supports_devices``; with
+            ``hierarchy``, the coarse cut is the sharded pass). A
+            ``(P1, P2)`` tuple views the ranks as a 2-D mesh: the flat
+            solve equals ``devices=P1*P2`` bit for bit, and the
+            hierarchical refinement splits its blocks over the refine
+            axis. Each rank runs on ``device``; on the card rank r binds
+            to card ``r % device_count``, and the backend is NCCL when
+            every rank has a card of its own, gloo otherwise.
         refine: quality-recovery post-pass over the solver's labels —
             True (= ``"label_prop"``) or a refiner registry name (see
             ``repro_torch.partition.refine``), run on ``device``. Requires
@@ -80,19 +94,33 @@ def partition(problem: PartitionProblem, method: str = "geographer", *,
             f"partition() takes a PartitionProblem, got {type(problem)}; "
             "wrap raw arrays with PartitionProblem(points=..., k=...)")
     resolve_method(method)                 # fail fast on unknown names
-    if devices is not None and devices is not False:
-        raise NotYetPortedError("partition(devices=...) comes with the "
-                                "torch.distributed slice")
+    if devices is not None and not supports_devices(method):
+        raise ValueError(
+            f"method {method!r} has no multi-device path; devices= is "
+            f"supported by: {distributed_methods()}")
     if refine is not None and refine is not False:
         refine = resolve_refiner(refine)   # fail fast, before the solve
+        if devices is not None:
+            raise NotYetPortedError(
+                "partition(devices=..., refine=...): the sharded "
+                "refinement rounds come with the next torch.distributed "
+                "slice (slice E, step 4)")
     else:
         refine = None
     dev = resolve_device(device)
+    if launch.needed(devices):
+        return launch.run(partition, devices, device, problem, method,
+                          device=device, hierarchy=hierarchy,
+                          devices=devices, evaluate=evaluate,
+                          with_diameter=with_diameter, **opts)
     if hierarchy is not None:
         k1, k2 = _parse_hierarchy(hierarchy)
         result = hierarchical_partition(problem, k1, k2, method=method,
-                                        device=dev, **opts)
+                                        device=dev, devices=devices,
+                                        **opts)
     else:
+        if devices is not None:
+            opts["devices"] = devices
         result = get_algorithm(method)(problem, device=dev, **opts)
     if refine is not None:
         result = _refine(problem, result, refine, device=dev,

@@ -12,6 +12,14 @@ keeps the global imbalance within epsilon.
 With ``refine_method="geographer"`` the k1 subproblems go through
 ``batched_balanced_kmeans`` on the device (one lane after another); any
 other registered method refines block by block on the host.
+
+``devices=P`` runs the coarse cut on the sharded path over P ranks (the
+global pass is where the data is big) and keeps the refinement on every
+rank; ``devices=(P1, P2)`` shards the coarse cut over all P1*P2 ranks
+(equal to ``devices=P1*P2`` bit for bit) and splits the refinement
+blocks over the refine axis (``sharded_batched_balanced_kmeans``, equal
+to ``batched_balanced_kmeans`` bit for bit), so the composition equals
+the flat one label for label.
 """
 from __future__ import annotations
 
@@ -22,11 +30,13 @@ import torch
 
 from repro_torch.core.sfc import sfc_initial_centers
 from repro_torch.device import resolve_device
+from repro_torch.dist import launch
 
 from .batched import (batched_balanced_kmeans, build_refinement_batch,
-                      sequential_balanced_kmeans)
-from .problem import NotYetPortedError, PartitionProblem, PartitionResult
-from .registry import get_algorithm, resolve_method
+                      sequential_balanced_kmeans,
+                      sharded_batched_balanced_kmeans)
+from .problem import PartitionProblem, PartitionResult
+from .registry import get_algorithm, resolve_method, supports_devices
 
 _KMEANS_METHODS = {"geographer"}
 
@@ -60,8 +70,12 @@ def hierarchical_partition(problem: PartitionProblem,
             ``batched_balanced_kmeans`` (False: the one-lane-a-call
             ``sequential_balanced_kmeans``; the same bits).
         device: where the solves run; None means ``cuda``.
-        devices: the multi-device coarse pass; not ported yet
-            (``NotYetPortedError``).
+        devices: run the coarse cut on the sharded path over P ranks. An
+            int P keeps the refinement whole on every rank; a
+            ``(P1, P2)`` tuple shards the coarse cut over all P1*P2 ranks
+            (bit-identical to ``devices=P1*P2``) and splits the k1
+            refinement blocks over the refine axis (bit-identical to the
+            unsplit refinement).
         chunk: the sharded deal's slice size; only with ``devices=``.
         coarse_epsilon: balance budget of the coarse pass (default
             epsilon/2).
@@ -73,7 +87,8 @@ def hierarchical_partition(problem: PartitionProblem,
 
     Raises:
         ValueError: k1*k2 != problem.k, a coarse block too small to
-            refine, or ``chunk=`` without ``devices=``.
+            refine, ``chunk=`` without ``devices=``, or ``devices=`` with
+            a coarse method that has no multi-device path.
     """
     if k1 is None or k2 is None:
         k1, k2 = factor_k(problem.k)
@@ -82,13 +97,28 @@ def hierarchical_partition(problem: PartitionProblem,
     coarse_name = resolve_method(method)
     refine_name = resolve_method(refine_method)
     if devices is not None:
-        raise NotYetPortedError(
-            "hierarchical_partition(devices=...): the multi-device coarse "
-            "pass comes with the torch.distributed slice")
-    if chunk is not None:
+        if not supports_devices(coarse_name):
+            raise ValueError(
+                f"coarse method {coarse_name!r} has no multi-device path; "
+                "devices= requires a supports_devices method")
+        coarse_opts = dict(coarse_opts or {}, devices=devices)
+        if chunk is not None:
+            coarse_opts.setdefault("chunk", chunk)
+    elif chunk is not None:
         raise ValueError("chunk= streams the sharded deal and needs "
                          "devices=")
     dev = resolve_device(device)
+    if launch.needed(devices):
+        return launch.run(hierarchical_partition, devices, device, problem,
+                          k1, k2, method=method, refine_method=refine_method,
+                          batched=batched, device=device, devices=devices,
+                          chunk=chunk, coarse_epsilon=coarse_epsilon,
+                          coarse_opts=coarse_opts, refine_opts=refine_opts)
+    # a (P1, P2) tuple also splits the refinement blocks over the refine
+    # axis of the 2-D mesh (an int keeps the refinement whole)
+    mesh2d = (tuple(int(d) for d in devices)
+              if isinstance(devices, (tuple, list)) else None)
+    dev_stat = list(mesh2d) if mesh2d is not None else devices
     eps = problem.epsilon
     # no refinement follows when k2 == 1, so the coarse pass gets the full
     # budget instead of the tightened split
@@ -104,7 +134,7 @@ def hierarchical_partition(problem: PartitionProblem,
     t1 = time.perf_counter()
     # "seconds": host clock of the level (the labels on the host end it)
     coarse_level = {"method": coarse_name, "k": k1, "epsilon": eps1,
-                    "devices": None, "imbalance": coarse.imbalance(),
+                    "devices": dev_stat, "imbalance": coarse.imbalance(),
                     "seconds": t1 - t0}
     if k2 == 1:
         result = PartitionResult(
@@ -143,10 +173,17 @@ def hierarchical_partition(problem: PartitionProblem,
             for b in range(k1)])
         target = problem.total_weight / (k1 * k2)
         t2 = time.perf_counter()
-        runner = (batched_balanced_kmeans if batched
-                  else sequential_balanced_kmeans)
-        sub, centers, infl, stats = runner(bpts, bw, centers0, cfg,
-                                           target_weight=target, device=dev)
+        if mesh2d is not None and batched:
+            # blocks over the refine axis, bit for bit the unsplit solve
+            sub, centers, infl, stats = sharded_batched_balanced_kmeans(
+                bpts, bw, centers0, cfg, devices=mesh2d,
+                target_weight=target, device=dev)
+        else:
+            runner = (batched_balanced_kmeans if batched
+                      else sequential_balanced_kmeans)
+            sub, centers, infl, stats = runner(bpts, bw, centers0, cfg,
+                                               target_weight=target,
+                                               device=dev)
         sub = sub.cpu().numpy()
         for b in range(k1):
             ids = gather[b, :counts[b]]
@@ -156,7 +193,9 @@ def hierarchical_partition(problem: PartitionProblem,
                 stats["final_imbalance"].cpu().numpy().tolist(),
             "iters": stats["iters"].cpu().numpy().tolist(),
             "batched": batched, "dispatches": 1 if batched else k1,
-            "refine_devices": None,
+            "refine_devices": (list(mesh2d)
+                               if mesh2d is not None and batched
+                               else None),
             # host seconds of the refinement batch and the k1 bootstraps
             "prep_seconds": t2 - t1}
         centers_out = centers.cpu().numpy().reshape(k1 * k2, -1)

@@ -5,8 +5,8 @@ Counterpart of ``repro/partition/problem.py``.
 with optional node weights and an optional CSR graph (for the quality
 metrics), plus the balance constraint (k, epsilon). ``PartitionResult``
 is the output: labels, optional centers / influence, stats and lazily
-computed quality metrics. The sharded views raise ``NotYetPortedError``
-until the torch.distributed slice lands.
+computed quality metrics, on the host or sharded over ranks
+(``evaluate(devices=)``).
 """
 from __future__ import annotations
 
@@ -113,16 +113,22 @@ class PartitionProblem:
         return dataclasses.replace(self, **kw)
 
     def to_sharded(self, devices: int, chunk: int | None = None):
-        """Sharded view for the multi-device engine (not ported yet)."""
-        raise NotYetPortedError(
-            "PartitionProblem.to_sharded: the multi-device path comes "
-            "with the torch.distributed slice")
+        """Static-shape sharded view for the multi-device engine: points
+        and weights dealt round-robin over ``devices`` shards (source
+        dtype preserved) and padded to a common per-shard cap; ``chunk``
+        streams the deal in bounded host slices with the same bits (see
+        partition/distributed.py)."""
+        from .distributed import ShardedPartitionProblem
+        return ShardedPartitionProblem.from_problem(self, devices,
+                                                    chunk=chunk)
 
     def to_sharded_graph(self, devices: int):
-        """Sharded CSR view for distributed evaluation (not ported yet)."""
-        raise NotYetPortedError(
-            "PartitionProblem.to_sharded_graph: sharded evaluation comes "
-            "with the torch.distributed slice")
+        """Sharded CSR companion view for the sharded evaluation: the
+        graph's rows dealt onto the same seed-permuted round-robin layout
+        as ``to_sharded`` (see repro_torch.eval.sharded). Requires the
+        problem to carry a CSR adjacency."""
+        from repro_torch.eval.sharded import ShardedGraph
+        return ShardedGraph.from_problem(self, devices)
 
 
 @dataclass
@@ -164,15 +170,17 @@ class PartitionResult:
         return metrics.block_sizes(np.asarray(self.labels), self.k, w)
 
     def evaluate(self, with_diameter: bool = False,
-                 devices: int | None = None) -> dict:
+                 devices: int | None = None, *, device=None) -> dict:
         """Compute (and cache at ``self.quality``) the paper's quality
         metric set.
 
         Args:
             with_diameter: also compute per-block diameter bounds (BFS —
                 noticeably slower on large meshes; host path only).
-            devices: sharded evaluation; not ported yet (raises
-                ``NotYetPortedError``). None keeps the host numpy path.
+            devices: compute the graph metrics over P ranks
+                (``repro_torch.eval.evaluate_sharded``, equal to the host
+                metrics). None keeps the host numpy path.
+            device: the ranks' device with ``devices`` (None: ``cuda``).
 
         Returns:
             dict with ``imbalance`` / ``n_blocks_used`` always, plus
@@ -181,16 +189,22 @@ class PartitionResult:
             carries a CSR graph.
 
         Raises:
-            ValueError: the result has no problem attached.
-            NotYetPortedError: ``devices`` is given.
+            ValueError: the result has no problem attached, or
+                ``devices`` is combined with ``with_diameter``.
         """
         from repro_torch.core import metrics
         if self.problem is None:
             raise ValueError("result has no problem attached")
         if devices is not None:
-            raise NotYetPortedError(
-                "PartitionResult.evaluate(devices=...): sharded evaluation "
-                "comes with the torch.distributed slice")
+            if with_diameter:
+                raise ValueError("with_diameter has no sharded path; "
+                                 "call evaluate(with_diameter=True) "
+                                 "without devices=")
+            from repro_torch.eval import evaluate_sharded
+            self.quality = evaluate_sharded(
+                self.problem, np.asarray(self.labels), devices,
+                device=device)
+            return self.quality
         self.quality = metrics.evaluate_problem(
             self.problem, np.asarray(self.labels),
             with_diameter=with_diameter)

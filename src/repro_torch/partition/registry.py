@@ -15,8 +15,8 @@ fail loudly at the front door.
 Two capability flags ride on each registration:
 
 * ``supports_devices`` — the algorithm has a multi-device ``devices=P``
-  path. No method of the port has one yet (it comes with the
-  torch.distributed slice), so ``partition()`` rejects ``devices=``.
+  path (``geographer``, over ``torch.distributed``); ``partition()``
+  rejects ``devices=`` for anything else before the algorithm runs.
 * ``supports_warm_start`` — the algorithm can resume from a previous
   ``PartitionResult``'s (centers, influence) state; ``repartition()``
   reads this flag.

@@ -15,8 +15,11 @@ the SFC bootstrap and the sampled warm-up and moves little weight.
 Methods without a warm-startable state (sfc/rcb/rib/multijagged) cold
 start and are relabelled by greedy center matching, so block ids stay
 stable across steps. The solve, and the refinement when ``refine=`` asks
-for one, run on ``device`` (default ``cuda``); ``devices=`` raises
-``NotYetPortedError`` until the torch.distributed slice lands.
+for one, run on ``device`` (default ``cuda``). ``devices=P`` runs the
+solve sharded over P ranks (``distributed.repartition_sharded``; the
+previous state is replicated, the communication stays all-reduces);
+``devices=`` with ``refine=`` raises ``NotYetPortedError`` until the
+sharded refinement rounds land.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch
 from repro_torch.core import metrics
 from repro_torch.core.partitioner import geographer_repartition
 from repro_torch.device import resolve_device
+from repro_torch.dist import launch
 
 from .engine import partition
 from .problem import NotYetPortedError, PartitionProblem, PartitionResult
@@ -175,11 +179,14 @@ def _check_previous(problem: PartitionProblem, previous: PartitionResult):
 
 
 def _warm_geographer(problem: PartitionProblem, previous: PartitionResult,
-                     device: torch.device, **opts) -> PartitionResult:
+                     device: torch.device, devices=None,
+                     **opts) -> PartitionResult:
     """Warm-started balanced k-means with the balance-retry loop: a solve
     that ends above the effective epsilon is re-warmed from its own
-    output, at most ``MAX_BALANCE_RETRIES`` times; ``iters`` adds up."""
+    output, at most ``MAX_BALANCE_RETRIES`` times; ``iters`` adds up.
+    With ``devices`` every attempt is a sharded solve."""
     from .algorithms import make_bkm_config
+    from .distributed import repartition_sharded
     opts.setdefault("delta_tol", WARM_DELTA_TOL)
     opts["warmup"] = False
     state = WarmState.capture(previous)
@@ -187,19 +194,27 @@ def _warm_geographer(problem: PartitionProblem, previous: PartitionResult,
     prev_labels = state.labels
     # an opts override of epsilon is what the solver balances against
     eps_eff = opts.get("epsilon", problem.epsilon)
-    cfg = make_bkm_config(problem, **opts)
     total_iters = 0
     for attempt in range(MAX_BALANCE_RETRIES + 1):
-        labels, centers, infl, stats = geographer_repartition(
-            problem.points, problem.k, centers, infl,
-            weights=problem.weights, cfg=cfg, seed=problem.seed,
-            prev_labels=prev_labels, device=device)
-        iters = int(stats["iters"])
-        imb = float(stats["final_imbalance"])
-        res = PartitionResult(
-            labels=labels, k=problem.k, method="geographer",
-            problem=problem, centers=centers, influence=infl,
-            stats={"levels": [dict(stats)], "final_imbalance": imb})
+        if devices is not None:
+            res = repartition_sharded(problem, devices, centers, infl,
+                                      prev_labels=prev_labels,
+                                      device=device, **opts)
+            iters = res.stats["iters"]
+            imb = res.stats["final_imbalance"]
+            labels, centers, infl = res.labels, res.centers, res.influence
+        else:
+            cfg = make_bkm_config(problem, **opts)
+            labels, centers, infl, stats = geographer_repartition(
+                problem.points, problem.k, centers, infl,
+                weights=problem.weights, cfg=cfg, seed=problem.seed,
+                prev_labels=prev_labels, device=device)
+            iters = int(stats["iters"])
+            imb = float(stats["final_imbalance"])
+            res = PartitionResult(
+                labels=labels, k=problem.k, method="geographer",
+                problem=problem, centers=centers, influence=infl,
+                stats={"levels": [dict(stats)], "final_imbalance": imb})
         total_iters += iters
         if imb <= eps_eff + 1e-6:
             break
@@ -210,9 +225,10 @@ def _warm_geographer(problem: PartitionProblem, previous: PartitionResult,
 
 
 def _cold_relabel(problem: PartitionProblem, previous: PartitionResult,
-                  method: str, device: torch.device,
+                  method: str, device: torch.device, devices=None,
                   **opts) -> PartitionResult:
-    res = partition(problem, method=method, device=device, **opts)
+    res = partition(problem, method=method, device=device, devices=devices,
+                    **opts)
     prev_centers = (np.asarray(previous.centers)
                     if previous.centers is not None else
                     weighted_centroids(problem.points, previous.labels,
@@ -264,8 +280,11 @@ def repartition(problem: PartitionProblem, previous: PartitionResult,
             all others cold start and are relabel-matched.
         device: where the solve runs; None means ``cuda`` and raises
             without a card.
-        devices: not ported yet; any value other than None raises
-            ``NotYetPortedError``.
+        devices: run the solve on the sharded path over P ranks (or a
+            ``(P1, P2)`` mesh); the previous centers and influence are
+            replicated and the communication stays all-reduces.
+            ``devices=1`` is bit for bit the single-device path. Outside
+            a process group the call launches the ranks itself.
         warm: force (True) or forbid (False) warm starting; None picks
             warm whenever the method supports it and ``previous`` carries
             centers. ``warm=False`` is the fair cold-restart baseline.
@@ -298,9 +317,6 @@ def repartition(problem: PartitionProblem, previous: PartitionResult,
             f"repartition() takes a PartitionProblem, got {type(problem)}")
     _check_previous(problem, previous)
     name = resolve_method(method)
-    if devices is not None and devices is not False:
-        raise NotYetPortedError("repartition(devices=...) comes with the "
-                                "torch.distributed slice")
     can_warm = supports_warm_start(name) and previous.centers is not None
     if warm is None:
         warm = can_warm
@@ -314,13 +330,23 @@ def repartition(problem: PartitionProblem, previous: PartitionResult,
             "(was it produced by a center-based method?)")
     if refine is not None and refine is not False:
         refine = resolve_refiner(refine)   # fail fast, before the solve
+        if devices is not None:
+            raise NotYetPortedError(
+                "repartition(devices=..., refine=...): the sharded "
+                "refinement rounds come with the next torch.distributed "
+                "slice (slice E, step 4)")
     else:
         refine = None
     dev = resolve_device(device)
+    if launch.needed(devices):
+        return launch.run(repartition, devices, device, problem, previous,
+                          method, device=device, devices=devices, warm=warm,
+                          evaluate=evaluate, with_diameter=with_diameter,
+                          **opts)
     if warm:
-        res = _warm_geographer(problem, previous, dev, **opts)
+        res = _warm_geographer(problem, previous, dev, devices, **opts)
     else:
-        res = _cold_relabel(problem, previous, name, dev, **opts)
+        res = _cold_relabel(problem, previous, name, dev, devices, **opts)
     if refine is not None:
         res = _refine(problem, res, refine, device=dev, eps=refine_eps)
     res.stats["migration"] = _migration_stats(previous, res.labels,

@@ -35,11 +35,12 @@ from repro.core.balanced_kmeans import BKMConfig as RefConfig
 from repro.partition import PartitionProblem as RefProblem
 from repro.partition import batched as ref_batched
 from repro.partition import factor_k as ref_factor_k
+from repro.partition import hierarchical_partition as ref_hierarchical
 from repro.partition import partition as ref_partition
 from repro_torch.core import metrics
 from repro_torch.core.balanced_kmeans import BKMConfig, _f32_reciprocal
 from repro_torch.core.sfc import sfc_initial_centers
-from repro_torch.partition import (NotYetPortedError, PartitionProblem,
+from repro_torch.partition import (PartitionProblem,
                                    batched_balanced_kmeans,
                                    bucket_balanced_kmeans,
                                    build_refinement_batch, factor_k,
@@ -284,14 +285,23 @@ def test_hierarchical_error_paths_raise_the_reference_types(case):
 
 
 def test_hierarchical_unported_paths():
+    """``devices=`` and the split lanes are ported (held in
+    tests/test_torch_sharded.py); what they refuse, the reference refuses
+    too."""
     prob = PartitionProblem(points=np.random.default_rng(5).uniform(
         0, 1, (200, 2)), k=4)
-    with pytest.raises(NotYetPortedError):
-        hierarchical_partition(prob, 2, 2, devices=2, device=CPU)
-    with pytest.raises(NotYetPortedError):
+    rprob = RefProblem(points=prob.points, k=4)
+    for hier in (hierarchical_partition, ref_hierarchical):
+        p = prob if hier is hierarchical_partition else rprob
+        kw = {"device": CPU} if hier is hierarchical_partition else {}
+        with pytest.raises(ValueError, match="multi-device"):
+            hier(p, 2, 2, method="rcb", devices=2, **kw)
+        with pytest.raises(ValueError, match="chunk"):
+            hier(p, 2, 2, chunk=8, **kw)
+    with pytest.raises(ValueError, match="P1, P2"):
         port_batched.sharded_batched_balanced_kmeans(
             np.zeros((1, 8, 2)), None, np.zeros((1, 2, 2)), BKMConfig(k=2),
-            devices=(1, 1))
+            devices=2, device=CPU)
 
 
 def test_default_device_is_cuda(monkeypatch):

@@ -172,10 +172,10 @@ def test_known_unbalanced_reference_instance_is_reproduced():
 
 def test_unported_options_raise():
     prob = PartitionProblem.from_mesh(_mesh("tri", 400), k=4)
-    for kw in ({"devices": 2}, {"hierarchy": (2, 2), "devices": 2},
-               {"devices": 2, "refine": True}):
-        with pytest.raises(NotImplementedError, match="slice"):
-            partition(prob, device="cpu", **kw)
+    # devices= is ported (tests/test_torch_sharded.py holds it); with
+    # refine= it waits for the sharded refinement rounds
+    with pytest.raises(NotImplementedError, match="slice"):
+        partition(prob, device="cpu", devices=2, refine=True)
     # hierarchy= is ported (tests/test_torch_batched.py holds it)
     res = partition(prob, device="cpu", hierarchy=(2, 2))
     assert res.k == 4 and res.stats["k1"] == 2 and res.stats["k2"] == 2
@@ -184,12 +184,8 @@ def test_unported_options_raise():
     res = partition(prob, method="sfc", device="cpu")
     with pytest.raises(NotYetPortedError, match="slice"):
         res.refine(device="cpu", devices=2)
-    with pytest.raises(NotYetPortedError):
-        res.evaluate(devices=2)
-    with pytest.raises(NotYetPortedError):
-        prob.to_sharded(2)
-    with pytest.raises(NotYetPortedError):
-        prob.to_sharded_graph(2)
+    # evaluate(devices=), to_sharded and to_sharded_graph are ported
+    # (tests/test_torch_sharded.py, tests/test_torch_eval_sharded.py)
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):

@@ -254,12 +254,10 @@ def test_error_paths_raise_the_reference_types(case):
 def test_unported_options_and_the_default_device(monkeypatch):
     prob = _problem(n=300, k=4)
     prev = partition(prob, device=CPU)
-    for kw in ({"devices": 2}, {"devices": 2, "refine": True}):
-        with pytest.raises(NotYetPortedError):
-            repartition(prob, prev, device=CPU, **kw)
+    # devices= is ported (tests/test_torch_sharded.py holds it); the
+    # sharded refinement rounds are not
     with pytest.raises(NotYetPortedError):
-        simulate_loadbalance(prob, meshes.DriftingHotspot(), 1, devices=2,
-                             device=CPU)
+        repartition(prob, prev, device=CPU, devices=2, refine=True)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     wl = meshes.DriftingHotspot()
     for call in (lambda: repartition(prob, prev),
