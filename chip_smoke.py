@@ -24,7 +24,10 @@ mesh at k = 1024, and ``repartition(refine=True)`` warm on it), drives the
 multi-device path (``partition(devices=1)`` over NCCL against
 ``partition()``; four gloo ranks sharing the card for ``devices=4`` and
 ``(2, 2)``, the device bootstrap, the agreement with CPU ranks,
-``evaluate_sharded``, warm steps and the hierarchy), then serves
+``evaluate_sharded``, warm steps, the hierarchy, and the sharded
+refinement rounds on the triangle mesh against the single card's), runs
+the paper's §5 matrix (every method over the mesh zoo, refined and
+evaluated over four ranks in one launch, every row gated), then serves
 granite-moe-3b-a800m at full width through ``ServeEngine.run`` and through
 ``prefill`` -> ``extend_cache`` -> ``decode_step`` at a 4096-token prompt
 (the paths of the MoE-router kernel and of the bf16 tensor-core
@@ -55,7 +58,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("card", "build", "kernels", "lm_kernels", "main", "paths",
           "agreement", "profile", "repartition", "hierarchical", "pserve",
-          "refine", "sharded", "serve", "prefill", "timing")
+          "refine", "sharded", "experiments", "serve", "prefill", "timing")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_F32_FLOPS = 67e12
@@ -112,6 +115,13 @@ SHARDED_MESH = (2, 2)
 SHARDED_AGREE_N, SHARDED_AGREE_K = 1 << 16, 64
 SHARDED_T = 3
 SHARDED_HIER = (8, 8)
+# the paper's §5 matrix: every method over the mesh zoo at n = 2^17 points
+# a family (refined3d twice that) and k = 256, over SHARDED_P ranks; the
+# small matrix that goes through run_matrix's own launch
+EXPERIMENTS = {"n": 1 << 17, "k": 256, "seed": 0}
+EXPERIMENTS_SMALL = {"n": 1 << 12, "k": 16, "seed": 0,
+                     "families": ["tri", "climate25d"],
+                     "methods": ["geographer", "sfc"]}
 
 # granite-moe-3b-a800m serving shapes
 SERVE_BATCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 6, 12, 16
@@ -1457,6 +1467,18 @@ def quality_mesh(ctx):
     return ctx["quality_mesh"]
 
 
+def tri_mesh(ctx):
+    """The refine cell's mesh, tri at n = 2^22 (2048 x 2048), built once."""
+    if "tri_mesh" not in ctx:
+        from repro_torch.core import meshes
+        t0 = time.perf_counter()
+        mesh = meshes.REGISTRY["tri"](REFINE_N, seed=0)
+        log("refine", f"{mesh.name} n={mesh.n} m={mesh.m} built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        ctx["tri_mesh"] = mesh
+    return ctx["tri_mesh"]
+
+
 def timed(torch, fn):
     """(fn(), host seconds) around work ended by a synchronize."""
     torch.cuda.synchronize()
@@ -1552,14 +1574,11 @@ def refine_full(torch, ctx):
     balanced, no admissible positive-gain move left, bit-identical; then
     each part of the refinement timed on its own."""
     import numpy as np
-    from repro_torch.core import meshes, metrics
+    from repro_torch.core import metrics
     from repro_torch.partition import PartitionProblem, partition
     from repro_torch.partition.refine import (_canonicalize, _lp_rounds,
                                               label_prop_refine)
-    mesh, t_mesh = timed(torch, lambda: meshes.REGISTRY["tri"](REFINE_N,
-                                                               seed=0))
-    log("refine", f"{mesh.name} n={mesh.n} m={mesh.m} built in "
-        f"{t_mesh:.1f} s")
+    mesh = tri_mesh(ctx)
     prob = PartitionProblem.from_mesh(mesh, k=MAIN_K, epsilon=EPS)
     runs = {}
     for tag in ("refine", "refine-repeat"):
@@ -1621,22 +1640,28 @@ def refine_full(torch, ctx):
     return mesh, res
 
 
+def hotspot_weights(torch, mesh, steps):
+    """The drifting hotspot's weights at t = 0..steps on ``mesh`` (the
+    workload is defined on the unit square; the grid spans [0, 2048))."""
+    from repro_torch.core import meshes
+    wl = meshes.DriftingHotspot()
+    pts = torch.from_numpy(mesh.points).to(DEVICE)
+    lo, hi = pts.min(0).values, pts.max(0).values
+    unit = (pts - lo) / (hi - lo)
+    return [wl.weights_at(unit, t).cpu().numpy() for t in range(steps + 1)]
+
+
 def refine_warm(torch, ctx, mesh, start):
     """``repartition(..., refine=True)`` over T steps of the drifting
     hotspot on the same mesh, from the refined unit-weight partition
     ``start``, twice: every step balanced, the migration counted over the
     refined labels, the two series bit-identical."""
     import numpy as np
-    from repro_torch.core import meshes, metrics
+    from repro_torch.core import metrics
     from repro_torch.partition import PartitionProblem, repartition
     from repro_torch.partition.refine import refinement_quantization
-    wl = meshes.DriftingHotspot()
-    # the workload is defined on the unit square; the grid spans [0, 2048)
-    pts = torch.from_numpy(mesh.points).to(DEVICE)
-    lo, hi = pts.min(0).values, pts.max(0).values
-    unit = (pts - lo) / (hi - lo)
     prob = PartitionProblem.from_mesh(mesh, k=MAIN_K, epsilon=EPS)
-    ws = [wl.weights_at(unit, t).cpu().numpy() for t in range(REFINE_T + 1)]
+    ws = hotspot_weights(torch, mesh, REFINE_T)
     _, limit = refinement_quantization(prob.replace(weights=ws[1]))
     log("refine-warm", f"weights {ws[1].min():.3f}-{ws[1].max():.3f}; "
         f"refinement limit {limit} quantized units a block (float weights: "
@@ -1759,7 +1784,150 @@ def sharded_one(prob):
             run_summary(again, table2, counts2))
 
 
-def sharded_suite(prob, sub, qprob, qlabels):
+REFINE_KEYS = ("rounds", "moves", "converged", "cut_before", "cut_after")
+
+
+def refine_on_ranks(torch, tri):
+    """Inside the ``devices=4`` launch: the sharded refinement rounds on
+    the refine cell from geographer's labels, at P and over the (2, 2)
+    mesh, held against the single-card ``refine()`` of the same labels
+    (``tri``: the problem, the labels, the single card's labels and
+    stats, the drifting hotspot's weights at t = 1); the rounds alone,
+    timed and profiled on every rank; ``partition(devices=P,
+    refine=True)`` against ``refine(partition(devices=P), devices=P)``;
+    one warm ``repartition(devices=P, refine=True)`` step against the
+    unrefined step."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import metrics
+    from repro_torch.dist import current
+    from repro_torch.eval import ShardedGraph
+    from repro_torch.partition import partition, refine, repartition
+    from repro_torch.partition.refine import _lp_rounds_sharded
+    comm = current()
+    P = comm.size
+    prob, base = tri["prob"], tri["base"]
+    out = {}
+    graph, t_graph = timed(torch, lambda: ShardedGraph.from_problem(prob, P))
+    for tag, devices in (("refine-P", P), ("refine-mesh", SHARDED_MESH)):
+        res, table, _ = rank_run(torch, lambda: refine(
+            prob, base, devices=devices, graph=graph), allowed=())
+        st = res.stats["refine"]
+        out[tag] = {"equal": bool(np.array_equal(res.labels, tri["labels"])
+                                  and all(st[key] == tri["stats"][key]
+                                          for key in REFINE_KEYS)),
+                    "stats": {key: st[key] for key in REFINE_KEYS
+                              + ("devices",)},
+                    "table": table}
+    # the rounds alone: timed, then under the profiler, on every rank
+    lc, _, _, iw, keys, k, limit, max_rounds = round_inputs(prob, base)
+    args = (lc, iw, keys, k, limit, max_rounds)
+    torch.cuda.synchronize()
+    before = comm.counters()
+    t0 = time.perf_counter()
+    rounds = _lp_rounds_sharded(graph, *args, comm, device=DEVICE)[1]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = comm.counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # every rank's profiler is running before any rank's clock starts
+        # (a process's first profiler takes seconds to start)
+        comm.all_reduce(torch.zeros(1, device=DEVICE))
+        t0 = time.perf_counter()
+        _lp_rounds_sharded(graph, *args, comm, device=DEVICE)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    _, device_s = device_rows(prof)
+    row = torch.zeros(P, 7, dtype=torch.float64, device=DEVICE)
+    row[comm.rank] = torch.tensor(
+        [wall, rounds, after["all_reduces"] - before["all_reduces"],
+         after["seconds"] - before["seconds"],
+         after["bytes"] - before["bytes"], pwall, device_s],
+        dtype=torch.float64)
+    out["rounds"] = {"table": comm.all_reduce(row).tolist(),
+                     "graph_s": t_graph}
+    # the front doors: the sharded solve refined over the same ranks
+    composed, table, counts = rank_run(
+        torch, lambda: partition(prob, devices=P, refine=True))
+    solved = partition(prob, devices=P)
+    again = refine(prob, solved, devices=P, graph=graph)
+    out["compose"] = {
+        "equal": bool(np.array_equal(composed.labels, again.labels)
+                      and composed.stats["refine"] == again.stats["refine"]),
+        "stats": {key: composed.stats["refine"][key]
+                  for key in REFINE_KEYS},
+        "imbalance": composed.imbalance(), "table": table, "counts": counts}
+    step_prob = prob.replace(weights=tri["w1"])
+    step, table, counts = rank_run(torch, lambda: repartition(
+        step_prob, composed, devices=P, refine=True),
+        allowed=("assign_reduce", "prefix_sum"))
+    plain = repartition(step_prob, composed, devices=P)
+    out["warm"] = {
+        "stats": {key: step.stats["refine"][key] for key in REFINE_KEYS},
+        "imbalance": step.imbalance(), "iters": step.stats["iters"],
+        "cut_plain": metrics.edge_cut(plain.labels, prob.indptr,
+                                      prob.indices),
+        "table": table, "counts": counts}
+    return out
+
+
+def log_refine_on_ranks(ctx, out):
+    """The home side of ``refine_on_ranks``: its numbers and gates."""
+    card = ctx["card"]
+    for tag in ("refine-P", "refine-mesh"):
+        r = out[tag]
+        walls = ", ".join(f"{row[0]:.3f}" for row in r["table"])
+        log(f"sharded-{tag}", f"tri n={REFINE_N} k={MAIN_K}, devices="
+            f"{r['stats']['devices']}: {r['stats']}; refine() wall per "
+            f"rank {walls} s, all-reduces per rank "
+            f"{[int(row[2]) for row in r['table']]}  [{card}]")
+        check(r["equal"], f"sharded {tag}: labels or stats differ from the "
+              "single-card refine()")
+    check(out["refine-mesh"]["stats"]["devices"] == list(SHARDED_MESH),
+          f"devices={SHARDED_MESH} recorded as "
+          f"{out['refine-mesh']['stats']['devices']}")
+    rr = out["rounds"]
+    for rank, row in enumerate(rr["table"]):
+        wall, rounds, calls, ar_s, nbytes, pwall, dev_s = row
+        log("sharded-refine-rounds", f"rank {rank}: {int(rounds)} rounds in "
+            f"{wall:.3f} s = {wall / rounds * 1e3:.2f} ms a round; "
+            f"{int(calls)} all-reduces ({calls / rounds:.0f} a round) taking "
+            f"{ar_s:.3f} s = {ar_s / wall:.1%} of the rounds; "
+            f"{int(nbytes / rounds)} bytes a round; device busy "
+            f"{dev_s:.4f} s = {dev_s / pwall:.1%} of {pwall:.3f} s under "
+            f"the profiler  [{card}]")
+        check(calls == 4 * rounds, f"rank {rank}: {int(calls)} all-reduces "
+              f"in {int(rounds)} rounds, want 4 a round")
+    log("sharded-refine-rounds", f"ShardedGraph of the cell built in "
+        f"{rr['graph_s']:.3f} s (rank 0)")
+    c = out["compose"]
+    walls = ", ".join(f"{row[0]:.3f}" for row in c["table"])
+    log("sharded-refine-compose", f"partition(devices={SHARDED_P}, "
+        f"refine=True): {c['stats']}, imbalance {c['imbalance']:.6f}; wall "
+        f"per rank {walls} s, launches {c['counts']}  [{card}]")
+    check(c["equal"], "partition(devices=P, refine=True) differs from "
+          "refine(partition(devices=P), devices=P)")
+    check(c["imbalance"] <= EPS + 1e-6,
+          f"sharded compose: imbalance {c['imbalance']:.6f}")
+    w = out["warm"]
+    walls = ", ".join(f"{row[0]:.3f}" for row in w["table"])
+    log("sharded-refine-warm", f"repartition(devices={SHARDED_P}, "
+        f"refine=True), DriftingHotspot t=1: iters {w['iters']}, "
+        f"{w['stats']}, unrefined cut {w['cut_plain']}, imbalance "
+        f"{w['imbalance']:.6f}; wall per rank {walls} s  [{card}]")
+    check(w["imbalance"] <= EPS + 1e-6,
+          f"sharded warm refine: imbalance {w['imbalance']:.6f}")
+    check(w["stats"]["cut_after"] <= w["cut_plain"],
+          f"sharded warm refine: cut {w['stats']['cut_after']} above the "
+          f"unrefined step's {w['cut_plain']}")
+    for tag in ("compose", "warm"):
+        for r, row in enumerate(out[tag]["table"]):
+            ctx["paths"][f"sharded-refine-{tag} rank {r}"] = {
+                "assign_reduce": int(row[1])}
+
+
+def sharded_suite(prob, sub, qprob, qlabels, tri):
     """Rank body of the ``devices=4`` launch (four gloo ranks on the one
     card): every P=4 gate of the phase, the comparisons made in the
     ranks. Returns rank 0's summary."""
@@ -1843,6 +2011,8 @@ def sharded_suite(prob, sub, qprob, qlabels):
                     "refine_devices": fine["refine_devices"]}
     out["hier-mesh"]["equal"] = same_result(np, hier["hier-flat"],
                                             hier["hier-mesh"])
+    del hier
+    out["refine"] = refine_on_ranks(torch, tri)
     return out
 
 
@@ -1871,11 +2041,12 @@ def phase_sharded(torch, ctx):
     ``partition()`` on the main cell; then one launch of four gloo ranks
     sharing the card for ``devices=4`` (twice), ``(2, 2)``, the device
     bootstrap, the agreement with CPU ranks, ``evaluate_sharded``, warm
-    repartitioning and the hierarchy."""
+    repartitioning, the hierarchy and the sharded refinement rounds on
+    the refine cell (``refine_on_ranks``)."""
     import numpy as np
     from repro_torch.core import metrics
     from repro_torch.dist import launch
-    from repro_torch.partition import PartitionProblem, partition
+    from repro_torch.partition import PartitionProblem, partition, refine
     log("sharded", f"backend rule: devices=1 -> "
         f"{launch.choose_backend('cuda', 1)}, devices={SHARDED_P} -> "
         f"{launch.choose_backend('cuda', SHARDED_P)} "
@@ -1904,9 +2075,18 @@ def phase_sharded(torch, ctx):
                            epsilon=EPS, seed=0)
     qprob = PartitionProblem.from_mesh(quality_mesh(ctx), k=REFINE_QUALITY_K)
     qlabels = partition(qprob).labels
+    tprob = PartitionProblem.from_mesh(tri_mesh(ctx), k=MAIN_K, epsilon=EPS)
+    tbase = partition(tprob).labels
+    want, t_want = timed(torch, lambda: refine(tprob, tbase))
+    log("sharded-refine", f"single-card refine() of geographer's labels on "
+        f"tri n={tprob.n} k={MAIN_K}: {want.stats['refine']}, "
+        f"{t_want:.3f} s  [{ctx['card']}]")
+    tri = {"prob": tprob, "base": tbase, "labels": want.labels,
+           "stats": want.stats["refine"],
+           "w1": hotspot_weights(torch, tri_mesh(ctx), 1)[1]}
     t0 = time.perf_counter()
     out = launch.launch(sharded_suite, SHARDED_P,
-                        args=(prob, sub, qprob, qlabels), device="cuda",
+                        args=(prob, sub, qprob, qlabels, tri), device="cuda",
                         timeout=900)
     wall = time.perf_counter() - t0
     log("sharded", f"launch of {SHARDED_P} ranks on card(s) "
@@ -1982,6 +2162,209 @@ def phase_sharded(torch, ctx):
           "hierarchy over (2, 2) differs from devices=4")
     log("sharded", f"hierarchy={SHARDED_HIER}: devices=(2, 2) bit-equal to "
         f"devices={SHARDED_P}")
+    log_refine_on_ranks(ctx, out["refine"])
+    log("sharded", f"refine(devices={SHARDED_P}) and devices={SHARDED_MESH}"
+        " bit-equal to the single-card refine(); partition(devices=, "
+        "refine=True) equal to its parts; the warm refined step balanced")
+
+
+# ---------------------------------------------------------------------------
+# phase 8c: the paper's §5 matrix over the ranks
+# ---------------------------------------------------------------------------
+
+UNTIMED = ("time_partition_s", "time_refine_s", "time_eval_s")
+_RECORDED: dict = {}
+
+
+def untimed(rows):
+    return [{key: v for key, v in r.items() if key not in UNTIMED}
+            for r in rows]
+
+
+def experiments_suite(kw, small_kw):
+    """Rank body of the matrix's launch (four gloo ranks on the one card):
+    ``run_matrix(**kw)`` on this rank, the launch counts set to 0 just
+    before it and read just after, each family's mesh build timed and
+    each ``refine`` call of the matrix recorded (its base labels and its
+    result), then the gates on rank 0: every row's integer metrics equal
+    to ``evaluate_problem`` of its labels, every refined row equal to the
+    single-card ``refine()`` of its base labels (labels and stats), its cut
+    not above its base row's. Then ``run_matrix(**small_kw)``, whose rows
+    the caller holds against the same call's own launch."""
+    import numpy as np
+    import torch
+    from repro_torch.core import meshes, metrics
+    from repro_torch.dist import current
+    from repro_torch.eval import experiments
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.partition import refine
+    comm = current()
+    # per rank: the rank's refine calls and mesh seconds (keyed by rank, as
+    # ranks that are threads of one process share this module)
+    seen = _RECORDED[("refine", comm.rank)] = []
+    mesh_s = _RECORDED[("mesh_s", comm.rank)] = {}
+    mesh_fns = dict(meshes.REGISTRY)
+
+    def recording(problem, res, *args, **kwargs):
+        out = refine(problem, res, *args, **kwargs)
+        _RECORDED[("refine", current().rank)].append(
+            (problem, np.asarray(res.labels), out))
+        return out
+
+    def timed_build(fam):
+        def build(*args, **kwargs):
+            t0 = time.perf_counter()
+            mesh = mesh_fns[fam](*args, **kwargs)
+            _RECORDED[("mesh_s", current().rank)][fam] = \
+                time.perf_counter() - t0
+            return mesh
+        return build
+
+    experiments.refine = recording
+    meshes.REGISTRY.update({fam: timed_build(fam) for fam in mesh_fns})
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        before = comm.counters()
+        t0 = time.perf_counter()
+        matrix = experiments.run_matrix(device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: c for name, c in launch_counts().items() if c}
+        after = comm.counters()
+    finally:
+        experiments.refine = refine
+        meshes.REGISTRY.update(mesh_fns)
+    table = torch.zeros(comm.size, 4, dtype=torch.float64, device=DEVICE)
+    table[comm.rank] = torch.tensor(
+        [wall, counts.get("assign_reduce", 0),
+         after["all_reduces"] - before["all_reduces"],
+         after["seconds"] - before["seconds"]], dtype=torch.float64)
+    table = comm.all_reduce(table).tolist()
+    out = {"matrix": matrix, "wall": wall, "table": table, "counts": counts,
+           "mesh_s": mesh_s, "failures": []}
+    if comm.rank == 0:
+        t0 = time.perf_counter()
+        rows = matrix["rows"]
+        base_rows = [r for r in rows if not r["refined"]]
+        refined_rows = [r for r in rows if r["refined"]]
+        check(len(seen) == len(refined_rows) == len(base_rows),
+              f"{len(seen)} refine calls for {len(refined_rows)} refined "
+              "rows")
+        bad = out["failures"]
+        for (problem, labels, got), brow, rrow in zip(seen, base_rows,
+                                                      refined_rows):
+            cell = f"{brow['family']}/{brow['tool']}"
+            for row, lab in ((brow, labels), (rrow, got.labels)):
+                host = metrics.evaluate_problem(problem, lab)
+                if any(row[key] != v for key, v in host.items()):
+                    bad.append(f"{cell}: row {row['tool']} is not the "
+                               f"metrics of its labels: {host}")
+            single = refine(problem, labels, device=DEVICE)
+            st, want = got.stats["refine"], single.stats["refine"]
+            if not (np.array_equal(got.labels, single.labels)
+                    and all(st[key] == want[key] for key in REFINE_KEYS)
+                    and (rrow["refine_rounds"], rrow["refine_moves"],
+                         rrow["refine_converged"]) == (
+                             want["rounds"], want["moves"],
+                             want["converged"])):
+                bad.append(f"{cell}: the sharded refinement {st} differs "
+                           f"from the single card's {want}")
+            if rrow["cut"] > brow["cut"]:
+                bad.append(f"{cell}: refined cut {rrow['cut']} above "
+                           f"{brow['cut']}")
+        out["gates_s"] = time.perf_counter() - t0
+    out["small"] = untimed(experiments.run_matrix(device=DEVICE,
+                                                  **small_kw)["rows"])
+    return out
+
+
+def phase_experiments(torch, ctx):
+    """The paper's §5 matrix: every method over the mesh zoo, each cell
+    refined, evaluated and refined over four gloo ranks sharing the card,
+    the whole matrix in one launch; then a small matrix through
+    ``run_matrix``'s own launch, held against the same call inside the
+    ranks."""
+    from repro_torch.dist import launch
+    from repro_torch.eval import experiments
+    card = ctx["card"]
+    kw = dict(EXPERIMENTS, eval_devices=SHARDED_P)
+    small_kw = dict(EXPERIMENTS_SMALL, eval_devices=SHARDED_P)
+    t0 = time.perf_counter()
+    out = launch.launch(experiments_suite, SHARDED_P, args=(kw, small_kw),
+                        device="cuda", timeout=900)
+    wall = time.perf_counter() - t0
+    m = out["matrix"]
+    rows = m["rows"]
+    for fam in m["families"]:
+        log("experiments", f"{fam}: mesh built in {out['mesh_s'][fam]:.2f} "
+            f"s on each rank (rank 0's clock)")
+    for base, ref in zip(rows[::2], rows[1::2]):
+        log("experiments", f"{base['family']:>10} {base['tool']:>12}: n="
+            f"{base['n']} cut {base['cut']} -> {ref['cut']}, totalCommVol "
+            f"{base['totalCommVol']} -> {ref['totalCommVol']}, maxCommVol "
+            f"{base['maxCommVol']} -> {ref['maxCommVol']}, imbalance "
+            f"{base['imbalance']:.5f} -> {ref['imbalance']:.5f}, rounds "
+            f"{ref['refine_rounds']}, moves {ref['refine_moves']}; "
+            f"partition {base['time_partition_s']:.3f} s, refine "
+            f"{ref['time_refine_s']:.3f} s, eval {base['time_eval_s']:.3f} "
+            f"+ {ref['time_eval_s']:.3f} s")
+    summary = m["summary"]
+    for tool, ratios in summary["geo_over_tool"].items():
+        log("experiments", f"geographer / {tool}: " + ", ".join(
+            f"{met} {ratios[met]:.4f}" for met in experiments.CELL_METRICS)
+            + "; refined geographer / " + tool + ": " + ", ".join(
+            f"{met} {summary['geo_refined_over_tool'][tool][met]:.4f}"
+            for met in experiments.CELL_METRICS))
+    log("experiments", f"all_balanced {summary['all_balanced']}, "
+        f"geographer_all_balanced {summary['geographer_all_balanced']}, "
+        f"refined_imbalance_ok {summary['refined_imbalance_ok']}")
+    unbalanced = [f"{r['family']}/{r['tool']} {r['imbalance']:.5f}"
+                  for r in rows if not r["balanced"]]
+    log("experiments", f"unbalanced rows: {unbalanced or 'none'}")
+    part = sum(r["time_partition_s"] for r in rows[::2])
+    ref_s = sum(r["time_refine_s"] for r in rows[1::2])
+    ev = sum(r["time_eval_s"] for r in rows)
+    mesh = sum(out["mesh_s"].values())
+    walls = ", ".join(f"{r[0]:.1f}" for r in out["table"])
+    log("experiments", f"{len(rows)} rows over {len(m['families'])} "
+        f"families x {len(m['methods'])} methods, n={m['n']} k={m['k']} "
+        f"eval_devices={m['eval_devices']}: launch {wall:.1f} s; run_matrix "
+        f"per rank {walls} s; rank 0: meshes {mesh:.1f} s, partition "
+        f"{part:.1f} s, refine {ref_s:.1f} s, evaluation {ev:.1f} s, the "
+        f"rest {out['wall'] - mesh - part - ref_s - ev:.1f} s; gates "
+        f"{out['gates_s']:.1f} s; launch and process starts "
+        f"{wall - max(r[0] for r in out['table']) - out['gates_s']:.1f} s "
+        f"at most; all-reduces per rank {[int(r[2]) for r in out['table']]}"
+        f" taking {[round(r[3], 2) for r in out['table']]} s  [{card}]")
+    launches = [int(r[1]) for r in out["table"]]
+    log("experiments", f"assign launches per rank {launches} (rank 0 "
+        f"solves every cell); rank 0's counts {out['counts']}")
+    for r, n in enumerate(launches):
+        ctx["paths"][f"experiments rank {r}"] = {"assign_reduce": n}
+    check(launches[0] > 0 and not any(launches[1:]),
+          f"experiments: assign launches per rank {launches}")
+    check(set(out["counts"]) <= {"assign_reduce", "prefix_sum"},
+          f"experiments: launched {out['counts']}")
+    check(not out["failures"], "experiments: " + "; ".join(
+        out["failures"][:5]))
+    check(len(rows) == 2 * len(m["families"]) * len(m["methods"]) == 72,
+          f"experiments: {len(rows)} rows")
+    check(summary["refined_imbalance_ok"],
+          "experiments: a refinement worsened the balance")
+    log("experiments", "every row's metrics equal evaluate_problem of its "
+        "labels; every refined row equal to the single-card refine() of "
+        "its base labels, its cut not above its base row's; refined "
+        "imbalance ok")
+    t0 = time.perf_counter()
+    small = experiments.run_matrix(device="cuda", **small_kw)
+    t_small = time.perf_counter() - t0
+    check(untimed(small["rows"]) == out["small"],
+          "run_matrix's own launch differs from the same matrix run inside "
+          "the ranks")
+    log("experiments", f"run_matrix({small_kw}) through its own launch: "
+        f"{t_small:.1f} s with the process starts; rows equal to the same "
+        "call inside the ranks")
 
 
 # ---------------------------------------------------------------------------
@@ -2723,6 +3106,7 @@ def main() -> int:
            "pserve": lambda: phase_pserve(torch, ctx),
            "refine": lambda: phase_refine(torch, ctx),
            "sharded": lambda: phase_sharded(torch, ctx),
+           "experiments": lambda: phase_experiments(torch, ctx),
            "serve": lambda: phase_serve(torch, ctx),
            "prefill": lambda: phase_prefill(torch, ctx),
            "timing": lambda: phase_timing(torch, ctx)}

@@ -7,7 +7,10 @@ metrics computed over the ranks of a mesh, equal to the host metrics::
     res = partition(prob, devices=4)
     evaluate_sharded(prob, res.labels, devices=4)   # == res.evaluate()
 
-The §5 experiment harness (``eval/experiments.py``) is not ported yet.
+The paper's §5 comparison matrix, every method over the mesh zoo with
+its refined sibling rows, evaluated and refined over the ranks::
+
+    from repro_torch.eval.experiments import run_matrix   # §5 tables
 """
 from .sharded import (ShardedGraph, boundary_nodes_sharded,
                       comm_volume_sharded, edge_cut_sharded,

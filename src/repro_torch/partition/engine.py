@@ -16,8 +16,8 @@
 ``torch.distributed``: on the calling rank when the caller is one (under
 ``torchrun``, every rank calls with the same problem and gets the same
 result), else on P local ranks that this call launches (see
-``repro_torch.dist.launch``). ``devices=`` with ``refine=`` raises
-``NotYetPortedError`` until the sharded refinement rounds land.
+``repro_torch.dist.launch``). With ``refine=``, the refinement rounds
+run sharded over the same ranks after the solve.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from repro_torch.device import resolve_device
 from repro_torch.dist import launch
 
 from .hierarchical import hierarchical_partition
-from .problem import NotYetPortedError, PartitionProblem, PartitionResult
+from .problem import PartitionProblem, PartitionResult
 from .refine import refine as _refine
 from .refine import resolve_refiner
 from .registry import (distributed_methods, get_algorithm, resolve_method,
@@ -73,9 +73,11 @@ def partition(problem: PartitionProblem, method: str = "geographer", *,
             every rank has a card of its own, gloo otherwise.
         refine: quality-recovery post-pass over the solver's labels —
             True (= ``"label_prop"``) or a refiner registry name (see
-            ``repro_torch.partition.refine``), run on ``device``. Requires
-            the problem to carry a CSR graph; the returned result's
-            ``method`` gains the refiner suffix (e.g. ``"sfc+lp"``).
+            ``repro_torch.partition.refine``), run on ``device``, sharded
+            over ``devices`` when set (bit for bit the single-device
+            rounds). Requires the problem to carry a CSR graph; the
+            returned result's ``method`` gains the refiner suffix (e.g.
+            ``"sfc+lp"``).
         refine_eps: balance slack for the refinement budgets (None =
             ``problem.epsilon``); only meaningful with ``refine``.
         evaluate: fill ``result.quality`` with the paper's metric set.
@@ -100,18 +102,14 @@ def partition(problem: PartitionProblem, method: str = "geographer", *,
             f"supported by: {distributed_methods()}")
     if refine is not None and refine is not False:
         refine = resolve_refiner(refine)   # fail fast, before the solve
-        if devices is not None:
-            raise NotYetPortedError(
-                "partition(devices=..., refine=...): the sharded "
-                "refinement rounds come with the next torch.distributed "
-                "slice (slice E, step 4)")
     else:
         refine = None
     dev = resolve_device(device)
     if launch.needed(devices):
         return launch.run(partition, devices, device, problem, method,
                           device=device, hierarchy=hierarchy,
-                          devices=devices, evaluate=evaluate,
+                          devices=devices, refine=refine,
+                          refine_eps=refine_eps, evaluate=evaluate,
                           with_diameter=with_diameter, **opts)
     if hierarchy is not None:
         k1, k2 = _parse_hierarchy(hierarchy)
@@ -124,7 +122,7 @@ def partition(problem: PartitionProblem, method: str = "geographer", *,
         result = get_algorithm(method)(problem, device=dev, **opts)
     if refine is not None:
         result = _refine(problem, result, refine, device=dev,
-                         eps=refine_eps)
+                         devices=devices, eps=refine_eps)
     if evaluate:
         result.evaluate(with_diameter=with_diameter)
     return result

@@ -211,7 +211,7 @@ class PartitionResult:
         return self.quality
 
     def refine(self, method="label_prop", *, device=None,
-               devices: int | None = None, eps: float | None = None,
+               devices=None, eps: float | None = None,
                evaluate: bool = False, **opts) -> "PartitionResult":
         """Quality-recovery post-pass over this result's labels (the
         ``repro_torch.partition.refine`` front door bound to ``self``).
@@ -221,8 +221,9 @@ class PartitionResult:
                 propagation).
             device: where the rounds run; None means ``cuda`` and raises
                 without a card.
-            devices: the sharded path; not ported yet (raises
-                ``NotYetPortedError``).
+            devices: None = one device; P (or ``(P1, P2)``) = the rounds
+                sharded over P ranks, bit for bit equal (launched by this
+                call outside a process group).
             eps: balance slack for the refinement budgets (None = the
                 problem's epsilon).
             evaluate: fill ``quality`` on the refined result.

@@ -1,5 +1,5 @@
 """``refine()`` — size-constrained label-propagation refinement
-(counterpart of ``repro/partition/refine.py``, single device)::
+(counterpart of ``repro/partition/refine.py``)::
 
     from repro_torch.partition import PartitionProblem, partition, refine
 
@@ -7,6 +7,7 @@
     res  = partition(prob, method="geographer")      # on the card
     ref  = refine(prob, res)                         # rounds on the card
     ref  = refine(prob, res, device="cpu")           # the same bits on the host
+    ref  = refine(prob, res, devices=4)              # sharded over 4 ranks
     ref  = partition(prob, method="rcb", refine=True)   # composed
 
 Geometric solvers lose to graph partitioners on cut and communication
@@ -35,6 +36,12 @@ round; ``_lp_rounds`` builds the same function from the edges sorted by
 ``n * k``. ``_lp_rounds_plain`` is the dense form, line for line, kept as
 the reference the tests and the on-card checks hold the rounds against.
 
+``devices=P`` runs the rounds over P ranks (``_lp_rounds_sharded``), each
+holding its shard of an ``eval.sharded.ShardedGraph``. A round makes four
+sum all-reduces (labels, block weights, gains, accepted targets) and
+decides everything else from the replicated vectors, so every rank count
+gives the single-card rounds' bits.
+
 Determinism: block ids are canonicalized on entry (rank of each block's
 minimum member key) and mapped back on exit, and every tie breaks on an
 integer total order (block id for the target, the node key for the move
@@ -50,8 +57,11 @@ import torch
 
 from repro_torch.core.metrics import edge_cut, imbalance, quantize_weights
 from repro_torch.device import resolve_device
+from repro_torch.dist import launch
+from repro_torch.dist.rules import comm_for, mesh_size
 
-from .problem import NotYetPortedError, PartitionProblem, PartitionResult
+from .distributed import _devices_stat
+from .problem import PartitionProblem, PartitionResult
 
 #: rounds cap — the cut strictly decreases every effective round, so this
 #: is a bound, not a tuning knob (convergence is usually O(10))
@@ -202,14 +212,16 @@ def _edges(indptr, indices, dev: torch.device):
     return src, dst
 
 
-def _targets(labels, src, dst, iw, budget, k: int):
+def _targets(labels, src, dst, iw, budget, k: int, glabels=None):
     """Each node's best admissible target and its gain, from the sparse
     neighbour-block histogram.
 
-    The edges sorted by ``src * k + labels[dst]`` put each (node, block)
+    The edges sorted by ``src * k + glabels[dst]`` put each (node, block)
     pair's edges in one run; the run's length is ``H[v, b]`` of the dense
-    form, and only pairs with ``H >= 1`` exist. Returns (tgt, gain), [n]
-    int64 each.
+    form, and only pairs with ``H >= 1`` exist. ``glabels`` is the label
+    vector that ``dst`` indexes (None: ``labels``; a rank passes the
+    global vector, its nodes being a slice of it). Returns (tgt, gain),
+    [n] int64 each.
 
     The dense form also names a target for a node whose admissible
     blocks hold none of its neighbours (the lowest admissible block, at
@@ -220,7 +232,8 @@ def _targets(labels, src, dst, iw, budget, k: int):
     acceptance order, the move) is masked by ``gain > 0``.
     """
     n = labels.numel()
-    key, _ = torch.sort(src * k + labels[dst])
+    nb = (labels if glabels is None else glabels)[dst]
+    key, _ = torch.sort(src * k + nb)
     # every edge of a run carries the run's length; the reductions below
     # are max and min, so reading a run once or many times is the same
     new = torch.ones_like(key, dtype=torch.bool)
@@ -241,10 +254,11 @@ def _targets(labels, src, dst, iw, budget, k: int):
     return tgt, gain
 
 
-def _dominated(gain, src, dst, key_lt, n: int) -> torch.Tensor:
+def _dominated(gain, src, dst, key_lt, n: int, ggain=None) -> torch.Tensor:
     """[n] bool: some neighbour has strictly higher (gain, lower key)
-    priority. ``key_lt[e]`` is ``keys[dst[e]] < keys[src[e]]``."""
-    gs, gd = gain[src], gain[dst]
+    priority. ``key_lt[e]`` is ``keys[dst[e]] < keys[src[e]]``; ``ggain``
+    is the gain vector that ``dst`` indexes (None: ``gain``)."""
+    gs, gd = gain[src], (gain if ggain is None else ggain)[dst]
     dom_e = (gd > gs) | ((gd == gs) & key_lt)
     hits = torch.zeros(n, dtype=torch.int32, device=gain.device)
     return hits.index_add_(0, src, dom_e.to(torch.int32)) > 0
@@ -367,6 +381,87 @@ def _lp_rounds_plain(labels, indptr, indices, iw, keys, k: int, limit: int,
 
 
 # ---------------------------------------------------------------------------
+# the sharded rounds (one rank's share)
+
+def _lp_rounds_sharded(graph, labels, iw, keys, k: int, limit: int,
+                       max_rounds: int, comm, device=None):
+    """The synchronous rounds on the calling rank over its shard of
+    ``graph`` (an ``eval.sharded.ShardedGraph``); ``comm`` is the rank's
+    communicator over ``graph.devices`` ranks. Arguments and returns as
+    ``_lp_rounds``, the same on every rank and bit for bit theirs.
+
+    A rank holds its slots (``gather``, ``valid``) and their edges (local
+    ``src``, global ``dst``). Each round makes the reference's four sum
+    all-reduces and no other communication: the [n] label vector (each
+    rank writes its valid slots into zeros), the [k] quantized block
+    weights, the [n] gain vector, and the [n] packed words ``accepted ?
+    target + 1 : 0``. A rank's targets and its dominance test read only
+    its own edges and those global vectors, so they equal the single-card
+    ``_targets`` and ``_dominated`` on its nodes; the acceptance runs on
+    the replicated vectors, as the single card's does. The loop test is
+    read from the replicated acceptance, so every rank takes the same
+    rounds. Padded slots hold no edges, weigh 0, and follow the label of
+    the point they copy (``ShardedPartitionProblem.deal``).
+
+    The collectives carry int32, the reference's width: labels and packed
+    words are below k + 1, gains below the largest degree, and the block
+    weights sum quantized weights whose total is below 2^30
+    (``quantize_weights``), so no sum overflows.
+    """
+    dev = launch.rank_device(resolve_device(device), comm.rank)
+    sp = graph.sharded
+    p, n = comm.shard_id, sp.problem.n
+    i32 = torch.int32
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    gidx, lvalid = on(sp.gather[p]), on(sp.valid[p])
+    mine = gidx[lvalid]
+    ev = graph.edge_valid[p]
+    src = on(graph.src[p][ev].astype(np.int64))
+    dst = on(graph.dst[p][ev].astype(np.int64))
+    giw = on(np.asarray(iw, np.int64))
+    gkeys = on(np.asarray(keys, np.int64))
+    lab = on(np.asarray(labels, np.int64)[sp.gather[p]])
+    liw = torch.where(lvalid, giw[gidx], 0)
+    key_lt = gkeys[dst] < gkeys[gidx][src]
+    by_key = torch.sort(gkeys, stable=True).indices
+    span = int(np.diff(np.asarray(sp.problem.indptr)).max(initial=0)) + 1
+
+    def gsum(vals):
+        """[n] int64: the ranks' [cap] values at their points' positions,
+        through one int32 sum all-reduce (every point has one valid
+        slot)."""
+        full = torch.zeros(n, dtype=i32, device=dev)
+        full[mine] = vals[lvalid].to(i32)
+        return comm.all_reduce(full).long()
+
+    gain_total = torch.zeros((), dtype=_I64, device=dev)
+    rounds, moves_total, moved = 0, 0, 1
+    while rounds < max_rounds and moved > 0:
+        glab = gsum(lab)
+        W = comm.all_reduce(torch.zeros(k, dtype=i32, device=dev).index_add_(
+            0, lab, liw.to(i32))).long()
+        budget = (limit - W).clamp_(min=0)
+        tgt, gain = _targets(lab, src, dst, liw, budget, k, glabels=glab)
+        ggain = gsum(gain)
+        acc0 = (gain > 0) & ~_dominated(gain, src, dst, key_lt, lab.numel(),
+                                        ggain=ggain)
+        pack = gsum(torch.where(acc0, tgt + 1, 0))
+        gtgt = pack - 1
+        accept = _accept(pack > 0, gtgt, ggain, giw, by_key, budget, k, span)
+        gain_total += torch.where(accept, ggain, 0).sum()
+        glab = torch.where(accept, gtgt, glab)
+        lab = torch.where(accept[gidx], gtgt[gidx], lab)
+        moved = int(accept.sum())      # replicated: every rank reads the same
+        rounds += 1
+        moves_total += moved
+    return (glab.cpu().numpy(), rounds, moves_total, moved,
+            int(gain_total))
+
+
+# ---------------------------------------------------------------------------
 # front door
 
 def _node_keys(problem: PartitionProblem, node_order) -> np.ndarray:
@@ -389,7 +484,7 @@ def _node_keys(problem: PartitionProblem, node_order) -> np.ndarray:
 @register_refiner("label_prop", aliases=("lp", "labelprop"), short="lp")
 def label_prop_refine(problem: PartitionProblem, labels: np.ndarray, *,
                       device: torch.device | str | None = None,
-                      devices: int | None = None, eps: float | None = None,
+                      devices=None, eps: float | None = None,
                       max_rounds: int = DEFAULT_MAX_ROUNDS,
                       node_order=None, graph=None
                       ) -> tuple[np.ndarray, dict]:
@@ -400,22 +495,24 @@ def label_prop_refine(problem: PartitionProblem, labels: np.ndarray, *,
         labels: [n] block ids in original point order.
         device: where the rounds run; None means ``cuda`` and raises
             without a card. ``"cpu"`` gives the same bits on the host.
-        devices, graph: the sharded path; not ported yet (any value
-            other than None raises ``NotYetPortedError``).
+        devices: None runs the rounds on one device; P >= 1 (or a
+            ``(P1, P2)`` mesh, run over its ``P1 * P2`` ranks) runs them
+            sharded over P ranks, bit for bit equal. Outside a process
+            group the call launches the ranks itself.
         eps: balance slack (None = ``problem.epsilon``).
         max_rounds: round cap.
         node_order: [n] unique int priority keys (None = point order).
+        graph: a ``repro_torch.eval.ShardedGraph`` of ``problem`` over the
+            same rank count to reuse (devices path only; None builds it).
 
     Returns:
         (labels [n] int64, info dict with ``rounds`` / ``moves`` /
         ``converged`` as the reference's, and ``gain``: the sum of the
         accepted gains, by which the edge cut fell).
+
+    Raises:
+        ValueError: ``graph`` was built for another problem or rank count.
     """
-    for name, value in (("devices", devices), ("graph", graph)):
-        if value is not None:
-            raise NotYetPortedError(
-                f"label_prop_refine({name}=...): the sharded rounds come "
-                "with the torch.distributed slice (slice E, step 4)")
     if not problem.has_graph:
         raise ValueError(
             "problem carries no CSR graph (indptr/indices); label "
@@ -430,11 +527,29 @@ def label_prop_refine(problem: PartitionProblem, labels: np.ndarray, *,
     keys = _node_keys(problem, node_order)
     iw, limit = refinement_quantization(problem, eps)
     dev = resolve_device(device)
+    if devices is not None:
+        if graph is not None and (graph.problem is not problem
+                                  or graph.devices != mesh_size(devices)):
+            raise ValueError(
+                "graph was built for a different problem/devices")
+        if launch.needed(devices):
+            return launch.run(label_prop_refine, devices, device, problem,
+                              labels, device=device, devices=devices,
+                              eps=eps, max_rounds=max_rounds,
+                              node_order=node_order, graph=graph)
+        if graph is None:
+            from repro_torch.eval.sharded import ShardedGraph
+            graph = ShardedGraph.from_problem(problem, mesh_size(devices))
     labels_c, order = _canonicalize(labels.astype(np.int64), keys,
                                     problem.k)
-    out_c, rounds, moves, last, gain = _lp_rounds(
-        labels_c, problem.indptr, problem.indices, iw, keys, problem.k,
-        limit, max_rounds, device=dev)
+    if devices is None:
+        out_c, rounds, moves, last, gain = _lp_rounds(
+            labels_c, problem.indptr, problem.indices, iw, keys, problem.k,
+            limit, max_rounds, device=dev)
+    else:
+        out_c, rounds, moves, last, gain = _lp_rounds_sharded(
+            graph, labels_c, iw, keys, problem.k, limit, max_rounds,
+            comm_for(devices), device=dev)
     info = {"rounds": rounds, "moves": moves,
             "converged": bool(last == 0), "gain": gain}
     return order[out_c], info
@@ -442,7 +557,7 @@ def label_prop_refine(problem: PartitionProblem, labels: np.ndarray, *,
 
 def refine(problem: PartitionProblem, result, method="label_prop", *,
            device: torch.device | str | None = None,
-           devices: int | None = None, eps: float | None = None,
+           devices=None, eps: float | None = None,
            evaluate: bool = False, **opts) -> PartitionResult:
     """Refine a partition — the quality-recovery front door next to
     ``partition()`` / ``repartition()``.
@@ -457,14 +572,18 @@ def refine(problem: PartitionProblem, result, method="label_prop", *,
             selects the default ``"label_prop"``.
         device: where the rounds run; None means ``cuda`` and raises
             without a card.
-        devices: the sharded path; not ported yet (raises
-            ``NotYetPortedError``).
+        devices: None = one device; P >= 1 = the rounds sharded over P
+            ranks (bit for bit equal at every rank count), on the calling
+            rank when the caller is one, else on P ranks the refiner
+            launches (the cuts are then taken here). A ``(P1, P2)`` mesh
+            runs over ``P1 * P2`` ranks and is recorded as ``[P1, P2]``
+            (the reference raises there).
         eps: balance slack for the refinement budgets (None =
             ``problem.epsilon``). Refined block weights never exceed
             ``(1 + eps) * W / k``, so a balanced input stays balanced.
         evaluate: fill ``result.quality`` with the paper metric set.
         **opts: forwarded to the refiner (``max_rounds`` /
-            ``node_order`` for label_prop).
+            ``node_order`` / ``graph`` for label_prop).
 
     Returns:
         A new ``PartitionResult``: refined labels, ``method`` suffixed
@@ -492,7 +611,8 @@ def refine(problem: PartitionProblem, result, method="label_prop", *,
     stats["refine"] = {
         "method": name, "rounds": info["rounds"], "moves": info["moves"],
         "converged": info["converged"], "cut_before": cut_before,
-        "cut_after": cut_after, "devices": None,
+        "cut_after": cut_after,
+        "devices": None if devices is None else _devices_stat(devices),
         "eps": problem.epsilon if eps is None else float(eps)}
     stats["final_imbalance"] = imbalance(labels_out, problem.k,
                                          problem.weights)

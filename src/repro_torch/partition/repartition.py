@@ -17,9 +17,8 @@ start and are relabelled by greedy center matching, so block ids stay
 stable across steps. The solve, and the refinement when ``refine=`` asks
 for one, run on ``device`` (default ``cuda``). ``devices=P`` runs the
 solve sharded over P ranks (``distributed.repartition_sharded``; the
-previous state is replicated, the communication stays all-reduces);
-``devices=`` with ``refine=`` raises ``NotYetPortedError`` until the
-sharded refinement rounds land.
+previous state is replicated, the communication stays all-reduces),
+and the refinement, when asked for, over the same ranks.
 """
 from __future__ import annotations
 
@@ -34,7 +33,7 @@ from repro_torch.device import resolve_device
 from repro_torch.dist import launch
 
 from .engine import partition
-from .problem import NotYetPortedError, PartitionProblem, PartitionResult
+from .problem import PartitionProblem, PartitionResult
 from .refine import refine as _refine
 from .refine import resolve_refiner
 from .registry import resolve_method, supports_warm_start
@@ -291,7 +290,8 @@ def repartition(problem: PartitionProblem, previous: PartitionResult,
         refine: quality-recovery post-pass applied after the warm (or
             cold-relabelled) solve and before the migration accounting —
             True (= ``"label_prop"``) or a refiner registry name, run on
-            ``device``. Migration is then measured on the refined labels,
+            ``device`` and sharded over ``devices`` when set. Migration is
+            then measured on the refined labels,
             the ones the simulation redistributes to.
         refine_eps: balance slack for the refinement budgets (None =
             ``problem.epsilon``); only meaningful with ``refine``.
@@ -330,17 +330,13 @@ def repartition(problem: PartitionProblem, previous: PartitionResult,
             "(was it produced by a center-based method?)")
     if refine is not None and refine is not False:
         refine = resolve_refiner(refine)   # fail fast, before the solve
-        if devices is not None:
-            raise NotYetPortedError(
-                "repartition(devices=..., refine=...): the sharded "
-                "refinement rounds come with the next torch.distributed "
-                "slice (slice E, step 4)")
     else:
         refine = None
     dev = resolve_device(device)
     if launch.needed(devices):
         return launch.run(repartition, devices, device, problem, previous,
                           method, device=device, devices=devices, warm=warm,
+                          refine=refine, refine_eps=refine_eps,
                           evaluate=evaluate, with_diameter=with_diameter,
                           **opts)
     if warm:
@@ -348,7 +344,8 @@ def repartition(problem: PartitionProblem, previous: PartitionResult,
     else:
         res = _cold_relabel(problem, previous, name, dev, devices, **opts)
     if refine is not None:
-        res = _refine(problem, res, refine, device=dev, eps=refine_eps)
+        res = _refine(problem, res, refine, device=dev, devices=devices,
+                      eps=refine_eps)
     res.stats["migration"] = _migration_stats(previous, res.labels,
                                               problem.weights)
     if evaluate:

@@ -9,11 +9,11 @@ arrays, ``edge_cut_sharded``, ``comm_volume_sharded``,
 metrics and the host metrics exactly, at every rank count. Every
 multi-rank run has a deadline of ``DEADLINE`` seconds.
 """
-import warnings
 
 import numpy as np
 import pytest
 import torch
+from reference_calls import reference
 
 from repro.core import meshes as ref_meshes
 from repro.eval import evaluate_sharded as ref_evaluate_sharded
@@ -76,9 +76,7 @@ def test_metrics_equal_reference_and_host(family, devices):
                    partition(prob, method="rcb", device=CPU).labels):
         got = _ranks(evaluate_sharded, devices, prob, labels, devices,
                      device=CPU)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", DeprecationWarning)
-            want = ref_evaluate_sharded(rprob, labels, devices)
+        want = reference(ref_evaluate_sharded, rprob, labels, devices)
         host = metrics.evaluate_problem(prob, labels)
         assert got == want == host
 

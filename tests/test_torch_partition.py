@@ -17,8 +17,9 @@ from repro.core import metrics as ref_metrics
 from repro.partition import PartitionProblem as RefProblem
 from repro.partition import partition as ref_partition
 from repro_torch.core import baselines, meshes, metrics
-from repro_torch.partition import (NotYetPortedError, PartitionProblem,
-                                   available_methods, partition)
+from repro_torch.dist import launch
+from repro_torch.partition import (PartitionProblem, available_methods,
+                                   partition, refine)
 
 # several pytest workers share a few cores: one intra-op thread each keeps
 # these small-tensor tests from oversubscribing them
@@ -171,19 +172,31 @@ def test_known_unbalanced_reference_instance_is_reproduced():
 
 
 def test_unported_options_raise():
+    """Every option of the front door is ported now; what raised before
+    runs (the parity tests live with each slice's tests)."""
     prob = PartitionProblem.from_mesh(_mesh("tri", 400), k=4)
-    # devices= is ported (tests/test_torch_sharded.py holds it); with
-    # refine= it waits for the sharded refinement rounds
-    with pytest.raises(NotImplementedError, match="slice"):
-        partition(prob, device="cpu", devices=2, refine=True)
+
+    def ranks(fn, *args, **kwargs):
+        return launch.launch(fn, 2, args=args, kwargs=kwargs, device="cpu",
+                             threads=True, timeout=120)
+
+    # devices= with refine= refines over the same ranks
+    # (tests/test_torch_refine_sharded.py holds it against the reference)
+    res = ranks(partition, prob, device="cpu", devices=2, refine=True)
+    base = ranks(partition, prob, device="cpu", devices=2)
+    assert res.method == "geographer+lp"
+    assert res.stats["refine"]["devices"] == 2
+    np.testing.assert_array_equal(
+        res.labels, refine(prob, base, device="cpu").labels)
     # hierarchy= is ported (tests/test_torch_batched.py holds it)
     res = partition(prob, device="cpu", hierarchy=(2, 2))
     assert res.k == 4 and res.stats["k1"] == 2 and res.stats["k2"] == 2
-    # refine= is ported (tests/test_torch_refine.py holds it); its sharded
-    # path is not
+    # refine= is ported (tests/test_torch_refine.py holds it), and so is
+    # its sharded path
     res = partition(prob, method="sfc", device="cpu")
-    with pytest.raises(NotYetPortedError, match="slice"):
-        res.refine(device="cpu", devices=2)
+    np.testing.assert_array_equal(
+        ranks(res.refine, device="cpu", devices=2).labels,
+        res.refine(device="cpu").labels)
     # evaluate(devices=), to_sharded and to_sharded_graph are ported
     # (tests/test_torch_sharded.py, tests/test_torch_eval_sharded.py)
 

@@ -27,9 +27,10 @@ from repro.partition import refine as ref_refine
 from repro.partition import repartition as ref_repartition
 from repro_torch.convert import result_from_numpy
 from repro_torch.core import meshes, metrics
-from repro_torch.partition import (NotYetPortedError, PartitionProblem,
-                                   PartitionResult, UnknownRefinerError,
-                                   available_refiners, partition, refine,
+from repro_torch.dist import launch
+from repro_torch.partition import (PartitionProblem, PartitionResult,
+                                   UnknownRefinerError, available_refiners,
+                                   partition, refine,
                                    refinement_budgets,
                                    refinement_quantization, refiner_short_name,
                                    repartition, resolve_refiner)
@@ -395,20 +396,43 @@ def test_refine_error_paths(case):
 
 
 def test_sharded_options_raise_and_the_default_device(monkeypatch):
+    """The sharded options run (``tests/test_torch_refine_sharded.py``
+    holds them against the reference's): ``devices=`` on every front door
+    refines to the single-device labels, and ``graph=`` without
+    ``devices=`` is ignored, as in the reference. Without a card every
+    front door raises instead of running on the CPU."""
     prob, rp = _problems("tri", 200, 4, seed=0)
     labels = _labels(prob.n, 4, seed=0)
     res = partition(prob, method="sfc", device=CPU)
-    for call in (lambda: refine(prob, labels, device=CPU, devices=2),
-                 lambda: refine(prob, labels, device=CPU, graph=object()),
-                 lambda: res.refine(device=CPU, devices=1),
-                 lambda: lp.label_prop_refine(prob, labels, device=CPU,
-                                              devices=2),
-                 lambda: partition(prob, device=CPU, devices=2,
-                                   refine=True),
-                 lambda: repartition(prob, res, device=CPU, devices=2,
-                                     refine=True)):
-        with pytest.raises(NotYetPortedError, match="torch.distributed"):
-            call()
+    single = refine(prob, labels, device=CPU)
+
+    def ranks(fn, *args, **kwargs):
+        return launch.launch(fn, 2, args=args, kwargs=kwargs, device=CPU,
+                             threads=True, timeout=120)
+
+    ignored = refine(prob, labels, device=CPU, graph=object())
+    _assert_same_result(ignored, single)
+    _assert_same_result(ref_refine(rp, labels, graph=object()),
+                        ref_refine(rp, labels))
+    sharded = ranks(refine, prob, labels, device=CPU, devices=2)
+    np.testing.assert_array_equal(sharded.labels, single.labels)
+    assert sharded.stats["refine"] == dict(single.stats["refine"],
+                                           devices=2)
+    out, info = ranks(lp.label_prop_refine, prob, labels, device=CPU,
+                      devices=2)
+    np.testing.assert_array_equal(out, single.labels)
+    np.testing.assert_array_equal(
+        ranks(res.refine, device=CPU, devices=2).labels,
+        res.refine(device=CPU).labels)
+    solved = ranks(partition, prob, device=CPU, devices=2)
+    np.testing.assert_array_equal(
+        ranks(partition, prob, device=CPU, devices=2, refine=True).labels,
+        refine(prob, solved, device=CPU).labels)
+    step = ranks(repartition, prob, res, device=CPU, devices=2)
+    np.testing.assert_array_equal(
+        ranks(repartition, prob, res, device=CPU, devices=2,
+              refine=True).labels,
+        refine(prob, step, device=CPU).labels)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: refine(prob, labels),
                  lambda: res.refine(),

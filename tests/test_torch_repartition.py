@@ -33,13 +33,14 @@ from repro.partition import partition as ref_partition
 from repro.partition import repartition as ref_repartition
 from repro.partition import weighted_centroids as ref_centroids
 from repro_torch.convert import result_from_numpy
-from repro_torch.core import meshes
+from repro_torch.core import meshes, metrics
 from repro_torch.core.balanced_kmeans import BKMConfig
 from repro_torch.core.timeseries import (simulate_loadbalance,
                                          simulate_loadbalance_scan)
-from repro_torch.partition import (NotYetPortedError, PartitionProblem,
-                                   WarmState, greedy_center_match,
-                                   partition, repartition,
+from repro_torch.dist import launch
+from repro_torch.partition import (PartitionProblem, WarmState,
+                                   greedy_center_match, partition, refine,
+                                   repartition,
                                    supports_warm_start, warm_start_methods,
                                    weighted_centroids)
 from repro_torch.partition.repartition import (MAX_BALANCE_RETRIES,
@@ -254,10 +255,23 @@ def test_error_paths_raise_the_reference_types(case):
 def test_unported_options_and_the_default_device(monkeypatch):
     prob = _problem(n=300, k=4)
     prev = partition(prob, device=CPU)
-    # devices= is ported (tests/test_torch_sharded.py holds it); the
-    # sharded refinement rounds are not
-    with pytest.raises(NotYetPortedError):
-        repartition(prob, prev, device=CPU, devices=2, refine=True)
+    # devices= is ported (tests/test_torch_sharded.py holds it), and so
+    # are the sharded refinement rounds after the solve
+    # (tests/test_torch_refine_sharded.py holds them against the reference)
+    mesh = meshes.REGISTRY["delaunay2d"](300, seed=0)
+    mprev = partition(PartitionProblem.from_mesh(mesh, k=4, epsilon=EPS),
+                      device=CPU)
+    mprob = mprev.problem.replace(weights=np.random.default_rng(1).lognormal(
+        0.0, 0.3, mesh.n))
+    got, base = (launch.launch(
+        repartition, 2, args=(mprob, mprev),
+        kwargs=dict(device=CPU, devices=2, **kw), device=CPU, threads=True,
+        timeout=120) for kw in ({"refine": True}, {}))
+    want = refine(mprob, base, device=CPU)
+    np.testing.assert_array_equal(got.labels, want.labels)
+    assert got.stats["refine"] == dict(want.stats["refine"], devices=2)
+    assert got.stats["migration"]["fraction"] == float(
+        metrics.migration_fraction(mprev.labels, got.labels, mprob.weights))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     wl = meshes.DriftingHotspot()
     for call in (lambda: repartition(prob, prev),

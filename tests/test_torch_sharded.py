@@ -21,16 +21,17 @@ reference runs ``shard_map`` over 8 virtual host devices. Contracts:
   run here has its own deadline, ``DEADLINE`` seconds).
 
 The reference's sharded calls run with its ``DeprecationWarning`` of the
-``shard_map`` import silenced (ROADMAP.md, queue 3 item 3).
+``shard_map`` import silenced (``reference_calls``; ROADMAP.md, queue 3
+item 3).
 """
 import multiprocessing
 import os
 import time
-import warnings
 
 import numpy as np
 import pytest
 import torch
+from reference_calls import reference as _reference
 
 from repro.core import meshes as ref_meshes
 from repro.core.balanced_kmeans import BKMConfig as RefBKMConfig
@@ -74,12 +75,6 @@ def _ranks(fn, nranks, *args, **kwargs):
     rank 0's value, within ``DEADLINE`` seconds."""
     return launch.launch(fn, nranks, args=args, kwargs=kwargs, device=CPU,
                          threads=True, timeout=DEADLINE)
-
-
-def _reference(fn, *args, **kwargs):
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", DeprecationWarning)
-        return fn(*args, **kwargs)
 
 
 def _points(n, d=3, seed=0):
