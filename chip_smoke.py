@@ -25,7 +25,11 @@ multi-device path (``partition(devices=1)`` over NCCL against
 ``partition()``; four gloo ranks sharing the card for ``devices=4`` and
 ``(2, 2)``, the device bootstrap, the agreement with CPU ranks,
 ``evaluate_sharded``, warm steps, the hierarchy, and the sharded
-refinement rounds on the triangle mesh against the single card's), runs
+refinement rounds on the triangle mesh against the single card's), drives
+the paper's §4.1 SFC redistribution (``make_distributed_partitioner``:
+a sample sort over ``all_to_all``, strided centers, balanced k-means on
+each rank's stretch of the curve) on the main cell at ``devices=1`` over
+NCCL and inside the same four-rank launch, runs
 the paper's §5 matrix (every method over the mesh zoo, refined and
 evaluated over four ranks in one launch, every row gated), then serves
 granite-moe-3b-a800m at full width through ``ServeEngine.run`` and through
@@ -115,6 +119,10 @@ SHARDED_MESH = (2, 2)
 SHARDED_AGREE_N, SHARDED_AGREE_K = 1 << 16, 64
 SHARDED_T = 3
 SHARDED_HIER = (8, 8)
+# the distributed partitioner's balance gate: the main cell's points at
+# k = 64 (at k = 1024 its clustered warm-up ends unbalanced, as the
+# reference's does: ROADMAP.md queue 3 item 17)
+REDIST_BALANCE_K = 64
 # the paper's §5 matrix: every method over the mesh zoo at n = 2^17 points
 # a family (refined3d twice that) and k = 256, over SHARDED_P ranks; the
 # small matrix that goes through run_matrix's own launch
@@ -140,6 +148,14 @@ def check(cond: bool, what: str) -> None:
 
 def log(tag: str, msg: str) -> None:
     print(f"[{tag}] {msg}", flush=True)
+
+
+def lap(what: str, t0: float) -> float:
+    """Log the host seconds since ``t0`` as a ``[time]`` line of a phase's
+    part; return the clock."""
+    now = time.perf_counter()
+    log("time", f"{what}: {now - t0:.1f} s")
+    return now
 
 
 # ---------------------------------------------------------------------------
@@ -1001,22 +1017,38 @@ def phase_profile(torch, ctx):
         f"busy {device_s:.3f} s = {device_s / wall:.1%} of wall  "
         f"[{ctx['card']}]")
     log_rows("profile", rows)
-
-
-def device_rows(prof):
-    """(rows, device seconds) of a profile: (us, calls, name) of each
-    device-side event, largest first."""
-    rows = []
+    # the raw events against the profiler's own sums on this profile
+    sums = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((us, e.count, e.key, str(e.device_type)))
-    # device-side events (kernels, copies) carry the time once; keep only
-    # those where the profiler tells them apart from the host ops
-    on_device = [r for r in rows if r[3].endswith("CUDA")]
-    rows = sorted(on_device or rows, reverse=True)
+        if us > 0 and str(e.device_type).endswith("CUDA"):
+            sums[e.key] = (us, e.count)
+    # a nanosecond a call of slack for the two sums' rounding
+    same = len(sums) == len(rows) and all(
+        name in sums and sums[name][1] == calls
+        and abs(sums[name][0] - us) <= 1e-6 * us + 1e-3 * calls
+        for us, calls, name, _ in rows)
+    log("profile", f"device_rows: {len(rows)} kernels, the same sums and "
+        f"counts as key_averages: {same}")
+    check(same, "device_rows differs from the profiler's key_averages")
+
+
+def device_rows(prof):
+    """(rows, device seconds) of a profile: (us, calls, name, device) of
+    each kernel or copy the device ran, summed by name, largest first.
+    Read from the profiler's raw events: building its operator trees
+    (``key_averages``) took 109 s for the ~250,000 launches of the
+    hierarchy on an H100."""
+    sums: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA") and not (
+                e.is_user_annotation() or e.is_hidden_event()):
+            us, calls = sums.get(e.name(), (0.0, 0))
+            sums[e.name()] = (us + e.duration_ns() / 1e3, calls + 1)
+    rows = sorted(((us, calls, name, "CUDA")
+                   for name, (us, calls) in sums.items()), reverse=True)
     return rows, sum(r[0] for r in rows) / 1e6
 
 
@@ -1066,10 +1098,12 @@ def profile_call(torch, ctx, tag, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
     rows, device_s = device_rows(prof)
     log(tag, f"profile: wall {wall:.3f} s under the profiler, device busy "
         f"{device_s:.3f} s = {device_s / wall:.1%} of wall, "
-        f"{sum(r[1] for r in rows)} device events  [{ctx['card']}]")
+        f"{sum(r[1] for r in rows)} device events (read in "
+        f"{time.perf_counter() - t1:.1f} s)  [{ctx['card']}]")
     log_rows(tag, rows, n=10)
 
 
@@ -1225,17 +1259,18 @@ def phase_repartition(torch, ctx):
 
 
 def phase_hierarchical(torch, ctx):
-    """``partition(main problem, hierarchy=(32, 32))`` twice, and once with
-    the one-lane-a-call refinement: bit-identical; then the card against
-    the port on the CPU at n = 2^16, (8, 8)."""
+    """``partition(main problem, hierarchy=(32, 32))`` batched and with
+    the one-lane-a-call refinement: bit-identical; one run under the
+    profiler; then the card against the port on the CPU at n = 2^16,
+    (8, 8)."""
     import numpy as np
     from repro_torch.partition import PartitionProblem, partition
     pts = np.random.default_rng(0).uniform(0.0, 1.0, (MAIN_N, MAIN_D))
     prob = PartitionProblem(points=pts, k=HIER[0] * HIER[1], epsilon=EPS,
                             seed=0)
     runs = {}
+    t0 = time.perf_counter()
     for tag, batched in (("hierarchical", True),
-                         ("hierarchical-repeat", True),
                          ("hierarchical-sequential", False)):
         runs[tag], wall, counts = run_counted(
             torch, ctx, tag,
@@ -1251,21 +1286,20 @@ def phase_hierarchical(torch, ctx):
             f"{fine['iters']}; "
             f"final imbalance {imb:.6f}; launches {counts}  [{ctx['card']}]")
         check(imb <= EPS + 1e-6, f"{tag}: imbalance {imb:.6f}")
-    a = runs["hierarchical"]
-    for tag in ("hierarchical-repeat", "hierarchical-sequential"):
-        b = runs[tag]
-        check(np.array_equal(a.labels, b.labels) and
-              np.array_equal(a.centers, b.centers) and
-              np.array_equal(a.influence, b.influence),
-              f"hierarchical: {tag} differs from the first run")
-    log("hierarchical", "two batched runs and the sequential one: labels, "
+    a, b = runs["hierarchical"], runs["hierarchical-sequential"]
+    check(np.array_equal(a.labels, b.labels) and
+          np.array_equal(a.centers, b.centers) and
+          np.array_equal(a.influence, b.influence),
+          "hierarchical: the sequential run differs from the batched one")
+    log("hierarchical", "the batched run and the sequential one: labels, "
         "centers and influence bit-identical")
+    t0 = lap("hierarchical: the two runs", t0)
     profile_call(torch, ctx, "hierarchical",
                  lambda: partition(prob, hierarchy=HIER))
-    host_profile(torch, "hierarchical",
-                 lambda: partition(prob, hierarchy=HIER))
+    t0 = lap("hierarchical: the profiled run", t0)
     lane_layout(torch, ctx, "hierarchical", pts[: MAIN_N // HIER[0]])
     hierarchical_agreement(torch, ctx, pts[:HIER_CPU_N])
+    lap("hierarchical: lane layout and the CPU agreement", t0)
 
 
 def lane_layout(torch, ctx, tag, pts):
@@ -1298,9 +1332,11 @@ def hierarchical_agreement(torch, ctx, pts):
     k1, k2 = HIER_CPU
     small = PartitionProblem(points=pts, k=k1 * k2, epsilon=EPS, seed=0)
     coarse = small.replace(k=k1, epsilon=EPS / 2)
+    t0 = time.perf_counter()
     gpu_c, _, _ = run_counted(torch, ctx, "hierarchical-agreement",
                               lambda: partition(coarse))
     cpu_c = partition(coarse, device="cpu")
+    t0 = lap("hierarchical agreement: the coarse cut, card and CPU", t0)
     agree_c = float(np.mean(gpu_c.labels == cpu_c.labels))
     bpts, bw, gather, counts = build_refinement_batch(pts, None,
                                                       gpu_c.labels, k1)
@@ -1315,8 +1351,10 @@ def hierarchical_agreement(torch, ctx, pts):
     agree_r = float(np.mean((lanes[0][0].cpu().numpy() ==
                              lanes[1][0].numpy())[real]))
     iters = [lane[3]["iters"].cpu().tolist() for lane in lanes]
+    t0 = lap("hierarchical agreement: the lanes, card and CPU", t0)
     gpu = partition(small, hierarchy=HIER_CPU)
     cpu = partition(small, hierarchy=HIER_CPU, device="cpu")
+    lap("hierarchical agreement: end to end, card and CPU", t0)
     agree = float(np.mean(gpu.labels == cpu.labels))
     log("hierarchical", f"n={len(pts)} hierarchy={HIER_CPU}, CUDA vs CPU: "
         f"coarse labels {agree_c:.4f}; refinement lanes from the same "
@@ -1768,10 +1806,237 @@ def same_result(np, a, b) -> bool:
             and np.array_equal(a.influence, b.influence))
 
 
+REDIST_COLS = ("wall", "assign_reduce", "sweeps", "all_reduces",
+               "all_reduce_s", "all_gathers", "all_to_alls", "all_to_all_s",
+               "all_to_all_bytes", "redistribute_s", "centers_s", "kmeans_s",
+               "count", "offset", "gates")
+
+
+def redistribute_on_rank(torch, points):
+    """Inside a launch of P ranks: ``make_distributed_partitioner(P)`` on
+    the main cell, this rank's rows of ``points`` (the reference's deal),
+    twice, once with rank 0 under the profiler, and once at k =
+    ``REDIST_BALANCE_K`` for the balance gate. Gates, on every rank:
+    row 1 launched once a sweep and nothing else ran, two runs bit-equal,
+    the valid keys (recomputed on the card) sorted and inside the rank's
+    splitter range, the offset the prefix of the counts; on rank 0, over
+    every rank's slots all-gathered in rank order (the curve order): the
+    valid points equal the input as a multiset and the initial centers
+    equal bit for bit the points at the int64 strided positions. Returns
+    (every rank's numbers as a [P, len(REDIST_COLS)] table, rank 0's
+    summary)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.balanced_kmeans import BKMConfig
+    from repro_torch.core.partitioner import make_distributed_partitioner
+    from repro_torch.core.sfc import hilbert_index_int32
+    from repro_torch.dist import current
+    comm = current()
+    P, r = comm.size, comm.rank
+    rows = points.shape[0] // P
+    shard = points[r * rows:(r + 1) * rows]
+    run = make_distributed_partitioner(P, BKMConfig(k=MAIN_K, epsilon=EPS))
+    t0 = time.perf_counter()
+    first, _, counts = rank_run(torch, lambda: run(shard, return_stats=True))
+    again, _, _ = rank_run(torch, lambda: run(shard, return_stats=True))
+    # the balance gate's cell: the same points at k = 64 (queue 3 item 17)
+    coarse, _, _ = rank_run(torch, lambda: make_distributed_partitioner(
+        P, BKMConfig(k=REDIST_BALANCE_K, epsilon=EPS))(shard))
+    A, rp, rv, centers, infl, imb, dropped, st = first
+    parts = {"solves": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 ) if r == 0 else contextlib.nullcontext() as prof:
+        # every rank's profiler is running before rank 0's clock starts
+        comm.all_reduce(torch.zeros(1, device=DEVICE))
+        t0 = time.perf_counter()
+        run(shard)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    if r == 0:
+        rows_, device_s = device_rows(prof)
+    parts["profile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    red = st["redistribution"]
+    gates = {"repeat": all(np.array_equal(a, b)
+                           for a, b in zip(first[:7], again[:7]))}
+    on_card = torch.from_numpy(rp[rv]).to(DEVICE)
+    keys = hilbert_index_int32(
+        on_card, lo=torch.from_numpy(red["lo"]).to(DEVICE),
+        hi=torch.from_numpy(red["hi"]).to(DEVICE)).cpu().numpy()
+    s = red["splitters"]
+    gates["keys"] = bool(keys.size == 0 or (
+        np.all(np.diff(keys) >= 0)
+        and (r == 0 or keys[0] >= s[r - 1])
+        and (r == P - 1 or keys[-1] < s[r])))
+    every = comm.all_gather(torch.tensor([red["count"]], device=DEVICE))
+    gates["offset"] = red["offset"] == int(every[:r].sum())
+    gates["launches"] = counts.get("assign_reduce", 0) == sweeps_of(st)
+    slots = [comm.all_gather(torch.from_numpy(x).to(DEVICE))
+             for x in (rp, rv)]
+    summary = None
+    if r == 0:
+        curve = slots[0][slots[1]]              # rank order: curve order
+        want = torch.tensor(np.asarray(points, np.float32), device=DEVICE)
+        n = curve.shape[0]
+        gates["multiset"] = n == want.shape[0] and torch.equal(
+            rows_sorted(torch, curve), rows_sorted(torch, want))
+        gpos = (np.arange(MAIN_K, dtype=np.int64) * n) // MAIN_K \
+            + n // (2 * MAIN_K)
+        gates["centers"] = np.array_equal(red["centers0"],
+                                          curve[gpos].cpu().numpy())
+        parts["gates"] = time.perf_counter() - t0
+        summary = {"imbalance": float(imb), "dropped": int(dropped),
+                   "seconds": parts,
+                   "balance_k_imbalance": float(coarse[5]),
+                   "iters": int(st["iters"]), "cap": red["cap"],
+                   "backend": st["backend"], "gates": gates,
+                   "profile": {"wall": pwall, "device_s": device_s,
+                               "rows": [x[:3] for x in rows_[:8]]}}
+    sec, col = st["seconds"], st["collectives"]
+    row = torch.zeros(P, len(REDIST_COLS), dtype=torch.float64,
+                      device=DEVICE)
+    row[r] = torch.tensor(
+        [0.0, counts.get("assign_reduce", 0), sweeps_of(st),
+         col["all_reduces"], col["seconds"], col["all_gathers"],
+         col["all_to_alls"], col["all_to_all_seconds"],
+         col["all_to_all_bytes"], sec["redistribute"], sec["centers"],
+         sec["kmeans"], red["count"], red["offset"],
+         all(gates.values())], dtype=torch.float64)
+    row[r, 0] = sum(sec.values())
+    return comm.all_reduce(row).tolist(), summary
+
+
+def rows_sorted(torch, x):
+    """The rows of ``x`` [n, d] in lexicographic order: stable sorts from
+    the last column to the first, on x's device."""
+    for j in reversed(range(x.shape[1])):
+        x = x[torch.sort(x[:, j], stable=True).indices]
+    return x
+
+
+def redistribute_extras(torch, points):
+    """Inside the ``devices=4`` launch: the card against CPU ranks on the
+    first ``SHARDED_AGREE_N`` points at k = ``SHARDED_AGREE_K``
+    (``warmup=False``): the redistribution bit-equal, the labels of the
+    valid slots compared; then a curve-ordered copy of the cell (sorted by
+    the int32 key, dealt in contiguous blocks) through the redistribution
+    alone: its ``n_dropped`` beside the count of the reference's rule (the
+    points past ``cap`` for each destination, summed)."""
+    import numpy as np
+    from repro_torch.core.balanced_kmeans import BKMConfig
+    from repro_torch.core.partitioner import (make_distributed_partitioner,
+                                              redistribute)
+    from repro_torch.core.sfc import hilbert_index_int32
+    from repro_torch.dist import current
+    comm = current()
+    P, r = comm.size, comm.rank
+    sub = points[:SHARDED_AGREE_N]
+    rows = sub.shape[0] // P
+    mine = sub[r * rows:(r + 1) * rows]
+    cfg = BKMConfig(k=SHARDED_AGREE_K, epsilon=EPS, warmup=False)
+    t0 = time.perf_counter()
+    card = make_distributed_partitioner(P, cfg)(mine)
+    t1 = time.perf_counter()
+    cpu = make_distributed_partitioner(P, cfg, device="cpu")(mine)
+    t2 = time.perf_counter()
+    same = all(np.array_equal(card[i], cpu[i]) for i in (1, 2))
+    valid = card[2]
+    agree = comm.all_reduce(torch.tensor(
+        [float(np.sum(card[0][valid] == cpu[0][valid])), float(valid.sum()),
+         float(same)], dtype=torch.float64, device=DEVICE)).tolist()
+    pts = torch.tensor(np.asarray(points, np.float32), device=DEVICE)
+    order = torch.sort(hilbert_index_int32(pts), stable=True).indices
+    rows = pts.shape[0] // P
+    mine = pts[order[r * rows:(r + 1) * rows]]
+    t3 = time.perf_counter()
+    red = redistribute(mine, torch.ones(rows, device=DEVICE), comm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t3
+    dest = torch.searchsorted(red.splitters, hilbert_index_int32(
+        mine, lo=red.lo, hi=red.hi), right=True)
+    excess = torch.clamp_min(torch.bincount(dest, minlength=P) - red.cap, 0)
+    rule = int(comm.all_reduce(excess.sum()))
+    return {"seconds": {"card": t1 - t0, "cpu": t2 - t1,
+                        "curve": time.perf_counter() - t2},
+            "agree": agree[0] / agree[1], "valid": int(agree[1]),
+            "same": agree[2] == P, "cpu_imbalance": float(cpu[5]),
+            "card_imbalance": float(card[5]),
+            "curve": {"dropped": red.dropped, "rule": rule, "wall": wall,
+                      "cap": red.cap}}
+
+
+def log_redistribute(ctx, tag, table, summary, extras=None):
+    """The home side of ``redistribute_on_rank`` (and, at P=4, of
+    ``redistribute_extras``): per-rank numbers, the gates, the paths."""
+    card = ctx["card"]
+    P = len(table)
+    for r, row in enumerate(table):
+        v = dict(zip(REDIST_COLS, row))
+        log(tag, f"rank {r}: {v['wall']:.3f} s = redistribution "
+            f"{v['redistribute_s']:.3f} s (all_to_all {int(v['all_to_alls'])}"
+            f" calls, {v['all_to_all_s']:.3f} s, "
+            f"{int(v['all_to_all_bytes'])} bytes) + centers "
+            f"{v['centers_s']:.3f} s + k-means {v['kmeans_s']:.3f} s; "
+            f"sweeps {int(v['sweeps'])}, row-1 launches "
+            f"{int(v['assign_reduce'])}; all-reduces {int(v['all_reduces'])}"
+            f" ({v['all_reduce_s']:.3f} s), all-gathers "
+            f"{int(v['all_gathers'])}; valid slots {int(v['count'])} at "
+            f"offset {int(v['offset'])}  [{card}]")
+        ctx["paths"][f"{tag} rank {r}"] = {
+            "assign_reduce": int(v["assign_reduce"])}
+        check(v["gates"] == 1, f"{tag} rank {r}: a gate failed "
+              f"(rank 0's: {summary['gates']})")
+    s = summary
+    p = s["profile"]
+    log(tag, f"n={MAIN_N} k={MAIN_K} devices={P} ({s['backend']}): cap "
+        f"{s['cap']}, {P * s['cap']} slots a rank, dropped {s['dropped']}, "
+        f"iters {s['iters']}, imbalance {s['imbalance']:.6f}; gates "
+        f"{s['gates']}  [{card}]")
+    log(tag, f"rank 0 under the profiler: wall {p['wall']:.3f} s, device "
+        f"busy {p['device_s']:.3f} s = {p['device_s'] / p['wall']:.1%}  "
+        f"[{card}]")
+    for part, sec in s["seconds"].items():
+        log("time", f"{tag}: {part}: {sec:.1f} s")
+    log_rows(tag, [x + ("CUDA",) for x in p["rows"]], n=8)
+    check(all(s["gates"].values()), f"{tag}: gates {s['gates']}")
+    check(s["dropped"] == 0, f"{tag}: {s['dropped']} points dropped")
+    # at k = 1024 the warm-up on each rank's curve prefix ends unbalanced,
+    # as the reference's does (ROADMAP.md queue 3 item 17): printed above;
+    # the balance is gated at k = 64, where the reference balances
+    log(tag, f"the same points at k={REDIST_BALANCE_K}: imbalance "
+        f"{s['balance_k_imbalance']:.6f}")
+    check(s["balance_k_imbalance"] <= EPS + 1e-6,
+          f"{tag}: imbalance {s['balance_k_imbalance']:.6f} at "
+          f"k={REDIST_BALANCE_K}")
+    if extras is None:
+        return
+    e = extras
+    log(tag, f"first {SHARDED_AGREE_N} points, k={SHARDED_AGREE_K}, "
+        f"warmup=False: card vs CPU ranks redistribution bit-equal "
+        f"{e['same']}, labels {e['agree']:.4f} of {e['valid']} valid "
+        f"slots, imbalance {e['card_imbalance']:.5f} / "
+        f"{e['cpu_imbalance']:.5f}")
+    check(e["same"], f"{tag}: card and CPU redistributions differ")
+    check(e["agree"] >= 0.99, f"{tag}: card vs CPU labels {e['agree']:.4f}")
+    check(max(e["card_imbalance"], e["cpu_imbalance"]) <= EPS + 1e-6,
+          f"{tag}: the agreement cell unbalanced")
+    c = e["curve"]
+    log(tag, f"curve-ordered copy (contiguous blocks of the int32 key "
+        f"order): n_dropped {c['dropped']} (the reference's rule: "
+        f"{c['rule']}; n/2 = {MAIN_N // 2}), cap {c['cap']}, "
+        f"redistribution {c['wall']:.3f} s on rank 0  [{card}]")
+    check(c["dropped"] == c["rule"],
+          f"{tag}: curve-ordered n_dropped {c['dropped']} != {c['rule']}")
+    for part, sec in e["seconds"].items():
+        log("time", f"{tag} extras: {part}: {sec:.1f} s")
+
+
 def sharded_one(prob):
     """Rank body of the ``devices=1`` launch (NCCL), run twice: the first
     solve of the process and a second one. The first's labels come home
-    to be held against the single-device run; the second must equal it."""
+    to be held against the single-device run; the second must equal it.
+    Then the distributed partitioner at P=1 (``redistribute_on_rank``)."""
     import numpy as np
     import torch
     from repro_torch.partition import partition
@@ -1781,7 +2046,8 @@ def sharded_one(prob):
     check(same_result(np, res, again), "devices=1: two runs differ")
     return (res.labels, res.centers, res.influence,
             run_summary(res, table, counts),
-            run_summary(again, table2, counts2))
+            run_summary(again, table2, counts2),
+            redistribute_on_rank(torch, prob.points))
 
 
 REFINE_KEYS = ("rounds", "moves", "converged", "cut_before", "cut_after")
@@ -1930,7 +2196,7 @@ def log_refine_on_ranks(ctx, out):
 def sharded_suite(prob, sub, qprob, qlabels, tri):
     """Rank body of the ``devices=4`` launch (four gloo ranks on the one
     card): every P=4 gate of the phase, the comparisons made in the
-    ranks. Returns rank 0's summary."""
+    ranks, the distributed partitioner last. Returns rank 0's summary."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1942,7 +2208,14 @@ def sharded_suite(prob, sub, qprob, qlabels, tri):
     comm = current()
     P = comm.size
     out = {"backend": comm.backend,
-           "rank_device": torch.cuda.current_device()}
+           "rank_device": torch.cuda.current_device(), "seconds": {}}
+    clock = [time.perf_counter()]
+
+    def mark(part):
+        # rank 0's host seconds of each part of the launch
+        now = time.perf_counter()
+        out["seconds"][part] = now - clock[0]
+        clock[0] = now
     # gloo reduces CUDA tensors: sum, min and max on the card
     x = torch.tensor([comm.rank + 1.0, -float(comm.rank)], device=DEVICE)
     out["probe"] = {op: comm.all_reduce(x, op).cpu().tolist()
@@ -1961,6 +2234,7 @@ def sharded_suite(prob, sub, qprob, qlabels, tri):
     out["mesh"]["equal"] = same_result(np, runs["flat"], runs["mesh"])
     out["device-bootstrap"]["blocks_used"] = int(
         len(np.unique(runs["device-bootstrap"].labels)))
+    mark("devices=4 twice, (2, 2), device bootstrap")
     # where a rank's time goes: rank 0 under the profiler, every rank
     # solving
     torch.cuda.synchronize()
@@ -1975,6 +2249,7 @@ def sharded_suite(prob, sub, qprob, qlabels, tri):
         out["profile"] = {"wall": wall, "device_s": device_s,
                           "rows": [(r[0], r[1], r[2]) for r in rows[:10]]}
     del runs
+    mark("the profiled run")
     # agreement: the card against CPU ranks on the same deal
     card, table, counts = rank_run(
         torch, lambda: partition(sub, devices=P, warmup=False))
@@ -1987,6 +2262,7 @@ def sharded_suite(prob, sub, qprob, qlabels, tri):
     quality, table, counts = rank_run(
         torch, lambda: evaluate_sharded(qprob, qlabels, P), allowed=())
     out["evaluate"] = {"quality": quality, "table": table}
+    mark("agreement with CPU ranks, evaluate_sharded")
     # warm repartitioning: a cold step 0, then T warm steps
     sim, table, counts = rank_run(
         torch, lambda: simulate_loadbalance(prob, meshes.DriftingHotspot(),
@@ -1994,6 +2270,7 @@ def sharded_suite(prob, sub, qprob, qlabels, tri):
         allowed=("assign_reduce", "prefix_sum"))
     sim.pop("final_result")
     out["repartition"] = {"sim": sim, "table": table, "counts": counts}
+    mark("simulate_loadbalance")
     # the hierarchy: the coarse cut over all ranks, the lanes flat or over
     # the refine axis
     hier = {}
@@ -2012,7 +2289,12 @@ def sharded_suite(prob, sub, qprob, qlabels, tri):
     out["hier-mesh"]["equal"] = same_result(np, hier["hier-flat"],
                                             hier["hier-mesh"])
     del hier
+    mark("the hierarchy (8, 8) flat and over (2, 2)")
     out["refine"] = refine_on_ranks(torch, tri)
+    mark("the sharded refinement")
+    out["redistribute"] = (*redistribute_on_rank(torch, prob.points),
+                           redistribute_extras(torch, prob.points))
+    mark("the distributed partitioner")
     return out
 
 
@@ -2038,11 +2320,13 @@ def log_run(tag, s, card):
 
 def phase_sharded(torch, ctx):
     """The multi-device path: ``partition(devices=1)`` over NCCL against
-    ``partition()`` on the main cell; then one launch of four gloo ranks
-    sharing the card for ``devices=4`` (twice), ``(2, 2)``, the device
-    bootstrap, the agreement with CPU ranks, ``evaluate_sharded``, warm
-    repartitioning, the hierarchy and the sharded refinement rounds on
-    the refine cell (``refine_on_ranks``)."""
+    ``partition()`` on the main cell, and the distributed partitioner at
+    P=1; then one launch of four gloo ranks sharing the card for
+    ``devices=4`` (twice), ``(2, 2)``, the device bootstrap, the agreement
+    with CPU ranks, ``evaluate_sharded``, warm repartitioning, the
+    hierarchy, the sharded refinement rounds on the refine cell
+    (``refine_on_ranks``) and the distributed partitioner at P=4
+    (``redistribute_on_rank``, ``redistribute_extras``)."""
     import numpy as np
     from repro_torch.core import metrics
     from repro_torch.dist import launch
@@ -2055,12 +2339,13 @@ def phase_sharded(torch, ctx):
     prob = PartitionProblem(points=pts, k=MAIN_K, epsilon=EPS, seed=0)
     single = partition(prob)
     t0 = time.perf_counter()
-    labels, centers, infl, s, s2 = launch.launch(
+    labels, centers, infl, s, s2, redist = launch.launch(
         sharded_one, 1, args=(prob,), device="cuda", timeout=600)
     wall = time.perf_counter() - t0
     log_run("sharded-1", s, ctx["card"])
     log_run("sharded-1-repeat", s2, ctx["card"])
     ctx["paths"]["sharded-1"] = s["counts"]
+    log_redistribute(ctx, "redistribute-1", *redist)
     log("sharded-1", f"launch of 1 rank, two solves: {wall:.1f} s with the "
         f"process start; the two runs bit-identical")
     check(s["backend"] == launch.choose_backend("cuda", 1),
@@ -2163,6 +2448,12 @@ def phase_sharded(torch, ctx):
     log("sharded", f"hierarchy={SHARDED_HIER}: devices=(2, 2) bit-equal to "
         f"devices={SHARDED_P}")
     log_refine_on_ranks(ctx, out["refine"])
+    table, summary, extras = out["redistribute"]
+    log_redistribute(ctx, f"redistribute-{SHARDED_P}", table, summary,
+                     extras)
+    for part, sec in out["seconds"].items():
+        log("time", f"sharded, the {SHARDED_P}-rank launch: {part}: "
+            f"{sec:.1f} s")
     log("sharded", f"refine(devices={SHARDED_P}) and devices={SHARDED_MESH}"
         " bit-equal to the single-card refine(); partition(devices=, "
         "refine=True) equal to its parts; the warm refined step balanced")

@@ -26,7 +26,7 @@ predicate reads a reduced value, so all ranks take the same branches.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -381,3 +381,16 @@ def balanced_kmeans(points, cfg: BKMConfig, weights=None, centers0=None,
              "tiles_pruned_frac": frac,
              "history": hist}
     return A, centers, infl, stats
+
+
+def pin_backend(cfg: BKMConfig, dev: torch.device) -> BKMConfig:
+    """cfg with ``auto`` resolved for ``dev`` and the fused choice made,
+    before a sharded solve (the reference's ``_prep_sharded_cfg``): on the
+    card every shard runs the sorted fused kernel, each over its own
+    layout."""
+    from repro_torch.kernels.ops import (backend_supports_moments,
+                                         resolve_assign_backend)
+    backend = resolve_assign_backend(cfg.backend, dev)
+    fused = (backend_supports_moments(backend, dev) if cfg.fused is None
+             else cfg.fused)
+    return replace(cfg, backend=backend, fused=fused)

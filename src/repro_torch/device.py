@@ -2,6 +2,8 @@
 for another device."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -15,3 +17,10 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run on the host")
     return dev
+
+
+def on_card(dev: torch.device):
+    """A context with ``dev`` as the current CUDA device (a rank's kernels
+    launch on its own card); a no-op for other devices."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()

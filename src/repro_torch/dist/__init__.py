@@ -3,8 +3,10 @@ partition half of ``repro/dist``).
 
 One rank per process (or per thread, for the CPU tests). A rank's
 ``Communicator`` stands where the reference passes ``axis_name``: it
-all-reduces sums, minima and maxima, and nothing else. ``rules`` holds
-the mesh shapes, ``launch`` starts the ranks when the caller is not one.
+all-reduces sums, minima and maxima, and, for the distributed
+partitioner's sample sort alone, all-gathers and exchanges
+(``all_to_all``). ``rules`` holds the mesh shapes, ``launch`` starts the
+ranks when the caller is not one.
 """
 from .comm import Communicator, current, reduce, using
 from .rules import (COARSE_AXIS, PARTITION_AXIS, REFINE_AXIS, comm_for,

@@ -4,10 +4,14 @@
 A ``Communicator`` holds one rank's process group, its rank, the world
 size, the mesh shape ``(P,)`` or ``(P1, P2)`` and, for a 2-D mesh, the
 subgroup of its refine axis. It offers the reductions of the paper's
-communication discipline (§4.1) and nothing else: ``all_reduce(x, "sum"
-| "min" | "max")``, plus the shard id (the reference's ``axis_index``).
-The rank order of ``(P1, P2)`` is the row-major flat order of ``P1*P2``,
-so a reduction over the whole mesh runs over the same group in the same
+communication discipline (§4.1), ``all_reduce(x, "sum" | "min" |
+"max")``, plus the shard id (the reference's ``axis_index``), and two
+collectives that move data: ``all_gather`` and ``all_to_all``, the
+reference's ``all_gather`` and ``all_to_all`` of the SFC redistribution
+(``core.partitioner._sfc_redistribute``, the sample sort under
+``make_distributed_partitioner``); no other path uses them. The rank
+order of ``(P1, P2)`` is the row-major flat order of ``P1*P2``, so a
+collective over the whole mesh runs over the same group in the same
 order as the flat mesh's and gives the same bits.
 
 ``current()`` is the communicator of the calling rank: the one a
@@ -32,6 +36,11 @@ class CancelledError(RuntimeError):
     """A collective ended because another rank failed."""
 
 
+#: the collectives ``counters()`` counts apart: (kind, its count's key)
+KINDS = (("all_reduce", "all_reduces"), ("all_gather", "all_gathers"),
+         ("all_to_all", "all_to_alls"))
+
+
 def _reduce_op(op: str):
     return {"sum": tdist.ReduceOp.SUM, "min": tdist.ReduceOp.MIN,
             "max": tdist.ReduceOp.MAX}[op]
@@ -39,15 +48,30 @@ def _reduce_op(op: str):
 
 class _Shared:
     """What the views of one rank's group share: the collective counters
-    and the refine-axis subgroups, made once per P2."""
+    (calls, host seconds, bytes of each kind) and the refine-axis
+    subgroups, made once per P2."""
 
     def __init__(self, subgroup_factory, cancel=None):
         self.subgroup_factory = subgroup_factory
         self.cancel = cancel
         self.subgroups: dict = {}
-        self.calls = 0
-        self.seconds = 0.0
-        self.bytes = 0
+        self.counts = {kind: [0, 0.0, 0] for kind, _ in KINDS}
+
+    def finish(self, kind: str, work, t0: float, nbytes: int) -> None:
+        """Wait for ``work`` (a collective started at ``t0``) and count it.
+        With ``cancel`` set by a failing thread rank, leave at once with
+        ``CancelledError``."""
+        if self.cancel is not None:
+            while not work.is_completed():
+                if self.cancel.is_set():
+                    raise CancelledError("another rank of the launch "
+                                         "failed")
+                time.sleep(2e-5)
+        work.wait()
+        count = self.counts[kind]
+        count[0] += 1
+        count[1] += time.perf_counter() - t0
+        count[2] += nbytes
 
 
 class Communicator:
@@ -117,19 +141,45 @@ class Communicator:
         out = (x.to(torch.int32) if was_bool else x).clone().contiguous()
         opts = tdist.AllreduceOptions()
         opts.reduceOp = _reduce_op(op)
-        sh = self._shared
         t0 = time.perf_counter()
         work = self.group.allreduce([out], opts)
-        if sh.cancel is not None:
-            while not work.is_completed():
-                if sh.cancel.is_set():
-                    raise CancelledError("another rank of the launch "
-                                         "failed")
-                time.sleep(2e-5)
-        work.wait()
-        sh.seconds += time.perf_counter() - t0
-        sh.calls += 1
-        sh.bytes += out.numel() * out.element_size()
+        self._shared.finish("all_reduce", work, t0, _nbytes(out))
+        return out.bool() if was_bool else out
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` stacked in rank order: [P, *x.shape] (the
+        reference's ``all_gather`` with ``tiled=False``). Boolean tensors
+        travel as uint8 and come back boolean. Bytes counted: this rank's
+        ``x``."""
+        was_bool = x.dtype == torch.bool
+        src = (x.to(torch.uint8) if was_bool else x).contiguous()
+        outs = [torch.empty_like(src) for _ in range(self.size)]
+        t0 = time.perf_counter()
+        work = self.group.allgather([outs], [src])
+        self._shared.finish("all_gather", work, t0, _nbytes(src))
+        out = torch.stack(outs)
+        return out.bool() if was_bool else out
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Dim 0 of ``x`` split into P equal chunks, chunk j sent to rank
+        j; the chunks received, concatenated in rank order (the
+        reference's ``all_to_all(split_axis=0, concat_axis=0,
+        tiled=False)`` over a leading axis of P). Boolean tensors travel
+        as uint8. Bytes counted: this rank's ``x``.
+
+        Raises:
+            ValueError: dim 0 is not a multiple of P.
+        """
+        if x.dim() == 0 or x.shape[0] % self.size:
+            raise ValueError(f"all_to_all splits dim 0 into {self.size} "
+                             f"equal chunks; got shape {tuple(x.shape)}")
+        was_bool = x.dtype == torch.bool
+        src = (x.to(torch.uint8) if was_bool else x).contiguous()
+        out = torch.empty_like(src)
+        t0 = time.perf_counter()
+        work = self.group.alltoall_base(out, src, [], [],
+                                        tdist.AllToAllOptions())
+        self._shared.finish("all_to_all", work, t0, _nbytes(src))
         return out.bool() if was_bool else out
 
     def refine_group(self) -> "Communicator":
@@ -155,12 +205,23 @@ class Communicator:
                             _shared=_Shared(None, sh.cancel))
 
     def counters(self) -> dict:
-        """All-reduces of this group so far: ``{"all_reduces", "seconds",
-        "bytes"}`` (host seconds inside ``all_reduce``); callers take the
-        difference around the work they measure."""
-        sh = self._shared
-        return {"all_reduces": sh.calls, "seconds": sh.seconds,
-                "bytes": sh.bytes}
+        """Collectives of this group so far, each kind apart: the
+        all-reduces as ``{"all_reduces", "seconds", "bytes"}`` (host
+        seconds inside ``all_reduce``), the others as ``"all_gathers"``,
+        ``"all_gather_seconds"``, ``"all_gather_bytes"`` and the same for
+        ``all_to_all``. Callers take the difference around the work they
+        measure."""
+        out = {}
+        for kind, key in KINDS:
+            calls, seconds, nbytes = self._shared.counts[kind]
+            prefix = "" if kind == "all_reduce" else f"{kind}_"
+            out.update({key: calls, f"{prefix}seconds": seconds,
+                        f"{prefix}bytes": nbytes})
+        return out
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def reduce(x: torch.Tensor, comm: Communicator | None, op: str = "sum"):

@@ -43,7 +43,6 @@ is guaranteed.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from dataclasses import dataclass
@@ -51,11 +50,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core.balanced_kmeans import BKMConfig, balanced_kmeans
+from repro_torch.core.balanced_kmeans import (BKMConfig, balanced_kmeans,
+                                             pin_backend)
 from repro_torch.core.partitioner import stats_to_numpy
 from repro_torch.core.sfc import (sfc_initial_centers_sharded,
                                   sfc_initial_centers_torch)
-from repro_torch.device import resolve_device
+from repro_torch.device import on_card, resolve_device
 from repro_torch.dist import launch
 from repro_torch.dist.rules import comm_for, mesh_size
 
@@ -301,25 +301,6 @@ def _np_dtype(dtype: torch.dtype) -> np.dtype:
     return np.dtype(str(dtype).rsplit(".", 1)[-1])
 
 
-def _on_card(dev: torch.device):
-    """The rank's card as the current device (the kernels launch on it)."""
-    return torch.cuda.device(dev) if dev.type == "cuda" \
-        else contextlib.nullcontext()
-
-
-def _pin_backend(cfg: BKMConfig, dev: torch.device) -> BKMConfig:
-    """cfg with ``auto`` resolved for the rank's device and the fused
-    choice made, before the solve (the reference's ``_prep_sharded_cfg``):
-    on the card every shard runs the sorted fused kernel, each over its
-    own layout."""
-    from repro_torch.kernels.ops import (backend_supports_moments,
-                                         resolve_assign_backend)
-    backend = resolve_assign_backend(cfg.backend, dev)
-    fused = (backend_supports_moments(backend, dev) if cfg.fused is None
-             else cfg.fused)
-    return dataclasses.replace(cfg, backend=backend, fused=fused)
-
-
 def _collectives(before: dict, after: dict) -> dict:
     return {key: after[key] - before[key] for key in after}
 
@@ -335,10 +316,10 @@ def _solve_on_rank(problem: PartitionProblem, comm, cfg: BKMConfig,
     ``stats["collectives"]`` (this rank's all-reduces)."""
     dev = launch.rank_device(resolve_device(device), comm.rank)
     warm = centers0 is not None
-    with _on_card(dev):
+    with on_card(dev):
         before = comm.counters()
         t0 = time.perf_counter()
-        cfg = _pin_backend(cfg, dev)
+        cfg = pin_backend(cfg, dev)
         n = problem.n
         pts, w, gather, valid = deal_shard(problem, comm.size,
                                            comm.shard_id, chunk=chunk,
