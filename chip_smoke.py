@@ -36,7 +36,11 @@ granite-moe-3b-a800m at full width through ``ServeEngine.run`` and through
 ``prefill`` -> ``extend_cache`` -> ``decode_step`` at a 4096-token prompt
 (the paths of the MoE-router kernel and of the bf16 tensor-core
 flash-attention kernel; the float32 CUDA-core flash kernel is held and
-timed beside it), times each kernel with CUDA events against its bound,
+timed beside it), serves the dense decoder family at published widths
+(phi3-mini, phi4-mini, starcoder2, gemma3, musicgen, internvl2 and llama4,
+the last two cut in depth to fit the card) through the same entry points,
+with launch counts per layer kind and card-vs-CPU transcripts on each
+SMOKE, times each kernel with CUDA events against its bound,
 and prints one JSON line of kernel records. Every phase raises on failure. The last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every phase
 passed. Without a CUDA device, or without the rest of the repository
@@ -62,7 +66,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("card", "build", "kernels", "lm_kernels", "main", "paths",
           "agreement", "profile", "repartition", "hierarchical", "pserve",
-          "refine", "sharded", "experiments", "serve", "prefill", "timing")
+          "refine", "sharded", "experiments", "serve", "prefill", "archs",
+          "timing")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_F32_FLOPS = 67e12
@@ -135,6 +140,8 @@ EXPERIMENTS_SMALL = {"n": 1 << 12, "k": 16, "seed": 0,
 SERVE_BATCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 6, 12, 16
 SERVE_MAX_SEQ = 64
 PREFILL_S, PREFILL_NEW = 4096, 16
+# phi3-mini's prefill attention (B, S, H, KV, dh): the flash kernels at dh 96
+PHI3_FLASH = (1, PREFILL_S, 32, 32, 96)
 
 
 class SmokeError(RuntimeError):
@@ -194,16 +201,17 @@ def phase_build(torch, ctx):
     for lib in libs.values():
         text = lib.ptxas_log
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
-        spills = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
+        spills = re.findall(r"Function properties for (\S+)\s+"
+                            r"(\d+) bytes stack frame, (\d+) bytes spill "
                             r"stores, (\d+) bytes spill loads", text)
-        spilled = [s for s in spills if int(s[1]) or int(s[2])]
+        spilled = [s for s in spills if int(s[2]) or int(s[3])]
         entries = len(re.findall(r"Compiling entry function", text))
         log("build", f"{lib.path.name}: nvcc {lib.build_seconds:.1f} s, "
             f"{entries} kernels, max {max(regs, default=0)} registers, "
             f"{len(spilled)} with spills")
         for s in spilled:
-            log("build", f"  {s[0]} bytes stack frame, {s[1]} bytes spill "
-                f"stores, {s[2]} bytes spill loads")
+            log("build", f"  {s[0]}: {s[1]} bytes stack frame, {s[2]} bytes "
+                f"spill stores, {s[3]} bytes spill loads")
 
 
 # ---------------------------------------------------------------------------
@@ -766,6 +774,19 @@ def compare_flash(torch, B, S, H, KV, dh, dtype, softcap=0.0, bq=512,
     return rel, ref_rel
 
 
+def arch_flash_shapes():
+    """(B, S, H, KV, dh) of a 4096-token prefill of each config of the
+    archs phase, once each: the flash kernel's shapes on those paths."""
+    from repro_torch import configs
+    shapes = []
+    for arch, _, _ in ARCH_CELLS:
+        c = configs.get_config(arch)
+        shape = (1, PREFILL_S, c.n_heads, c.n_kv_heads, c.hd)
+        if shape not in shapes:
+            shapes.append(shape)
+    return shapes
+
+
 def phase_lm_kernels(torch):
     from repro_torch.configs import granite_moe_3b_a800m as granite
     cfg = granite.CONFIG
@@ -801,6 +822,15 @@ def phase_lm_kernels(torch):
         for mode in ROUTER_MODES:
             errs.append(compare_router(torch, T, e, d, k, T + d, x_dtype,
                                        mode))
+    # llama4's MoE layer (E = 128, top-1, D = 5120) at its serve, decode
+    # and prefill token counts
+    from repro_torch.configs import llama4_maverick_400b_a17b as llama4
+    m4 = llama4.CONFIG.moe
+    for T in (1, SERVE_BATCH, PREFILL_S):
+        for mode in ROUTER_MODES:
+            errs.append(compare_router(torch, T, m4.n_experts,
+                                       llama4.CONFIG.d_model, m4.top_k, T,
+                                       torch.bfloat16, mode))
     log("lm_kernels", f"router: {len(errs)} cases agree with the plain "
         f"version (max |eff err| {max(errs):.3g}, tolerance {ROUTER_TOL}), "
         "each launched twice with the same bits")
@@ -821,7 +851,9 @@ def phase_lm_kernels(torch):
             (1, 300, 3, 1, 16, 0.0),
             (2, 1024, 8, 2, 16, 0.0),
             (1, 320, 4, 1, 256, 0.0),               # gemma's dh
-            (2, 200, 4, 2, 256, 30.0)):
+            (2, 200, 4, 2, 256, 30.0),
+            (2, 300, 6, 2, 96, 30.0)) + tuple(      # ragged S at dh 96
+                shape + (0.0,) for shape in arch_flash_shapes()):
         rel, ref_rel = compare_flash(torch, B, S, h, kv, dh, torch.bfloat16,
                                      cap)
         kern.append(rel)
@@ -840,7 +872,9 @@ def phase_lm_kernels(torch):
             (2, 384, 4, 1, 32, 128, 128, 0.0),
             (1, 256, 4, 4, 128, 128, 128, 50.0),
             (1, 300, 3, 1, 16, 128, 128, 0.0),
-            (2, 200, 4, 2, 256, 512, 512, 30.0)):
+            (2, 200, 4, 2, 256, 512, 512, 30.0),
+            PHI3_FLASH + (512, 512, 0.0),
+            (2, 300, 6, 2, 96, 512, 512, 30.0)):
         compare_flash(torch, B, S, h, kv, dh, torch.float32, cap, bq, bk)
     log("lm_kernels", "the router and both flash kernels agree with their "
         "plain versions")
@@ -2777,30 +2811,57 @@ def profile_decode(torch, ctx, engine, step_fn, steps=4):
         f"[{ctx['card']}]")
 
 
-def serve_agreement(torch):
-    """The same engine on granite SMOKE in float32, on the card (router
-    kernel) and on the CPU (plain version), from one set of parameters:
-    the transcripts must be equal."""
+def serve_agreement(torch, arch="granite_moe_3b_a800m"):
+    """The same engine on ``arch``'s SMOKE in float32, on the card (its
+    kernels) and on the CPU (the plain versions), from one set of
+    parameters: the transcripts (codebook 0 for codebook configs) must be
+    equal. An embeddings config, which the engine does not serve, runs 8
+    serve steps over seeded embeddings instead, and its logits must agree
+    within 1e-4."""
     import dataclasses
     import numpy as np
-    from repro_torch.configs import granite_moe_3b_a800m as granite
+    from repro_torch import configs
     from repro_torch.models import model as M
     from repro_torch.serve import Request, ServeEngine
-    cfg = dataclasses.replace(granite.SMOKE, dtype="float32")
+    from repro_torch.serve.engine import make_serve_step
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=True),
+                              dtype="float32")
     cpu = M.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
     card = _to_device(cpu, DEVICE)
+    if cfg.input_mode == "embeddings":
+        emb = torch.tensor(np.random.default_rng(1).standard_normal(
+            (3, 8, cfg.d_model)), dtype=torch.float32)
+        step = make_serve_step(cfg)
+        logits = []
+        for params, dev in ((card, DEVICE), (cpu, "cpu")):
+            cache = M.init_cache(cfg, 3, 8, device=dev)
+            out = []
+            for t in range(8):
+                _, cache, lg = step(params, cache, emb[:, t:t + 1].to(dev),
+                                    t)
+                out.append(lg.float().cpu())
+            logits.append(torch.cat(out, dim=1))
+        err = float(torch.max(torch.abs(logits[0] - logits[1])))
+        check(torch.allclose(logits[0], logits[1], rtol=1e-4, atol=1e-4),
+              f"serve: {cfg.name} float32 decode logits differ between the "
+              f"card and the CPU (max |err| {err:.3g})")
+        log("serve", f"{cfg.name} float32, 8 steps at batch 3 from seeded "
+            f"embeddings: card and CPU logits agree (max |err| {err:.3g}, "
+            "tolerance 1e-4)")
+        return
+    shape = () if cfg.input_mode == "tokens" else (cfg.n_codebooks,)
     out = []
     for params in (card, cpu):
         rng = np.random.default_rng(1)
-        reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, (n,))
-                        .astype(np.int32), max_new=8)
+        reqs = [Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab_size, (n, *shape)).astype(np.int32), max_new=8)
                 for i, n in enumerate((5, 3, 7, 4, 6, 2))]
         ServeEngine(cfg, None, params, batch=4, max_seq=32).run(reqs)
         out.append([r.out for r in reqs])
-    check(out[0] == out[1], f"serve: granite SMOKE float32 transcripts "
+    check(out[0] == out[1], f"serve: {cfg.name} float32 transcripts "
           f"differ between the card and the CPU: {out}")
-    log("serve", "granite SMOKE float32, 6 requests at batch 4: card "
-        "(router kernel) and CPU (plain version) transcripts equal")
+    log("serve", f"{cfg.name} float32, 6 requests at batch 4: card "
+        "(kernels) and CPU (plain versions) transcripts equal")
 
 
 def _to_device(tree, device):
@@ -2866,22 +2927,25 @@ def greedy(torch, logits, cfg):
     return torch.argmax(lf, dim=-1).to(torch.int32)
 
 
-def prefill_agreement(torch, cfg, params):
-    """Two layers at full width, S = 4096: prefill (flash kernel) against
+def prefill_agreement(torch, cfg, params, depth=2, tag="prefill"):
+    """``depth`` layers at full width, S = 4096: prefill (flash kernel in
+    the full layers, the band in sliding-window ones) against
     token-by-token decode from scratch (dense attention against the
-    cache), both with the router kernel. Drop-free expert capacity, as
-    the reference's own decode-vs-forward test: a full-sequence MoE drops
-    tokens at capacity, a one-token step never does. Prefill's last
-    logits, and the logits of the steps after it fed the same tokens,
-    agree within the bf16 tolerance, and the 8 greedy tokens are equal."""
+    cache, windowed in sliding-window layers), both with the router
+    kernel in MoE layers. Drop-free expert capacity, as the reference's
+    own decode-vs-forward test: a full-sequence MoE drops tokens at
+    capacity, a one-token step never does. Prefill's last logits, and the
+    logits of the steps after it fed the same tokens, agree within the
+    bf16 tolerance, and the 8 greedy tokens are equal."""
     import dataclasses
     import numpy as np
     from repro_torch.models import model as M
-    depth = 2
-    cfg2 = dataclasses.replace(
-        cfg, n_layers=depth, moe=dataclasses.replace(
+    cfg2 = dataclasses.replace(cfg, n_layers=depth)
+    if cfg.moe is not None:
+        cfg2 = dataclasses.replace(cfg2, moe=dataclasses.replace(
             cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
-    p2 = dict(params, layers={k: {kk: _index_repeats(vv, depth)
+    reps = depth // cfg.period
+    p2 = dict(params, layers={k: {kk: _index_repeats(vv, reps)
                                   for kk, vv in v.items()}
                               for k, v in params["layers"].items()})
     toks = torch.tensor(np.random.default_rng(3).integers(
@@ -2912,7 +2976,8 @@ def prefill_agreement(torch, cfg, params):
                              atol=LM_BF16_TOL),
               f"prefill vs stepwise decode: step {t} logits differ "
               f"({errs[-1]:.3g})")
-    log("prefill", f"agreement at depth {depth}, full width, S={PREFILL_S}: "
+    log(tag, f"{cfg.name} agreement at depth {depth}, full width, "
+        f"S={PREFILL_S}: "
         f"prefill vs {PREFILL_S} one-token steps, max |logit err| "
         f"{max(errs):.3g} over the last prompt position and 8 steps after "
         f"(tolerance {LM_BF16_TOL}); the 8 greedy tokens equal; "
@@ -2923,6 +2988,209 @@ def _index_repeats(tree, n):
     if isinstance(tree, dict):
         return {k: _index_repeats(v, n) for k, v in tree.items()}
     return tree[:n]
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the dense decoder family served at full width
+# ---------------------------------------------------------------------------
+
+# (arch, layers run or None for all, why) in the order the phase serves
+# them, each at its published widths
+ARCH_CELLS = (
+    ("phi3_mini_3p8b", None, "fits"),
+    ("phi4_mini_3p8b", None, "fits"),
+    ("starcoder2_7b", None, "fits"),
+    ("gemma3_1b", None, "fits"),
+    ("musicgen_large", None, "fits"),
+    ("internvl2_76b", 2, "80 layers of float32 weights (~280 GB) do not fit "
+     "one card"),
+    ("llama4_maverick_400b_a17b", 2, "one (dense, MoE) pattern period in "
+     "bfloat16; 400B parameters do not fit one card"),
+)
+# prefill-vs-stepwise agreements at full width: arch -> depth (gemma3's
+# pattern period: five sliding-window layers and a global one)
+ARCH_AGREEMENTS = {"gemma3_1b": 6, "phi3_mini_3p8b": 2}
+
+
+def arch_batch(torch, cfg, B, S, seed):
+    """A [B, S] batch for ``cfg``'s input mode on the card, from a seeded
+    numpy generator: token ids, codebook ids [B, S, n] or embeddings
+    [B, S, D] in the activation dtype."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "embeddings":
+        return {"embeddings": torch.tensor(
+            rng.standard_normal((B, S, cfg.d_model), dtype=np.float32),
+            device=DEVICE).to(cfg.act_dtype)}
+    shape = (B, S) if cfg.input_mode == "tokens" else (B, S, cfg.n_codebooks)
+    return {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, shape),
+                                   dtype=torch.int32, device=DEVICE)}
+
+
+def arch_layers(cfg, field, kind) -> int:
+    """How many of ``cfg``'s layers have ``spec.<field> == kind``."""
+    return sum(getattr(s, field) == kind for s in cfg.pattern) * \
+        cfg.n_repeats
+
+
+def keep_path(ctx, tag, counts):
+    ctx["paths"][tag] = {n: c for n, c in counts.items() if c}
+
+
+def serve_arch(torch, ctx, cfg, params):
+    """``ServeEngine.run`` at granite's serve shapes (batch 4, 6 requests
+    x 12-token prompts, 16 new tokens; codebook prompts [12, n]). The
+    engine takes no embeddings config: that one steps ``make_serve_step``
+    through the engine's rounds (two groups of 12 + 16 positions) over
+    seeded embeddings, with the engine's one host read a step. The router
+    must launch once a MoE layer a step, flash never."""
+    import numpy as np
+    from repro_torch.kernels.ops import reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.engine import make_serve_step
+    n_moe = arch_layers(cfg, "mlp", "moe")
+    tag = f"archs-{cfg.name}-serve"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if cfg.input_mode == "embeddings":
+        step = make_serve_step(cfg)
+        emb = arch_batch(torch, cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_NEW,
+                         0)["embeddings"]
+        n_steps, outs = 0, []
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(-(-SERVE_REQUESTS // SERVE_BATCH)):
+            cache = M.init_cache(cfg, SERVE_BATCH, SERVE_MAX_SEQ,
+                                 device=DEVICE)
+            for p in range(SERVE_PROMPT + SERVE_NEW):
+                nxt, cache, _ = step(params, cache, emb[:, p:p + 1], p)
+                n_steps += 1
+                if p >= SERVE_PROMPT:
+                    outs.append(nxt.cpu().numpy().reshape(-1))
+        n_tok = SERVE_REQUESTS * SERVE_NEW
+        check(all(((o >= 0) & (o < cfg.vocab_size)).all() for o in outs),
+              f"{tag}: tokens out of the vocabulary")
+        first = [int(o[0]) for o in outs[:SERVE_NEW]]
+    else:
+        engine = ServeEngine(cfg, None, params, batch=SERVE_BATCH,
+                             max_seq=SERVE_MAX_SEQ)
+        step_fn = engine.step_fn
+        n_steps = 0
+
+        def counted(*args):
+            nonlocal n_steps
+            n_steps += 1
+            return step_fn(*args)
+
+        engine.step_fn = counted
+        rng = np.random.default_rng(0)
+        shape = (SERVE_PROMPT,) if cfg.input_mode == "tokens" else \
+            (SERVE_PROMPT, cfg.n_codebooks)
+        reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, shape)
+                        .astype(np.int32), max_new=SERVE_NEW)
+                for i in range(SERVE_REQUESTS)]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        engine.run(reqs)
+        n_tok = sum(len(r.out) for r in reqs)
+        for r in reqs:
+            check(r.done and len(r.out) == SERVE_NEW and
+                  all(0 <= t < cfg.vocab_size for t in r.out),
+                  f"{tag}: request {r.uid} transcript {r.out}")
+        first = reqs[0].out
+    wall, counts = lm_counts_after(torch, ctx, tag, {
+        "router_topk": n_moe * n_steps}, t0, record=())
+    keep_path(ctx, tag, counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("archs", f"{cfg.name} serve: batch {SERVE_BATCH}, {SERVE_REQUESTS} "
+        f"requests x {SERVE_PROMPT}-position prompts, {SERVE_NEW} new tokens"
+        f" each: {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.2f} "
+        f"tokens/s, {n_steps} steps at {wall / n_steps * 1e3:.2f} ms a step;"
+        f" router launches {counts['router_topk']} = {n_moe} x {n_steps}, "
+        f"flash launches {counts['flash_attention_tc']}; peak memory "
+        f"{peak:.2f} GiB; request 0: {first}  [{ctx['card']}]")
+
+
+def prefill_arch(torch, ctx, cfg, params):
+    """``prefill`` at B=1, S=4096 (tensor-core flash once a full-attention
+    layer, the band in sliding-window layers, the router once a MoE
+    layer), then ``extend_cache`` and 16 greedy decode steps (seeded
+    embeddings for the embeddings config)."""
+    from repro_torch.kernels.ops import reset_launch_counts
+    from repro_torch.models import model as M
+    n_full = arch_layers(cfg, "attn", "full")
+    n_moe = arch_layers(cfg, "mlp", "moe")
+    tag = f"archs-{cfg.name}-prefill"
+    batch = arch_batch(torch, cfg, 1, PREFILL_S, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(params, batch, cfg)
+    wall, counts = lm_counts_after(torch, ctx, tag, {
+        "flash_attention_tc": n_full, "router_topk": n_moe}, t0, record=())
+    keep_path(ctx, tag, counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    heads = (cfg.n_codebooks,) if cfg.input_mode == "codebooks" else ()
+    check(tuple(logits.shape) == (1, 1, *heads, cfg.vocab_padded) and
+          bool(torch.isfinite(logits.float()).all()),
+          f"{tag}: logits not finite or of the wrong shape "
+          f"{tuple(logits.shape)}")
+    cache = M.extend_cache(cache, cfg, PREFILL_S + PREFILL_NEW)
+    out = []
+    t1 = time.perf_counter()
+    for t in range(PREFILL_NEW):
+        nxt = greedy(torch, logits, cfg)
+        out.append(nxt.reshape(-1).tolist())
+        step = (arch_batch(torch, cfg, 1, 1, 100 + t)
+                if cfg.input_mode == "embeddings" else {"tokens": nxt})
+        logits, cache = M.decode_step(params, cache, step, PREFILL_S + t,
+                                      cfg)
+    torch.cuda.synchronize()
+    dec = time.perf_counter() - t1
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{tag}: decode logits not finite")
+    log("archs", f"{cfg.name} prefill B=1 S={PREFILL_S}: {wall:.3f} s, "
+        f"flash launches {counts['flash_attention_tc']} = {n_full} "
+        f"full-attention layers (of {cfg.n_layers}), router launches "
+        f"{counts['router_topk']} = {n_moe} MoE layers, peak memory "
+        f"{peak:.2f} GiB; {PREFILL_NEW} decode steps after it {dec:.3f} s "
+        f"= {dec / PREFILL_NEW * 1e3:.2f} ms a step, tokens "
+        f"{[o[0] for o in out]}  [{ctx['card']}]")
+
+
+def phase_archs(torch, ctx):
+    """The seven dense-family configs at their published widths, one after
+    another (ARCH_CELLS), each with parameters made on the card from a
+    seeded generator and freed before the next: the engine's serve shapes,
+    a 4096-token prefill with decode after it, the prefill-vs-stepwise
+    agreements of ARCH_AGREEMENTS, and the card against the CPU on the
+    config's SMOKE."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    for arch, depth, why in ARCH_CELLS:
+        t0 = time.perf_counter()
+        cfg = configs.get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        params = M.init_params(cfg, gen, device=DEVICE)
+        torch.cuda.synchronize()
+        log("archs", f"{cfg.name}: {cfg.n_layers} layers "
+            f"({'all' if depth is None else why}), d_model {cfg.d_model}, "
+            f"{M.param_count(params):,} parameters ({cfg.param_dtype}) made "
+            f"on the card in {time.perf_counter() - t0:.1f} s")
+        serve_arch(torch, ctx, cfg, params)
+        prefill_arch(torch, ctx, cfg, params)
+        if arch in ARCH_AGREEMENTS:
+            prefill_agreement(torch, cfg, params, ARCH_AGREEMENTS[arch],
+                              tag="archs")
+        del params
+        torch.cuda.empty_cache()
+        serve_agreement(torch, arch)
+        lap(f"archs {cfg.name}", t0)
 
 
 # ---------------------------------------------------------------------------
@@ -3322,6 +3590,51 @@ def time_flash(torch, ctx, cfg):
             f"the kernel's time, {flops / rec['ms'] / 1e9:.1f} TFLOP/s, "
             f"launches {rec.get('launches')} on the {rec.get('path')} path"
             f"  [{ctx['card']}]")
+    time_flash_shapes(torch, ctx)
+
+
+# the tensor-core flash kernel at the other archs' prefill shapes (B, S, H,
+# KV, dh): phi3 (dh 96) and gemma3's global layers (dh 256, MQA)
+FLASH_ARCH_SHAPES = {"phi3_mini_3p8b": PHI3_FLASH,
+                     "gemma3_1b": (1, PREFILL_S, 4, 1, 256)}
+
+
+def time_flash_shapes(torch, ctx):
+    """The tensor-core kernel against SDPA on the same inputs at each shape
+    of FLASH_ARCH_SHAPES, in turns (kernel, SDPA, SDPA, kernel), with its
+    bound and its error against the plain version; kept under the kernel
+    record's ``by_shape``."""
+    from repro_torch.kernels.flash_attention import (flash_attention_plain,
+                                                     flash_attention_tc)
+    from repro_torch.kernels.ref import row_relative_error
+    rec = ctx["kernels"].setdefault("flash_attention_tc", {})
+    for arch, (B, S, H, KV, dh) in FLASH_ARCH_SHAPES.items():
+        q, k, v = flash_inputs(torch, B, S, H, KV, dh, torch.bfloat16, 6)
+        runs = {"kernel": lambda: flash_attention_tc(q, k, v),
+                "sdpa": lambda: sdpa(torch, q, k, v)}
+        times = {name: [] for name in runs}
+        for name in ("kernel", "sdpa", "sdpa", "kernel"):
+            times[name].append(time_ms(torch, runs[name], iters=20))
+        got, want = runs["kernel"](), flash_attention_plain(q, k, v)
+        err = float(torch.max(torch.abs(got.float() - want.float())))
+        rel = row_relative_error(got, want)
+        ms = sum(times["kernel"]) / 2
+        lib = sum(times["sdpa"]) / 2
+        flops = 4 * dh * H * S * (S + 1) // 2 * B
+        bnd, by = larger_bound(flops / PEAK_BF16_FLOPS,
+                               2 * B * S * dh * (2 * H + 2 * KV))
+        rec.setdefault("by_shape", []).append(
+            {"arch": arch, "shape": [B, S, H, KV, dh], "ms": ms,
+             "library_ms": lib, "bound_ms": bnd, "bound_by": by,
+             "max_abs_err": err})
+        log("timing", f"flash_attention_tc at {arch}'s prefill B={B} S={S} "
+            f"H={H} KV={KV} dh={dh} bf16: kernel {ms:.4f} ms (runs "
+            f"{', '.join(f'{t:.4f}' for t in times['kernel'])}), SDPA "
+            f"{lib:.4f} ms (runs "
+            f"{', '.join(f'{t:.4f}' for t in times['sdpa'])}), max |err| "
+            f"{err:.3g}, per-row relative {rel:.3g}, bound {bnd:.4f} ms "
+            f"({by}) = {bnd / ms:.1%} of the kernel's time, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s  [{ctx['card']}]")
 
 
 # name -> (source, the TPU kernel or host step it replaces)
@@ -3400,6 +3713,7 @@ def main() -> int:
            "experiments": lambda: phase_experiments(torch, ctx),
            "serve": lambda: phase_serve(torch, ctx),
            "prefill": lambda: phase_prefill(torch, ctx),
+           "archs": lambda: phase_archs(torch, ctx),
            "timing": lambda: phase_timing(torch, ctx)}
     t_all = time.perf_counter()
     for name in PHASES[1:]:

@@ -1,8 +1,9 @@
 """Architecture config registry (reference: ``repro/configs``).
 
-It knows the reference's ten architectures and their CLI aliases. Only
-``granite_moe_3b_a800m`` is ported; ``get`` raises ``NotYetPortedError``
-for the other nine (ROADMAP.md, slice F). Each ported module exposes
+It knows the reference's ten architectures and their CLI aliases. Eight
+are ported (``PORTED``); ``get`` raises ``NotYetPortedError`` for the two
+that need the SSM layers of ``models/ssm.py``, jamba and rwkv6 (ROADMAP.md,
+slice F). Each ported module exposes
 ``CONFIG`` (the full configuration), ``SMOKE`` (a reduced one of the same
 family for CPU tests) and ``LONG_CONTEXT_OK``. Sharding overrides belong
 to the multi-device slice and are not carried.
@@ -26,7 +27,16 @@ ARCHS = [
     "internvl2_76b",
 ]
 
-PORTED = ("granite_moe_3b_a800m",)
+PORTED = (
+    "granite_moe_3b_a800m",
+    "phi3_mini_3p8b",
+    "phi4_mini_3p8b",
+    "starcoder2_7b",
+    "gemma3_1b",
+    "musicgen_large",
+    "internvl2_76b",
+    "llama4_maverick_400b_a17b",
+)
 
 # canonical CLI ids (--arch <id>)
 ALIASES = {

@@ -76,8 +76,15 @@ def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
     """A reference parameter tree, as nested dicts of numpy arrays
     (``jax.tree.map(np.asarray, params)``), as the port's tree of tensors
     on ``device``: the same keys, the arrays copied, cast to ``dtype`` when
-    given."""
+    given. bfloat16 leaves (``ml_dtypes.bfloat16``, which numpy gives for
+    a jax bfloat16 array and ``torch.from_numpy`` refuses) carry their
+    bits over as ``torch.bfloat16``."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
-    t = torch.from_numpy(np.array(tree, order="C")).to(device)
+    a = np.array(tree, order="C")
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    t = t.to(device)
     return t if dtype is None else t.to(dtype)

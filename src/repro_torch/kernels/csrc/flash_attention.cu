@@ -239,6 +239,9 @@ cudaError_t dispatch(int dh, const void* q, const void* k, const void* v,
     case 64:
       return launch<64>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, scale,
                         softcap, stream);
+    case 96:
+      return launch<96>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, scale,
+                        softcap, stream);
     case 128:
       return launch<128>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, scale,
                         softcap, stream);

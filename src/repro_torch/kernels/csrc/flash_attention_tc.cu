@@ -40,8 +40,10 @@
 //     per input over the [B, S, heads, dh] layout with its real strides
 //     (so the model's projections are read as they are), into shared
 //     memory in the swizzled layout the wgmma descriptors read (128-byte
-//     swizzle, 64-byte for dh 32, 32-byte for dh 16; dh > 64 as 64-wide
-//     column chunks). Q goes in once; K and V go into a ring of STAGES
+//     swizzle, 64-byte for dh 32 and 96, 32-byte for dh 16; a row wider
+//     than its swizzle as column chunks of the swizzle's width: 64 columns
+//     at dh 128 and 256, three of 32 at dh 96). Q goes in once; K and V
+//     go into a ring of STAGES
 //     slots with "full" and "empty" mbarriers. The producer warp keeps up
 //     to STAGES tiles in flight while the warpgroups compute;
 //   * compute: S = Q K^T is wgmma m64n{BK}k16 with both operands in
@@ -62,8 +64,9 @@
 // with at most 168 registers a thread (65,536 over 384 threads: the warp
 // is allocated as a warpgroup; above that ptxas spills). dh 256
 // therefore runs one consumer warpgroup, 64-key tiles and a 2-slot ring
-// (160 KB of shared memory); dh 128 two warpgroups, 64-key tiles and 3
-// slots; dh <= 64 two warpgroups, 128-key tiles and 4 slots. Registers
+// (160 KB of shared memory); dh 96 and 128 two warpgroups, 64-key tiles
+// and 3 slots (dh 96's PV product is wgmma m64n96k16, 48 accumulators a
+// thread); dh <= 64 two warpgroups, 128-key tiles and 4 slots. Registers
 // and spills per instance are what `nvcc -Xptxas -v` prints at the build
 // (chip_smoke.py's build phase logs them; PERF.md records them).
 // Not done here (later work): register reallocation between producer and
@@ -85,11 +88,14 @@ constexpr int MAX_DEVICES = 64;
 
 template <int DH>
 struct Tc {
-  static constexpr int SW = DH * 2 < 128 ? DH * 2 : 128;  // swizzle bytes
+  // swizzle bytes: the widest of 128, 64 and 32 that divides a row (dh 96
+  // is 192 bytes: three 64-byte chunks)
+  static constexpr int SW = DH * 2 % 128 == 0 ? 128 : (DH * 2 % 64 == 0 ? 64
+                                                                        : 32);
   static constexpr int NCH = DH * 2 / SW;   // column chunks of a row
   static constexpr int BK = DH <= 64 ? 128 : 64;   // keys a tile
   static constexpr int NWG = DH <= 128 ? 2 : 1;   // consumer warpgroups
-  static constexpr int STAGES = DH <= 64 ? 4 : (DH == 128 ? 3 : 2);  // ring
+  static constexpr int STAGES = DH <= 64 ? 4 : (DH <= 128 ? 3 : 2);  // ring
   static constexpr int THREADS = NWG * 128 + 32;  // + the producer warp
   static constexpr int BQ = 64 * NWG;             // query rows a block
   // the two warpgroups take turns on the tensor cores (each issues its
@@ -359,6 +365,33 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48],
+                                        const uint32_t (&a)[4],
+                                        uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
@@ -869,6 +902,10 @@ extern "C" int repro_flash_attention_tc_fwd(
       break;
     case 64:
       err = launch<64>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, scale,
+                       softcap, st);
+      break;
+    case 96:
+      err = launch<96>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, scale,
                        softcap, st);
       break;
     case 128:

@@ -36,7 +36,7 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 
 
 class UnsupportedHeadDimError(ValueError):

@@ -3,10 +3,10 @@
 Initializes random parameters for the smoke config of ``--arch`` from a
 seeded ``torch.Generator``, admits a batch of synthetic requests and
 decodes them through the batched ``ServeEngine`` (reference:
-``repro/launch/serve.py``, with the same flags plus ``--device``). Runs on
-the card unless ``--device cpu``. The default arch is the one the port
-serves, granite-moe-3b-a800m (the reference defaults to gemma3_1b, which
-is not ported yet).
+``repro/launch/serve.py``, with the same flags and default arch plus
+``--device``). Runs on the card unless ``--device cpu``. Codebook archs
+get ``[prompt_len, n_codebooks]`` prompts; an embeddings arch exits, as
+the reference's driver does.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from repro_torch.serve import Request, ServeEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite_moe_3b_a800m")
+    ap.add_argument("--arch", default="gemma3_1b")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=12)
@@ -36,13 +36,18 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = configs.get_config(args.arch, smoke=True)
+    if cfg.input_mode == "embeddings":
+        raise SystemExit("VLM stub serves via precomputed embeddings; "
+                         "use a token arch for this driver")
     gen = torch.Generator(device=dev).manual_seed(0)
     params = M.init_params(cfg, gen, device=dev)
     engine = ServeEngine(cfg, None, params, batch=args.batch,
                          max_seq=args.max_seq)
     rng = np.random.default_rng(0)
+    shape = ((args.prompt_len,) if cfg.input_mode == "tokens"
+             else (args.prompt_len, cfg.n_codebooks))
     reqs = [Request(uid=i,
-                    prompt=rng.integers(0, cfg.vocab_size, (args.prompt_len,))
+                    prompt=rng.integers(0, cfg.vocab_size, shape)
                     .astype(np.int32),
                     max_new=args.max_new)
             for i in range(args.requests)]

@@ -1,12 +1,13 @@
-"""Core transformer layers: RMSNorm, RoPE and GQA attention (reference:
-``repro/models/layers.py``).
+"""Core transformer layers: RMSNorm, RoPE, GQA / sliding-window attention
+and the dense MLP (reference: ``repro/models/layers.py``).
 
 * ``<mod>_params(cfg, create, ...)`` builds the parameter subtree through
   a ``create(shape, logical_axes, scale, init=...)`` callback, as in the
   reference, so the port's parameter tree has the reference's keys.
 * ``attention(params, x, cfg, rules, ...)`` is the forward function. It
-  covers full causal attention (train / prefill) and single-token decode
-  against a KV cache. ``rules`` is the reference's sharding table; this
+  covers full causal and sliding-window (``kind="swa"``) attention (train
+  / prefill) and single-token decode against a KV cache, the window-sized
+  ring cache included. ``rules`` is the reference's sharding table; this
   single-device path accepts it and ignores it (sharding belongs to the
   multi-device slice).
 
@@ -15,11 +16,11 @@ tokens: RMSNorm squares in the activation dtype before the float32 mean,
 RoPE frequencies come from numpy float32, products the reference asks in
 float32 (``preferred_element_type``) are float32 products of upcast
 operands, and probabilities are cast to the activation dtype before the
-PV product. Weights are cast to the activation dtype where the reference
-casts them, at each use.
-
-Sliding-window attention (``kind="swa"``, ``_local_band``) and the dense
-MLP are not ported yet and raise ``NotYetPortedError``.
+PV product (but not in ``_local_band``, which keeps them in float32, as
+the reference does). Weights are cast to the activation dtype where the
+reference casts them, at each use. The GELU MLP uses the tanh
+approximation, which is ``jax.nn.gelu``'s default (PyTorch's default is
+the erf form).
 """
 from __future__ import annotations
 
@@ -29,7 +30,6 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.partition.problem import NotYetPortedError
 
 
 def rmsnorm_params(d, create):
@@ -98,8 +98,43 @@ _KVC = 2048
 
 
 def _local_band(q, k, v, cfg):
-    raise NotYetPortedError("sliding-window attention (_local_band, "
-                            "kind='swa') comes with slice F (ROADMAP.md)")
+    """Sliding-window attention as banded block attention: each block of
+    ``bc = max(window, 1024)`` queries attends to the previous and its own
+    key block, masked to the window (S * 2 bc scores instead of S^2).
+    Scores, probabilities and the PV product stay in float32. S must be a
+    multiple of ``bc``: the reference asserts it, the port raises
+    ``ValueError``. Returns float32 [B, S, H, dh]."""
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    bc = max(cfg.window, 1024)
+    if S % bc:
+        raise ValueError(f"_local_band: S={S} is not a multiple of the "
+                         f"band block {bc}")
+    nb = S // bc
+    dev = q.device
+    qb = q.reshape(B, nb, bc, KV, G, dh).float()
+    kb = k.reshape(B, nb, bc, KV, dh).float()
+    vb = v.reshape(B, nb, bc, KV, dh).float()
+
+    def with_prev(t):                      # [B, nb, 2 bc, KV, dh]
+        prev = torch.cat([torch.zeros_like(t[:, :1]), t[:, :-1]], dim=1)
+        return torch.cat([prev, t], dim=2)
+
+    kcat, vcat = with_prev(kb), with_prev(vb)
+    s = torch.einsum("bnqkgd,bntkd->bnkgqt", qb, kcat) * (dh ** -0.5)
+    if cfg.logit_softcap:
+        s = torch.tanh(s / cfg.logit_softcap) * cfg.logit_softcap
+    rel = (bc + torch.arange(bc, device=dev))[:, None] - \
+        torch.arange(2 * bc, device=dev)[None, :]
+    mask0 = (rel >= 0) & (rel < cfg.window)              # [bc, 2bc]
+    first = torch.arange(2 * bc, device=dev)[None, :] >= bc  # block 0
+    mask = torch.where(torch.arange(nb, device=dev)[:, None, None] == 0,
+                       mask0[None] & first[None], mask0[None])
+    s = torch.where(mask[None, :, None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bnkgqt,bntkd->bnqkgd", p, vcat)
+    return out.reshape(B, S, H, dh)
 
 
 def attention(params, x, cfg, rules=None, kind="full", positions=None,
@@ -110,19 +145,19 @@ def attention(params, x, cfg, rules=None, kind="full", positions=None,
     for the whole sequence (the decode cache layout).
 
     Decode: x is [B,1,D]; cache = {"k": [B,T,KV,dh], "v": ...};
-    cache_pos = int write index. The cache tensors are updated in place
-    (the reference returns updated copies; the serving loop hands the
-    cache on either way) and returned. ``rules`` and ``unroll_chunks``
-    are accepted for the reference's signature and ignored."""
+    cache_pos = int position. A ``swa`` layer with ``cfg.swa_ring_cache``
+    writes at ``pos % T`` of a window-sized cache; every other layer at
+    ``pos``. The cache tensors are updated in place (the reference returns
+    updated copies; the serving loop hands the cache on either way) and
+    returned. ``rules`` and ``unroll_chunks`` are accepted for the
+    reference's signature and ignored."""
     del rules, unroll_chunks
-    if kind != "full":
-        raise NotYetPortedError(f"attention kind={kind!r} (sliding-window, "
-                                "_local_band) comes with slice F "
-                                "(ROADMAP.md)")
+    if kind not in ("full", "swa"):
+        raise ValueError(f"attention kind={kind!r}: full or swa")
     B, S, D = x.shape
     dt = x.dtype
     theta = cfg.rope_theta
-    if cfg.rope_theta_global is not None:
+    if kind == "full" and cfg.rope_theta_global is not None:
         theta = cfg.rope_theta_global
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
@@ -133,12 +168,17 @@ def attention(params, x, cfg, rules=None, kind="full", positions=None,
             positions = torch.arange(S, device=x.device)
         q = rope(q, positions, theta)
         k = rope(k, positions, theta)
-        if S >= FLASH_S_MIN:
+        if S >= FLASH_S_MIN and kind == "swa":
+            out = _local_band(q, k, v, cfg).to(dt)
+        elif S >= FLASH_S_MIN:
             out = ops.flash_attention(q, k, v, bq=_QC, bk=_KVC,
                                       softcap=cfg.logit_softcap or 0.0)
         else:
             scores = _gqa_scores(q, k, cfg)
-            mask = positions[None, :] <= positions[:, None]
+            qpos, kpos = positions[:, None], positions[None, :]
+            mask = kpos <= qpos
+            if kind == "swa":
+                mask &= (qpos - kpos) < cfg.window
             if cfg.logit_softcap:
                 scores = torch.tanh(scores / cfg.logit_softcap) * \
                     cfg.logit_softcap
@@ -151,17 +191,24 @@ def attention(params, x, cfg, rules=None, kind="full", positions=None,
         pos = int(cache_pos)
         ck, cv = cache["k"], cache["v"]
         T = ck.shape[1]
-        if pos + S > T:
+        ring = kind == "swa" and cfg.swa_ring_cache
+        wpos = pos % T if ring else pos
+        if wpos + S > T:
             raise IndexError(f"decode position {pos} is past the cache "
                              f"length {T}")
         pos_s = torch.full((S,), pos, device=x.device)
         q = rope(q, pos_s, theta)
         k = rope(k, pos_s, theta)
-        ck[:, pos:pos + S] = k.to(ck.dtype)
-        cv[:, pos:pos + S] = v.to(cv.dtype)
+        ck[:, wpos:wpos + S] = k.to(ck.dtype)
+        cv[:, wpos:wpos + S] = v.to(cv.dtype)
         scores = _gqa_scores(q, ck.to(dt), cfg)         # [B,KV,G,1,T]
-        kpos = torch.arange(T, device=x.device)
+        slots = torch.arange(T, device=x.device)
+        # ring: slot s holds position pos - ((pos - s) mod T); slots not
+        # yet written map to negative positions and are masked
+        kpos = pos - torch.remainder(pos - slots, T) if ring else slots
         mask = (kpos <= pos) & (kpos >= 0)
+        if kind == "swa":
+            mask &= (pos - kpos) < cfg.window
         if cfg.logit_softcap:
             scores = torch.tanh(scores / cfg.logit_softcap) * cfg.logit_softcap
         scores = torch.where(mask, scores, -1e30)
@@ -175,10 +222,23 @@ def attention(params, x, cfg, rules=None, kind="full", positions=None,
 
 
 def mlp_params(cfg, create):
-    raise NotYetPortedError("the dense MLP comes with slice F (ROADMAP.md); "
-                            "granite's layers are all MoE")
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_kind == "swiglu":
+        return {"w_gate": create((d, f), ("embed", "mlp"), d ** -0.5),
+                "w_up": create((d, f), ("embed", "mlp"), d ** -0.5),
+                "w_down": create((f, d), ("mlp", "embed"), f ** -0.5)}
+    return {"w_up": create((d, f), ("embed", "mlp"), d ** -0.5),
+            "w_down": create((f, d), ("mlp", "embed"), f ** -0.5)}
 
 
 def mlp(params, x, cfg, rules=None):
-    raise NotYetPortedError("the dense MLP comes with slice F (ROADMAP.md); "
-                            "granite's layers are all MoE")
+    """swiglu: ``silu(x w_gate) * (x w_up) w_down``; gelu: ``gelu(x w_up)
+    w_down`` with the tanh approximation. Weights cast to x's dtype."""
+    del rules
+    dt = x.dtype
+    w_up = params["w_up"].to(dt)
+    if cfg.mlp_kind == "swiglu":
+        h = torch.nn.functional.silu(x @ params["w_gate"].to(dt)) * (x @ w_up)
+    else:
+        h = torch.nn.functional.gelu(x @ w_up, approximate="tanh")
+    return h @ params["w_down"].to(dt)

@@ -1,5 +1,6 @@
-"""Unified decoder-only LM (reference: ``repro/models/model.py``), ported
-for the attention + MoE layers of granite.
+"""Unified decoder-only LM (reference: ``repro/models/model.py``): full and
+sliding-window attention layers with dense or MoE MLPs, over token,
+codebook (musicgen) or precomputed-embedding (internvl2) inputs.
 
 Parameters are built through one structure function (``_param_tree``)
 driven by a ``create`` callback, as in the reference, so the tree and its
@@ -10,8 +11,7 @@ weights here. ``remat`` and ``unroll`` only shape the reference's
 compiled program and are accepted and ignored; so is ``rules`` (the
 sharding table of the multi-device slice).
 
-Mamba and RWKV layers, the dense MLP, and the codebooks / embeddings input
-modes raise ``NotYetPortedError``.
+Mamba and RWKV layers raise ``NotYetPortedError``.
 """
 from __future__ import annotations
 
@@ -54,14 +54,22 @@ def _param_tree(cfg: ModelConfig, create):
     def stacked(shape, axes, scale, init="normal"):
         return create((cfg.n_repeats, *shape), ("repeat", *axes), scale, init)
 
-    if cfg.input_mode != "tokens":
-        raise _not_ported(f"input_mode={cfg.input_mode!r}")
-    p: dict[str, Any] = {"embed": create((V, D), ("vocab", "embed"), 1.0)}
+    p: dict[str, Any] = {}
+    if cfg.input_mode == "tokens":
+        p["embed"] = create((V, D), ("vocab", "embed"), 1.0)
+    elif cfg.input_mode == "codebooks":
+        p["embed"] = create((cfg.n_codebooks, V, D),
+                            ("nil", "vocab", "embed"), 1.0)
+    # embeddings mode: no input table (a modality frontend supplies them)
     p["layers"] = {f"pos{i}": _layer_params(cfg, spec, stacked)
                    for i, spec in enumerate(cfg.pattern)}
     p["final_norm"] = L.rmsnorm_params(D, create)
     if not cfg.tie_embeddings:
-        p["lm_head"] = create((D, V), ("embed", "vocab"), D ** -0.5)
+        if cfg.input_mode == "codebooks":
+            p["lm_head"] = create((cfg.n_codebooks, D, V),
+                                  ("nil", "embed", "vocab"), D ** -0.5)
+        else:
+            p["lm_head"] = create((D, V), ("embed", "vocab"), D ** -0.5)
     return p
 
 
@@ -117,11 +125,20 @@ def param_count(params) -> int:
 # ---------------------------------------------------------------------------
 
 def _embed_input(params, batch, cfg, rules=None):
-    if cfg.input_mode != "tokens":
-        raise _not_ported(f"input_mode={cfg.input_mode!r}")
+    """tokens: the table's rows times sqrt(d); codebooks ([B, S, n] ids):
+    the sum of each codebook's rows, codebook 0 first, in the activation
+    dtype and unscaled; embeddings: ``batch["embeddings"]`` [B, S, D] cast
+    to the activation dtype."""
     dt = cfg.act_dtype
+    if cfg.input_mode == "embeddings":
+        return batch["embeddings"].to(dt)
+    tok = batch["tokens"].long()
     # gather, then cast: the same bits as the reference's cast-then-gather
-    x = params["embed"][batch["tokens"].long()].to(dt)
+    if cfg.input_mode == "codebooks":
+        emb = params["embed"]
+        return sum(emb[i][tok[..., i]].to(dt)
+                   for i in range(cfg.n_codebooks))
+    x = params["embed"][tok].to(dt)
     # sqrt(d) rounded to the activation dtype first, as the reference
     # does; the product of two such values is exact before its rounding
     scale = float(torch.tensor(cfg.d_model ** 0.5).to(dt))
@@ -218,11 +235,15 @@ def prefill(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False):
 
 
 def _unembed(params, x, cfg, rules=None):
+    """Logits [B, S, V], or [B, S, n_codebooks, V] with one head a
+    codebook."""
     dt = x.dtype
     if cfg.tie_embeddings:
         w = params["embed"].to(dt).T
     else:
         w = params["lm_head"].to(dt)
+    if cfg.input_mode == "codebooks":
+        return torch.einsum("bsd,ndv->bsnv", x, w)
     return x @ w
 
 
@@ -233,15 +254,20 @@ def _unembed(params, x, cfg, rules=None):
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, rules=None,
                device=None):
     """Per-pattern-position KV caches stacked over repeats, zero-filled, in
-    the activation dtype. ``device`` defaults to ``cuda``."""
+    the activation dtype. A ``swa`` layer of a config with
+    ``swa_ring_cache`` gets a ring of ``min(max_seq, window)`` slots.
+    ``device`` defaults to ``cuda``."""
     dev = resolve_device(device)
     dt = cfg.act_dtype
     R = cfg.n_repeats
     cache = {}
     for i, spec in enumerate(cfg.pattern):
-        if spec.attn != "full":
+        if spec.attn not in ("full", "swa"):
             raise _not_ported(f"{spec.attn} decode caches")
-        shape = (R, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+        seq = max_seq
+        if spec.attn == "swa" and cfg.swa_ring_cache:
+            seq = min(max_seq, cfg.window)
+        shape = (R, batch, seq, cfg.n_kv_heads, cfg.hd)
         cache[f"pos{i}"] = {"k": torch.zeros(shape, dtype=dt, device=dev),
                             "v": torch.zeros(shape, dtype=dt, device=dev)}
     return cache
@@ -256,6 +282,10 @@ def extend_cache(cache, cfg: ModelConfig, max_seq: int):
         if spec.attn not in ("full", "swa"):
             raise _not_ported(f"{spec.attn} decode caches")
         pad = max_seq - c["k"].shape[2]
+        if pad < 0:     # the reference's jnp.pad refuses it too
+            raise ValueError(f"extend_cache: the cache holds "
+                             f"{c['k'].shape[2]} positions, more than "
+                             f"max_seq={max_seq}")
         out[f"pos{i}"] = {kk: torch.nn.functional.pad(
             v, (0, 0, 0, 0, 0, pad)) for kk, v in c.items()}
     return out
@@ -263,8 +293,10 @@ def extend_cache(cache, cfg: ModelConfig, max_seq: int):
 
 def decode_step(params, cache, batch, pos, cfg: ModelConfig, rules=None,
                 unroll: bool = False):
-    """One-token decode. batch: {"tokens": [B,1]}; pos: int. Returns
-    (logits [B,1,V], cache), the cache updated in place."""
+    """One-token decode. batch: {"tokens": [B,1]} ({"tokens": [B,1,n]}
+    for codebooks, {"embeddings": [B,1,D]} for embeddings); pos: int.
+    Returns (logits [B,1,V] or [B,1,n,V], cache), the cache updated in
+    place."""
     del unroll
     x = _embed_input(params, batch, cfg, rules)
     for r in range(cfg.n_repeats):

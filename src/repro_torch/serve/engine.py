@@ -2,11 +2,16 @@
 request engine (reference: ``repro/serve/engine.py``).
 
 ``make_serve_step`` builds the one-token greedy decode: logits from the
-KV-cache decode path, padded vocab masked with -inf, argmax. PyTorch runs
-it eagerly; there is nothing to compile. ``ServeEngine`` admits requests
-into fixed slots, prefills each slot's cache by stepping the shared
-position-aligned decode path over the prompt, and masks finished rows:
-the reference's static batching, round for round.
+KV-cache decode path, padded vocab masked with -inf, argmax (one token a
+codebook for musicgen-style configs). PyTorch runs it eagerly; there is
+nothing to compile. ``ServeEngine`` admits requests into fixed slots,
+prefills each slot's cache by stepping the shared position-aligned decode
+path over the prompt, and masks finished rows: the reference's static
+batching, round for round. Codebook prompts are ``[P, n_codebooks]`` and
+a transcript holds codebook 0, as the reference's does. An
+``embeddings``-mode config has no token table to feed its outputs back
+through: it is served by ``make_serve_step`` with embedding inputs, and
+``ServeEngine.run`` raises for it (the reference's engine fails on it too).
 """
 from __future__ import annotations
 
@@ -21,7 +26,9 @@ from repro_torch.models import model as M
 def make_serve_step(cfg, rules=None, sample: str = "greedy",
                     unroll: bool = False):
     """Returns serve_step(params, cache, tokens, pos) ->
-    (next_tokens [B,1] int32, cache, logits).
+    (next_tokens [B,1] (or [B,1,n_codebooks]) int32, cache, logits);
+    ``tokens`` is the [B,1,D] embeddings batch of an ``embeddings``-mode
+    config.
 
     Only greedy decoding exists. The reference accepts any ``sample`` and
     decodes greedily all the same; the port raises ``ValueError`` for
@@ -30,8 +37,10 @@ def make_serve_step(cfg, rules=None, sample: str = "greedy",
     if sample != "greedy":
         raise ValueError(f"sample={sample!r}: only greedy is implemented")
 
+    key = "embeddings" if cfg.input_mode == "embeddings" else "tokens"
+
     def serve_step(params, cache, tokens, pos):
-        logits, new_cache = M.decode_step(params, cache, {"tokens": tokens},
+        logits, new_cache = M.decode_step(params, cache, {key: tokens},
                                           pos, cfg, rules, unroll=unroll)
         lf = logits.float()
         if cfg.vocab_size < cfg.vocab_padded:
@@ -47,7 +56,7 @@ def make_serve_step(cfg, rules=None, sample: str = "greedy",
 @dataclass
 class Request:
     uid: int
-    prompt: np.ndarray                  # [P]
+    prompt: np.ndarray                  # [P] (or [P, n_codebooks])
     max_new: int = 16
     eos_id: int | None = None
     out: list = field(default_factory=list)
@@ -70,7 +79,7 @@ class ServeEngine:
         self.B = batch
         self.max_seq = max_seq
         self.pad_id = pad_id
-        self.device = params["embed"].device
+        self.device = next(M._leaves(params)).device
         self.step_fn = make_serve_step(cfg, rules)
 
     def _fresh_cache(self):
@@ -78,6 +87,11 @@ class ServeEngine:
                             device=self.device)
 
     def run(self, requests: list[Request]) -> list[Request]:
+        if self.cfg.input_mode == "embeddings":
+            raise ValueError(
+                f"{self.cfg.name}: an embeddings-mode config takes no token "
+                "prompts; serve it through make_serve_step with [B, 1, "
+                "d_model] embeddings")
         for base in range(0, len(requests), self.B):
             self._run_group(requests[base:base + self.B])
         return requests
@@ -86,7 +100,9 @@ class ServeEngine:
         B = self.B
         plens = [len(r.prompt) for r in group]
         pmax = max(plens)
-        toks = np.full((B, pmax), self.pad_id, np.int32)
+        shape = (B, pmax) if self.cfg.input_mode != "codebooks" else \
+            (B, pmax, self.cfg.n_codebooks)
+        toks = np.full(shape, self.pad_id, np.int32)
         for i, r in enumerate(group):
             toks[i, :plens[i]] = r.prompt
         toks = torch.from_numpy(toks).to(self.device)

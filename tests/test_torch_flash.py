@@ -51,6 +51,10 @@ CASES = [
     (1, 256, 4, 4, 128, 128, 128, 50.0, "float32"),   # softcap (gemma)
     (1, 256, 2, 2, 64, 128, 128, 0.0, "bfloat16"),    # bf16 io
     (1, 300, 3, 1, 16, 128, 128, 0.0, "float32"),     # odd S, odd heads
+    (1, 256, 4, 4, 96, 128, 128, 0.0, "float32"),     # dh 96 (phi3), MHA
+    (1, 300, 6, 2, 96, 128, 128, 0.0, "float32"),     # dh 96, GQA, ragged
+    (2, 200, 4, 4, 96, 128, 128, 30.0, "float32"),    # dh 96, softcap
+    (1, 300, 6, 2, 96, 128, 128, 0.0, "bfloat16"),    # dh 96 bf16 io
 ]
 
 

@@ -52,6 +52,7 @@ FLASH_BF16_ROW_TOL = 2e-2
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,dh", [(torch.float32, 64),
+                                      (torch.float32, 96),
                                       (torch.float32, 256)] +
                          [(torch.bfloat16, dh) for dh in fa.HEAD_DIMS])
 def test_flash_kernel_matches_plain(cuda_device, dtype, dh):
