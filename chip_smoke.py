@@ -36,11 +36,12 @@ granite-moe-3b-a800m at full width through ``ServeEngine.run`` and through
 ``prefill`` -> ``extend_cache`` -> ``decode_step`` at a 4096-token prompt
 (the paths of the MoE-router kernel and of the bf16 tensor-core
 flash-attention kernel; the float32 CUDA-core flash kernel is held and
-timed beside it), serves the dense decoder family at published widths
-(phi3-mini, phi4-mini, starcoder2, gemma3, musicgen, internvl2 and llama4,
-the last two cut in depth to fit the card) through the same entry points,
-with launch counts per layer kind and card-vs-CPU transcripts on each
-SMOKE, times each kernel with CUDA events against its bound,
+timed beside it), serves the dense decoder family and the SSM configs at published widths
+(phi3-mini, phi4-mini, starcoder2, gemma3, musicgen, internvl2, llama4,
+jamba and rwkv6; internvl2, llama4 and jamba cut in depth to fit the card)
+through the same entry points, with launch counts per layer kind,
+card-vs-CPU transcripts on each SMOKE and each SSM layer's time at
+S = 4096 with its recurrence's share, times each kernel with CUDA events against its bound,
 and prints one JSON line of kernel records. Every phase raises on failure. The last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every phase
 passed. Without a CUDA device, or without the rest of the repository
@@ -142,6 +143,11 @@ SERVE_MAX_SEQ = 64
 PREFILL_S, PREFILL_NEW = 4096, 16
 # phi3-mini's prefill attention (B, S, H, KV, dh): the flash kernels at dh 96
 PHI3_FLASH = (1, PREFILL_S, 32, 32, 96)
+# PREFILL_S is a multiple of Mamba's chunk (128) and RWKV's (16). At a
+# ragged S each takes the whole sequence as one chunk, as the reference
+# does: jamba's Mamba chunk then holds [B, S, 16384, 16] float32 tensors
+# (about 4.3 GB each at S = 4100), and RWKV's time mix overflows float32
+# past S ~ 176 (ROADMAP.md queue 3 item 18).
 
 
 class SmokeError(RuntimeError):
@@ -776,11 +782,14 @@ def compare_flash(torch, B, S, H, KV, dh, dtype, softcap=0.0, bq=512,
 
 def arch_flash_shapes():
     """(B, S, H, KV, dh) of a 4096-token prefill of each config of the
-    archs phase, once each: the flash kernel's shapes on those paths."""
+    archs phase that has full-attention layers, once each: the flash
+    kernel's shapes on those paths."""
     from repro_torch import configs
     shapes = []
     for arch, _, _ in ARCH_CELLS:
         c = configs.get_config(arch)
+        if not any(s.attn == "full" for s in c.pattern):
+            continue
         shape = (1, PREFILL_S, c.n_heads, c.n_kv_heads, c.hd)
         if shape not in shapes:
             shapes.append(shape)
@@ -823,14 +832,18 @@ def phase_lm_kernels(torch):
             errs.append(compare_router(torch, T, e, d, k, T + d, x_dtype,
                                        mode))
     # llama4's MoE layer (E = 128, top-1, D = 5120) at its serve, decode
-    # and prefill token counts
+    # and prefill token counts; jamba's (E = 16, top-2, D = 8192) at its
+    # serve and decode (T = 4) and prefill ones
+    from repro_torch.configs import jamba_1p5_large_398b as jamba
     from repro_torch.configs import llama4_maverick_400b_a17b as llama4
-    m4 = llama4.CONFIG.moe
-    for T in (1, SERVE_BATCH, PREFILL_S):
-        for mode in ROUTER_MODES:
-            errs.append(compare_router(torch, T, m4.n_experts,
-                                       llama4.CONFIG.d_model, m4.top_k, T,
-                                       torch.bfloat16, mode))
+    for mod, tokens in ((llama4, (1, SERVE_BATCH, PREFILL_S)),
+                        (jamba, (SERVE_BATCH, PREFILL_S))):
+        m = mod.CONFIG.moe
+        for T in tokens:
+            for mode in ROUTER_MODES:
+                errs.append(compare_router(torch, T, m.n_experts,
+                                           mod.CONFIG.d_model, m.top_k, T,
+                                           torch.bfloat16, mode))
     log("lm_kernels", f"router: {len(errs)} cases agree with the plain "
         f"version (max |eff err| {max(errs):.3g}, tolerance {ROUTER_TOL}), "
         "each launched twice with the same bits")
@@ -3006,10 +3019,17 @@ ARCH_CELLS = (
      "one card"),
     ("llama4_maverick_400b_a17b", 2, "one (dense, MoE) pattern period in "
      "bfloat16; 400B parameters do not fit one card"),
+    ("jamba_1p5_large_398b", 5, "pattern positions 0-4 (mamba + dense, "
+     "mamba + MoE twice each, attention + dense: every layer kind) in "
+     "bfloat16, 24.0e9 parameters; one period of 8 is 45.2e9 (84 GiB) and "
+     "does not fit one 80 GB card"),
+    ("rwkv6_3b", None, "fits"),
 )
 # prefill-vs-stepwise agreements at full width: arch -> depth (gemma3's
-# pattern period: five sliding-window layers and a global one)
-ARCH_AGREEMENTS = {"gemma3_1b": 6, "phi3_mini_3p8b": 2}
+# pattern period: five sliding-window layers and a global one; jamba at
+# its cut depth)
+ARCH_AGREEMENTS = {"gemma3_1b": 6, "phi3_mini_3p8b": 2,
+                   "jamba_1p5_large_398b": 5, "rwkv6_3b": 2}
 
 
 def arch_batch(torch, cfg, B, S, seed):
@@ -3158,15 +3178,90 @@ def prefill_arch(torch, ctx, cfg, params):
         f"{peak:.2f} GiB; {PREFILL_NEW} decode steps after it {dec:.3f} s "
         f"= {dec / PREFILL_NEW * 1e3:.2f} ms a step, tokens "
         f"{[o[0] for o in out]}  [{ctx['card']}]")
+    return wall
+
+
+def ssm_layer_profile(torch, ctx, cfg, params, prefill_s):
+    """Where an SSM config's prefill goes: its first SSM layer alone at
+    B=1, S=4096 (repeat 0's weights, seeded activations), and the layer's
+    chunked recurrence alone (``ssm._ssm_scan`` / ``ssm._rwkv_scan``, on
+    seeded inputs of the path's shapes and ranges): the host-clock
+    milliseconds of each (median of 3, ended by a synchronize), its device
+    time and device kernels by the profiler, and the share of the
+    prefill's ``prefill_s`` that the config's SSM layers take at that
+    time."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import ssm as SSM
+    i, spec = next((j, sp) for j, sp in enumerate(cfg.pattern)
+                   if sp.attn in ("mamba", "rwkv"))
+    kind = spec.attn
+    n_layers = arch_layers(cfg, "attn", kind)
+    p = {k: v[0] for k, v in params["layers"][f"pos{i}"][
+        "mamba" if kind == "mamba" else "rwkv_t"].items()}
+    S, D = PREFILL_S, cfg.d_model
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    x = randn(1, S, D).to(cfg.act_dtype)
+    if kind == "mamba":
+        di, ds, csz = cfg.mamba_expand * D, cfg.mamba_d_state, 128
+        # dt as the layer makes it: softplus around the -4.6 bias
+        dt = F.softplus(randn(1, S, di) - 4.6)
+        b, xs, c = randn(1, S, ds), randn(1, S, di), randn(1, S, ds)
+        a = -torch.exp(p["a_log"].float())
+
+        def layer():
+            return SSM.mamba_apply(p, x, cfg)
+
+        def recurrence():
+            return SSM._ssm_scan(dt, b, xs, c, a, csz)
+    else:
+        dh = cfg.rwkv_head_dim
+        H, csz = D // dh, SSM.RWKV_CHUNK
+        r, k, v = (randn(1, S, H, dh) for _ in range(3))
+        # w_log as the layer makes it: -exp(w0 + lora) around w0 = -0.7
+        wlog = torch.clamp(-torch.exp(-0.7 + 0.1 * randn(1, S, H, dh)),
+                           min=SSM.W_LOG_MIN)
+        u = p["u"].float()
+
+        def layer():
+            return SSM.rwkv_time_mix(p, x, cfg)
+
+        def recurrence():
+            return SSM._rwkv_scan(r, k, v, wlog, u)
+
+    out = {}
+    for name, fn in (("layer", layer), ("recurrence", recurrence)):
+        ms = wall_ms(torch, fn, iters=3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows, device_s = device_rows(prof)
+        out[name] = (ms, device_s * 1e3, sum(r_[1] for r_ in rows))
+    (lms, ldev, lk), (rms, rdev, rk) = out["layer"], out["recurrence"]
+    log("archs", f"{cfg.name} {kind} layer at B=1 S={S}: {lms:.2f} ms "
+        f"(device {ldev:.2f} ms, {lk} device kernels), its recurrence over "
+        f"{S // csz} chunks {rms:.2f} ms (device {rdev:.2f} ms, {rk} "
+        f"kernels); {n_layers} {kind} layers x {lms:.2f} ms = "
+        f"{n_layers * lms / (prefill_s * 1e3):.1%} of the prefill's "
+        f"{prefill_s * 1e3:.1f} ms, the recurrences "
+        f"{n_layers * rms / (prefill_s * 1e3):.1%}  [{ctx['card']}]")
 
 
 def phase_archs(torch, ctx):
-    """The seven dense-family configs at their published widths, one after
-    another (ARCH_CELLS), each with parameters made on the card from a
-    seeded generator and freed before the next: the engine's serve shapes,
-    a 4096-token prefill with decode after it, the prefill-vs-stepwise
-    agreements of ARCH_AGREEMENTS, and the card against the CPU on the
-    config's SMOKE."""
+    """The dense-family and SSM configs at their published widths, one
+    after another (ARCH_CELLS; a cut below one pattern period keeps the
+    period's first positions), each with parameters made on the card from
+    a seeded generator and freed before the next: the engine's serve
+    shapes, a 4096-token prefill with decode after it, each SSM layer's
+    time beside the prefill's, the prefill-vs-stepwise agreements of
+    ARCH_AGREEMENTS, and the card against the CPU on the config's
+    SMOKE."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.models import model as M
@@ -3174,16 +3269,22 @@ def phase_archs(torch, ctx):
         t0 = time.perf_counter()
         cfg = configs.get_config(arch)
         if depth is not None:
-            cfg = dataclasses.replace(cfg, n_layers=depth)
+            cfg = dataclasses.replace(cfg, n_layers=depth,
+                                      pattern=cfg.pattern[:min(depth,
+                                                               cfg.period)])
         gen = torch.Generator(device=DEVICE).manual_seed(0)
         params = M.init_params(cfg, gen, device=DEVICE)
         torch.cuda.synchronize()
         log("archs", f"{cfg.name}: {cfg.n_layers} layers "
-            f"({'all' if depth is None else why}), d_model {cfg.d_model}, "
-            f"{M.param_count(params):,} parameters ({cfg.param_dtype}) made "
-            f"on the card in {time.perf_counter() - t0:.1f} s")
+            f"({'all' if depth is None else why}), pattern "
+            f"{[f'{sp.attn}+{sp.mlp}' for sp in cfg.pattern]}, d_model "
+            f"{cfg.d_model}, {M.param_count(params):,} parameters "
+            f"({cfg.param_dtype}) made on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
         serve_arch(torch, ctx, cfg, params)
-        prefill_arch(torch, ctx, cfg, params)
+        wall = prefill_arch(torch, ctx, cfg, params)
+        if any(sp.attn in ("mamba", "rwkv") for sp in cfg.pattern):
+            ssm_layer_profile(torch, ctx, cfg, params, wall)
         if arch in ARCH_AGREEMENTS:
             prefill_agreement(torch, cfg, params, ARCH_AGREEMENTS[arch],
                               tag="archs")
@@ -3535,7 +3636,41 @@ def time_lm(torch, ctx):
     log("timing", "router_topk: no single PyTorch call computes the top-k "
         "smallest effective distances (a cdist + topk is two calls and "
         "orders ties otherwise): library_ms is null")
+    time_router_jamba(torch, ctx)
     time_flash(torch, ctx, cfg)
+
+
+def time_router_jamba(torch, ctx):
+    """The router in the path's unit form at jamba's MoE layer (E = 16,
+    top-2, D = 8192, bf16 tokens) at its decode (T = 4) and prefill
+    (T = 4096) token counts, against the plain version on the same inputs;
+    kept under the kernel record's ``by_shape``."""
+    from repro_torch.configs import jamba_1p5_large_398b as jamba
+    m, D = jamba.CONFIG.moe, jamba.CONFIG.d_model
+    E, K = m.n_experts, m.top_k
+    rec = ctx["kernels"].setdefault("router_topk", {})
+    for T in (SERVE_BATCH, PREFILL_S):
+        x, c, _ = router_inputs(torch, T, E, D, T, torch.bfloat16, True)
+        (_, peff), _ = router_call(torch, "unit", x, c, None, K, plain=True)
+        _, eff = router_call(torch, "unit", x, c, None, K)
+        err = float(torch.max(torch.abs(eff - peff)))
+        fn = router_launcher(torch, x, c, None, K)
+        runs = [time_ms(torch, fn, iters=500) for _ in range(2)]
+        ms = sum(runs) / 2
+        plain = time_ms(torch, lambda: router_call(
+            torch, "unit", x, c, None, K, plain=True), iters=20)
+        bnd, by = larger_bound(T * E * (2 * D + 3) / PEAK_F32_FLOPS,
+                               2 * T * D + 4 * E * (D + 1) + 8 * T * K)
+        rec.setdefault("by_shape", []).append(
+            {"arch": "jamba_1p5_large_398b", "shape": [T, E, D, K],
+             "ms": ms, "plain_ms": plain, "max_abs_err": err,
+             "bound_ms": bnd, "bound_by": by, "library_ms": None})
+        log("timing", f"router_topk at jamba's MoE layer T={T} E={E} D={D} "
+            f"K={K} bf16 ({'decode' if T <= 32 else 'tiled'} form): kernel "
+            f"{ms:.4f} ms (runs {', '.join(f'{t:.4f}' for t in runs)}), "
+            f"plain {plain:.4f} ms, max |err| {err:.3g}, bound {bnd:.4f} ms "
+            f"({by}) = {bnd / ms:.1%} of the kernel's time  "
+            f"[{ctx['card']}]")
 
 
 def time_flash(torch, ctx, cfg):
@@ -3594,9 +3729,11 @@ def time_flash(torch, ctx, cfg):
 
 
 # the tensor-core flash kernel at the other archs' prefill shapes (B, S, H,
-# KV, dh): phi3 (dh 96) and gemma3's global layers (dh 256, MQA)
+# KV, dh): phi3 (dh 96), gemma3's global layers (dh 256, MQA) and jamba's
+# attention layer (64:8 heads, dh 128)
 FLASH_ARCH_SHAPES = {"phi3_mini_3p8b": PHI3_FLASH,
-                     "gemma3_1b": (1, PREFILL_S, 4, 1, 256)}
+                     "gemma3_1b": (1, PREFILL_S, 4, 1, 256),
+                     "jamba_1p5_large_398b": (1, PREFILL_S, 64, 8, 128)}
 
 
 def time_flash_shapes(torch, ctx):
@@ -3668,6 +3805,8 @@ def kernels_json(ctx) -> str:
                  "source": f"src/repro_torch/kernels/csrc/{source}",
                  "replaces": replaces}
         entry.update({k: rec.get(k) for k in keys})
+        if "by_shape" in rec:       # the other archs' shapes, timed too
+            entry["by_shape"] = rec["by_shape"]
         # the later slices' paths, each counted from 0 on its own
         entry["launches_by_path"] = {tag: counts[name] for tag, counts
                                      in ctx["paths"].items()

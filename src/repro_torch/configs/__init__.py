@@ -1,9 +1,8 @@
 """Architecture config registry (reference: ``repro/configs``).
 
-It knows the reference's ten architectures and their CLI aliases. Eight
-are ported (``PORTED``); ``get`` raises ``NotYetPortedError`` for the two
-that need the SSM layers of ``models/ssm.py``, jamba and rwkv6 (ROADMAP.md,
-slice F). Each ported module exposes
+It knows the reference's ten architectures and their CLI aliases, and all
+ten are ported (``PORTED``, in the order they were); ``get`` raises
+``KeyError`` for an unknown name. Each module exposes
 ``CONFIG`` (the full configuration), ``SMOKE`` (a reduced one of the same
 family for CPU tests) and ``LONG_CONTEXT_OK``. Sharding overrides belong
 to the multi-device slice and are not carried.
@@ -11,8 +10,6 @@ to the multi-device slice and are not carried.
 from __future__ import annotations
 
 import importlib
-
-from repro_torch.partition.problem import NotYetPortedError
 
 ARCHS = [
     "starcoder2_7b",
@@ -36,6 +33,8 @@ PORTED = (
     "musicgen_large",
     "internvl2_76b",
     "llama4_maverick_400b_a17b",
+    "jamba_1p5_large_398b",
+    "rwkv6_3b",
 )
 
 # canonical CLI ids (--arch <id>)
@@ -57,10 +56,6 @@ def get(name: str):
     name = ALIASES.get(name, name)
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name}; known: {sorted(ALIASES)}")
-    if name not in PORTED:
-        raise NotYetPortedError(
-            f"arch {name} is not ported yet (ROADMAP.md slice F); ported: "
-            f"{list(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -1,3 +1,3 @@
 """The decoder LM of the port (reference: ``repro/models``): ``config``,
-``layers`` (RMSNorm, RoPE, attention), ``moe`` and ``model``. The SSM
-layers (``ssm.py``) are not ported yet (ROADMAP.md, slice F)."""
+``layers`` (RMSNorm, RoPE, attention), ``moe``, ``ssm`` (Mamba and RWKV6)
+and ``model``."""

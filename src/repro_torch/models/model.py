@@ -1,5 +1,6 @@
 """Unified decoder-only LM (reference: ``repro/models/model.py``): full and
-sliding-window attention layers with dense or MoE MLPs, over token,
+sliding-window attention, Mamba and RWKV6 layers (``ssm.py``) with dense
+or MoE MLPs (an RWKV layer's channel mix in the MLP's place), over token,
 codebook (musicgen) or precomputed-embedding (internvl2) inputs.
 
 Parameters are built through one structure function (``_param_tree``)
@@ -10,8 +11,6 @@ over). Layer stacks keep the leading ``repeat`` dim; the reference's
 weights here. ``remat`` and ``unroll`` only shape the reference's
 compiled program and are accepted and ignored; so is ``rules`` (the
 sharding table of the multi-device slice).
-
-Mamba and RWKV layers raise ``NotYetPortedError``.
 """
 from __future__ import annotations
 
@@ -20,15 +19,11 @@ from typing import Any
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.partition.problem import NotYetPortedError
 
 from . import layers as L
 from . import moe as MOE
+from . import ssm as SSM
 from .config import LayerSpec, ModelConfig
-
-
-def _not_ported(what: str):
-    return NotYetPortedError(f"{what} comes with slice F (ROADMAP.md)")
 
 
 # ---------------------------------------------------------------------------
@@ -38,10 +33,15 @@ def _not_ported(what: str):
 def _layer_params(cfg, spec: LayerSpec, create):
     p = {"ln1": L.rmsnorm_params(cfg.d_model, create),
          "ln2": L.rmsnorm_params(cfg.d_model, create)}
-    if spec.attn not in ("full", "swa"):
-        raise _not_ported(f"{spec.attn} layers")
-    p["attn"] = L.attention_params(cfg, create, spec.attn)
-    if spec.mlp == "dense":
+    if spec.attn in ("full", "swa"):
+        p["attn"] = L.attention_params(cfg, create, spec.attn)
+    elif spec.attn == "mamba":
+        p["mamba"] = SSM.mamba_params(cfg, create)
+    elif spec.attn == "rwkv":
+        p["rwkv_t"] = SSM.rwkv_params(cfg, create)
+    if spec.attn == "rwkv":
+        p["rwkv_c"] = SSM.rwkv_channel_params(cfg, create)
+    elif spec.mlp == "dense":
         p["mlp"] = L.mlp_params(cfg, create)
     else:
         p["moe"] = MOE.moe_params(cfg, create)
@@ -76,17 +76,25 @@ def _param_tree(cfg: ModelConfig, create):
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Random parameters in ``cfg.param_dtype``: normal draws of
     ``generator`` (made on the generator's device) times each leaf's
-    scale, norms at one. ``device`` defaults to ``cuda``. The draws are
-    not the reference's ``jax.random`` bits: tests carry the reference's
-    parameters over with ``convert.params_from_numpy``."""
+    scale; norms at one and the reference's constant inits for the SSM
+    leaves (mixes at 0.5, Mamba's ``A_log`` at log(1..d_state), its
+    ``dt_bias`` at -4.6, RWKV's ``w0`` at -0.7). ``device`` defaults to
+    ``cuda``. The draws are not the reference's ``jax.random`` bits: tests
+    carry the reference's parameters over with
+    ``convert.params_from_numpy``."""
     dev = resolve_device(device)
     pdt = getattr(torch, cfg.param_dtype)
+    fills = {"ones": 1.0, "zeros": 0.0, "half": 0.5,
+             "ssm_dt": -4.6,       # softplus^-1(0.01)
+             "ssm_w0": -0.7}       # decay ~ exp(-exp(w0)) ~ 0.6 a step
 
     def create(shape, axes, scale, init="normal"):
-        if init == "ones":
-            return torch.ones(shape, dtype=pdt, device=dev)
-        if init != "normal":
-            raise _not_ported(f"init={init!r}")
+        if init in fills:
+            return torch.full(shape, fills[init], dtype=pdt, device=dev)
+        if init == "ssm_a":        # A_log: log(1..d_state) per state dim
+            a = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                                       device=dev))
+            return a.expand(shape).to(pdt).contiguous()
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=generator.device)
         return w.mul_(scale if scale else 0.02).to(device=dev, dtype=pdt)
@@ -151,23 +159,58 @@ def _layer_apply(p, spec: LayerSpec, x, cfg, rules=None, positions=None,
     """One pattern-position layer. Returns (x, new_cache, new_infl, stats).
 
     ``want_cache`` (prefill): with cache=None, also emit the end-of-
-    sequence cache in the decode layout."""
-    if spec.attn not in ("full", "swa"):
-        raise _not_ported(f"{spec.attn} layers")
+    sequence cache in the decode layout.
+
+    Decode updates ``cache`` in place and returns it: attention writes
+    K/V at ``pos``; an SSM layer's state is replaced as a whole, so its
+    new values are copied into the cache's own tensors (the views of the
+    stacked cache that ``decode_step`` hands in)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    out, new_cache = L.attention(p["attn"], h, cfg, rules, spec.attn,
-                                 positions, cache=cache, cache_pos=pos,
-                                 want_cache=want_cache)
+    new_cache = None
+    if spec.attn in ("full", "swa"):
+        out, new_cache = L.attention(p["attn"], h, cfg, rules, spec.attn,
+                                     positions, cache=cache, cache_pos=pos,
+                                     want_cache=want_cache)
+    elif spec.attn == "mamba":
+        out, st = SSM.mamba_apply(p["mamba"], h, cfg, rules, state=cache,
+                                  want_state=want_cache)
+        if st is not None:
+            new_cache = _store(cache, None, st)
+    else:  # rwkv
+        st = None if cache is None else {"s": cache["s"],
+                                         "shift": cache["shift_t"]}
+        out, st = SSM.rwkv_time_mix(p["rwkv_t"], h, cfg, rules, state=st,
+                                    want_state=want_cache)
+        if st is not None:
+            new_cache = _store(cache, None,
+                               {"s": st["s"], "shift_t": st["shift"]})
     x = x + out
 
     h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     new_infl, stats = None, {}
-    if spec.mlp == "dense":
+    if spec.attn == "rwkv":
+        st = None if cache is None else cache["shift_c"]
+        out2, st = SSM.rwkv_channel_mix(p["rwkv_c"], h2, cfg, rules,
+                                        state=st, want_state=want_cache)
+        if st is not None:
+            new_cache = _store(cache, new_cache, {"shift_c": st})
+    elif spec.mlp == "dense":
         out2 = L.mlp(p["mlp"], h2, cfg, rules)
     else:
         out2, new_infl, stats = MOE.moe_apply(p["moe"], h2, cfg, rules,
                                               influence)
     return x + out2, new_cache, new_infl, stats
+
+
+def _store(cache, built, state):
+    """An SSM layer's new ``state`` (a dict): at decode (``cache`` given)
+    copied into the cache's own tensors, and the cache returned; at
+    prefill added to the cache ``built`` so far (a dict or None)."""
+    if cache is None:
+        return {**(built or {}), **state}
+    for key, val in state.items():
+        cache[key].copy_(val)
+    return cache
 
 
 def forward(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False,
@@ -184,7 +227,8 @@ def forward(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False,
     S = x.shape[1]
     dev = x.device
     positions = torch.arange(S, device=dev)
-    moe_positions = [i for i, s in enumerate(cfg.pattern) if s.mlp == "moe"]
+    moe_positions = [i for i, s in enumerate(cfg.pattern) if s.mlp == "moe"
+                     and s.attn != "rwkv"]
     use_infl = influence is not None
     E = cfg.moe.n_experts if cfg.moe else 1
     ninfs, drops, caches = [], [], []
@@ -253,8 +297,9 @@ def _unembed(params, x, cfg, rules=None):
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, rules=None,
                device=None):
-    """Per-pattern-position KV caches stacked over repeats, zero-filled, in
-    the activation dtype. A ``swa`` layer of a config with
+    """Per-pattern-position caches stacked over repeats, zero-filled: K/V
+    in the activation dtype, SSM states as ``ssm.mamba_state_init`` /
+    ``ssm.rwkv_state_init`` make them. A ``swa`` layer of a config with
     ``swa_ring_cache`` gets a ring of ``min(max_seq, window)`` slots.
     ``device`` defaults to ``cuda``."""
     dev = resolve_device(device)
@@ -262,8 +307,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, rules=None,
     R = cfg.n_repeats
     cache = {}
     for i, spec in enumerate(cfg.pattern):
-        if spec.attn not in ("full", "swa"):
-            raise _not_ported(f"{spec.attn} decode caches")
+        if spec.attn in ("mamba", "rwkv"):
+            st = (SSM.mamba_state_init(cfg, batch, dt, dev)
+                  if spec.attn == "mamba" else
+                  SSM.rwkv_state_init(cfg, batch, dev))
+            cache[f"pos{i}"] = {k: v.expand(R, *v.shape).contiguous()
+                                for k, v in st.items()}
+            continue
         seq = max_seq
         if spec.attn == "swa" and cfg.swa_ring_cache:
             seq = min(max_seq, cfg.window)
@@ -279,8 +329,9 @@ def extend_cache(cache, cfg: ModelConfig, max_seq: int):
     out = {}
     for i, spec in enumerate(cfg.pattern):
         c = cache[f"pos{i}"]
-        if spec.attn not in ("full", "swa"):
-            raise _not_ported(f"{spec.attn} decode caches")
+        if spec.attn not in ("full", "swa"):     # SSM states pass through
+            out[f"pos{i}"] = c
+            continue
         pad = max_seq - c["k"].shape[2]
         if pad < 0:     # the reference's jnp.pad refuses it too
             raise ValueError(f"extend_cache: the cache holds "

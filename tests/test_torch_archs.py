@@ -1,8 +1,10 @@
-"""The port's serving path for the seven dense-family configs against the
-JAX package: phi3-mini, phi4-mini, starcoder2 (dense MLP, swiglu and
+"""The port's serving path for the dense-family and SSM configs against
+the JAX package: phi3-mini, phi4-mini, starcoder2 (dense MLP, swiglu and
 gelu), gemma3 (sliding-window attention, 5:1 local/global, dual RoPE
-theta), musicgen (codebook inputs), internvl2 (embedding inputs) and
-llama4 (dense and MoE layers, a shared expert, bfloat16 parameters). Each
+theta), musicgen (codebook inputs), internvl2 (embedding inputs), llama4
+(dense and MoE layers, a shared expert, bfloat16 parameters), jamba
+(Mamba, attention and MoE layers) and rwkv6 (RWKV6 time and channel
+mixes). Each
 case runs a config's SMOKE with the reference's parameters
 (``init_params`` from ``PRNGKey(0)``) carried over by
 ``convert.params_from_numpy``, on inputs made with numpy and handed to
@@ -43,7 +45,8 @@ MESH = make_host_mesh()
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=5e-2, atol=5e-2)}
 ARCHS = ["phi3_mini_3p8b", "phi4_mini_3p8b", "starcoder2_7b", "gemma3_1b",
-         "musicgen_large", "internvl2_76b", "llama4_maverick_400b_a17b"]
+         "musicgen_large", "internvl2_76b", "llama4_maverick_400b_a17b",
+         "jamba_1p5_large_398b", "rwkv6_3b"]
 SERVED = [a for a in ARCHS if a != "internvl2_76b"]
 _PARAMS = {}
 
@@ -109,8 +112,11 @@ def _next_input(cfg, logits, seed):
 
 
 def _assert_caches(got, want, tol):
+    """Every leaf of every position: K/V, or an SSM layer's state."""
     for pos, kv in want.items():
-        for kk in ("k", "v"):
+        assert set(got[pos]) == set(kv), pos
+        for kk in kv:
+            assert got[pos][kk].shape == kv[kk].shape, f"{pos} {kk}"
             np.testing.assert_allclose(_np(got[pos][kk]), _np(kv[kk]),
                                        **tol, err_msg=f"{pos} {kk}")
 

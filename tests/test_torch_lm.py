@@ -33,7 +33,6 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import router_near_tie_case
 from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
-from repro_torch.partition import NotYetPortedError
 from repro_torch.serve import Request, ServeEngine
 
 # several pytest workers share a few cores: one intra-op thread each keeps
@@ -331,25 +330,23 @@ def test_full_config_shapes_and_count():
 
 @pytest.mark.parametrize("name", sorted(configs.ALIASES))
 def test_registry_knows_every_arch_and_serves_granite_only(name):
-    """Every arch of the reference, by CLI alias: the eight ported ones
-    (granite first, the dense family since) return the reference's
-    configs field for field; the two SSM archs, jamba and rwkv6, still
-    raise NotYetPortedError (the name is kept from when granite was the
-    only one served)."""
+    """Every arch of the reference, by CLI alias: all ten are ported
+    (granite first, the dense family next, the SSM archs jamba and rwkv6
+    last) and return the reference's configs field for field; none raises
+    NotYetPortedError (the name is kept from when granite was the only
+    one served)."""
     from repro import configs as ref_configs
     assert configs.ARCHS == ref_configs.ARCHS
     assert configs.ALIASES == ref_configs.ALIASES
+    assert sorted(configs.PORTED) == sorted(configs.ARCHS)
     assert configs.get_config("granite-moe-3b-a800m") is granite.CONFIG
     arch = configs.ALIASES[name]
-    if arch in ("jamba_1p5_large_398b", "rwkv6_3b"):
-        assert arch not in configs.PORTED
-        with pytest.raises(NotYetPortedError, match="not ported"):
-            configs.get(name)
-    else:
-        assert arch in configs.PORTED
-        for smoke in (False, True):
-            assert dataclasses.asdict(configs.get_config(name, smoke)) == \
-                dataclasses.asdict(ref_configs.get_config(name, smoke))
+    assert arch in configs.PORTED
+    mod = configs.get(name)
+    assert mod.__name__ == f"repro_torch.configs.{arch}"
+    for smoke in (False, True):
+        assert dataclasses.asdict(configs.get_config(name, smoke)) == \
+            dataclasses.asdict(ref_configs.get_config(name, smoke))
     with pytest.raises(KeyError):
         configs.get("nope")
 
