@@ -68,7 +68,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("card", "build", "kernels", "lm_kernels", "main", "paths",
           "agreement", "profile", "repartition", "hierarchical", "pserve",
           "refine", "sharded", "experiments", "serve", "prefill", "archs",
-          "timing")
+          "train", "timing")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_F32_FLOPS = 67e12
@@ -2940,8 +2940,9 @@ def greedy(torch, logits, cfg):
     return torch.argmax(lf, dim=-1).to(torch.int32)
 
 
-def prefill_agreement(torch, cfg, params, depth=2, tag="prefill"):
-    """``depth`` layers at full width, S = 4096: prefill (flash kernel in
+def prefill_agreement(torch, cfg, params, depth=1, tag="prefill"):
+    """``depth`` layers at full width (a depth below one pattern period
+    keeps the period's first positions), S = 4096: prefill (flash kernel in
     the full layers, the band in sliding-window ones) against
     token-by-token decode from scratch (dense attention against the
     cache, windowed in sliding-window layers), both with the router
@@ -2953,14 +2954,16 @@ def prefill_agreement(torch, cfg, params, depth=2, tag="prefill"):
     import dataclasses
     import numpy as np
     from repro_torch.models import model as M
-    cfg2 = dataclasses.replace(cfg, n_layers=depth)
+    pattern = cfg.pattern[:min(depth, cfg.period)]
+    cfg2 = dataclasses.replace(cfg, n_layers=depth, pattern=pattern)
     if cfg.moe is not None:
         cfg2 = dataclasses.replace(cfg2, moe=dataclasses.replace(
             cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
-    reps = depth // cfg.period
-    p2 = dict(params, layers={k: {kk: _index_repeats(vv, reps)
-                                  for kk, vv in v.items()}
-                              for k, v in params["layers"].items()})
+    reps = depth // len(pattern)
+    p2 = dict(params, layers={
+        f"pos{i}": {kk: _index_repeats(vv, reps) for kk, vv in
+                    params["layers"][f"pos{i}"].items()}
+        for i in range(len(pattern))})
     toks = torch.tensor(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (1, PREFILL_S)), dtype=torch.int32, device=DEVICE)
     horizon = PREFILL_S + 8
@@ -3026,10 +3029,12 @@ ARCH_CELLS = (
     ("rwkv6_3b", None, "fits"),
 )
 # prefill-vs-stepwise agreements at full width: arch -> depth (gemma3's
-# pattern period: five sliding-window layers and a global one; jamba at
-# its cut depth)
-ARCH_AGREEMENTS = {"gemma3_1b": 6, "phi3_mini_3p8b": 2,
-                   "jamba_1p5_large_398b": 5, "rwkv6_3b": 2}
+# pattern period: five sliding-window layers and a global one; jamba's
+# first two positions: a Mamba layer with a dense MLP and one with MoE).
+# The depths keep the whole script under 900 s: a one-token step costs
+# 2-3.3 ms a layer on the H100, so the 4,096 steps take 8-14 s a layer.
+ARCH_AGREEMENTS = {"gemma3_1b": 6, "phi3_mini_3p8b": 1,
+                   "jamba_1p5_large_398b": 2, "rwkv6_3b": 1}
 
 
 def arch_batch(torch, cfg, B, S, seed):
@@ -3292,6 +3297,388 @@ def phase_archs(torch, ctx):
         torch.cuda.empty_cache()
         serve_agreement(torch, arch)
         lap(f"archs {cfg.name}", t0)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the training step (granite at full width)
+# ---------------------------------------------------------------------------
+
+# granite CONFIG trained at full width: batch TRAIN_B x TRAIN_S tokens in
+# TRAIN_MICRO microbatches, TRAIN_STEPS steps
+TRAIN_B, TRAIN_S, TRAIN_MICRO, TRAIN_STEPS = 2, 4096, 2, 3
+# card against CPU in float32 (SMOKE): losses and grad norms within 1e-5
+# relative; gradients, parameters and moments within 1e-4 of each leaf's
+# largest value (cuBLAS and the CPU sum in other orders; Adam's first
+# steps move near-zero gradients by up to lr); the influence within 1e-5
+# relative (integer loads)
+TRAIN_TOL = 1e-4
+
+
+def leaf_close(torch, got, want) -> float:
+    """max |got - want| over max |want| (1 when want is all zero and got
+    is not)."""
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    scale = float(torch.max(torch.abs(w))) if w.numel() else 0.0
+    err = float(torch.max(torch.abs(g - w))) if w.numel() else 0.0
+    rel = err / scale if scale else (0.0 if err == 0 else 1.0)
+    return rel
+
+
+def train_flash_grad(torch, ctx):
+    """``FlashAttentionFn`` at one granite layer of a B=1, S=4096 step
+    (24:8 heads, dh 64, bf16): the forward is one tensor-core kernel launch
+    held against the plain version row by row; dq, dk, dv of sum(out * w)
+    (w holding bf16 values) against autograd through the plain version
+    in float32 at the same bf16 inputs, row by row within FLASH_TOL (the
+    backward recomputes the float32 function, so only the final bf16
+    rounding of the gradients differs; the kernel's bf16 rounding of P
+    touches the forward only).
+    Then the forward kernel and the backward recompute timed with CUDA
+    events."""
+    import numpy as np
+    from repro_torch.configs import granite_moe_3b_a800m as granite
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.ref import row_relative_error
+    cfg = granite.CONFIG
+    B, S, H, KV, dh = 1, PREFILL_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = (t.requires_grad_() for t in
+               flash_inputs(torch, B, S, H, KV, dh, torch.bfloat16, 7))
+    # the cotangent in bf16 values: out is bf16, so the Function's
+    # backward receives it rounded; the plain float32 path gets the same
+    w = torch.tensor(np.random.default_rng(8).standard_normal(
+        (B, S, H, dh)), dtype=torch.float32, device=DEVICE) \
+        .to(torch.bfloat16).float()
+    what = f"FlashAttentionFn B={B} S={S} H={H} KV={KV} dh={dh} bf16"
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v)
+    torch.sum(out.float() * w).backward()
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in ops.launch_counts().items() if c}
+    check(counts == {"flash_attention_tc": 1}, f"{what}: forward and "
+          f"backward launched {counts}, expected the tensor-core kernel "
+          "once")
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = flash_attention_plain(*ref)
+    torch.sum(want * w).backward()
+    tol = FLASH_TOL["bfloat16"]
+    errs = {"out": row_relative_error(out, want)}
+    for name, t, r in zip("qkv", (q, k, v), ref):
+        check(t.grad is not None and t.grad.dtype == torch.bfloat16 and
+              bool(torch.isfinite(t.grad.float()).all()),
+              f"{what}: d{name} missing, not bf16 or not finite")
+        errs[f"d{name}"] = row_relative_error(t.grad, r.grad)
+    bad = {n: e for n, e in errs.items() if e > tol}
+    check(not bad, f"{what}: per-row relative errors {bad} past {tol}")
+
+    def fwd():
+        return ops.flash_attention(q, k, v)
+
+    def fwd_bwd():
+        q.grad = k.grad = v.grad = None
+        torch.sum(ops.flash_attention(q, k, v).float() * w).backward()
+
+    fwd_ms = time_ms(torch, fwd, iters=10)
+    both_ms = time_ms(torch, fwd_bwd, iters=3, warmup=1)
+    log("train", f"{what}: per-row relative error against autograd "
+        f"through the plain version: "
+        f"{', '.join(f'{n} {e:.3g}' for n, e in errs.items())} (limit "
+        f"{tol}); forward kernel {fwd_ms:.4f} ms, backward (plain float32 "
+        f"recompute in {S // 512} query chunks) {both_ms - fwd_ms:.3f} ms = "
+        f"{(both_ms - fwd_ms) / fwd_ms:.1f} x the forward  [{ctx['card']}]")
+
+
+def train_router_gates(torch, ctx):
+    """The router at granite's T=4096 (bf16 tokens, E=40, top-8, an
+    influence in [0.8, 1.25]): the kernel's experts, and the gates that
+    training takes at them (``moe.router_gates``: ``router_logits`` in
+    cuBLAS float32, gathered) against the kernel's -eff within
+    ROUTER_TOL; the gates' gradients in x and the centroids finite."""
+    import numpy as np
+    from repro_torch.configs import granite_moe_3b_a800m as granite
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as MOE
+    m, D = granite.CONFIG.moe, granite.CONFIG.d_model
+    x, c, _ = router_inputs(torch, PREFILL_S, m.n_experts, D, 9,
+                            torch.bfloat16, True)
+    infl = torch.tensor(np.random.default_rng(9).uniform(
+        0.8, 1.25, m.n_experts), dtype=torch.float32, device=DEVICE)
+    ops.reset_launch_counts()
+    eidx, eff = ops.router_topk_divide(x, c, infl, m.top_k)
+    xg, cg = x.detach().requires_grad_(), c.detach().requires_grad_()
+    gates = MOE.router_gates({"centroids": cg}, xg, m, infl, eidx)
+    torch.sum(torch.softmax(gates, dim=-1) * torch.arange(
+        m.top_k, device=DEVICE)).backward()
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in ops.launch_counts().items() if c}
+    what = f"router gates T={PREFILL_S} E={m.n_experts} D={D} K={m.top_k}"
+    check(counts == {"router_topk": 1}, f"{what}: launched {counts}")
+    err = float(torch.max(torch.abs(-gates.detach() - eff)))
+    check(torch.allclose(-gates.detach(), eff, rtol=ROUTER_TOL,
+                         atol=ROUTER_TOL),
+          f"{what}: recomputed eff differs from the kernel's (max |err| "
+          f"{err:.3g})")
+    check(bool(torch.isfinite(xg.grad).all() and
+               torch.isfinite(cg.grad).all()) and
+          float(torch.max(torch.abs(cg.grad))) > 0,
+          f"{what}: gradients not finite or zero")
+    log("train", f"{what}: recomputed eff (cuBLAS float32 router_logits at "
+        f"the kernel's indices) against the kernel's: max |err| {err:.3g} "
+        f"(rtol and atol {ROUTER_TOL}); d x and d centroids finite")
+
+
+def _train_batch(torch, cfg, B, S, seed, device):
+    import numpy as np
+    t = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                             (B, S + 1)).astype(np.int32)
+    return {"tokens": torch.from_numpy(t[:, :-1]).to(device),
+            "labels": torch.from_numpy(t[:, 1:]).to(device)}
+
+
+def _grads(params):
+    from repro_torch.optim.adamw import tree_leaves
+    return [p.grad for p in tree_leaves(params)]
+
+
+def train_smoke_agreement(torch, ctx):
+    """granite SMOKE in float32: three steps of ``make_train_step`` (two
+    microbatches, remat) on the card (the router kernel) and on the CPU
+    (its plain version) from one state on the same batches: metrics,
+    parameters, moments and influence within TRAIN_TOL. jamba and rwkv6
+    SMOKE in float32: ``loss_fn(forward)`` and its gradients on both."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels.ops import reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import (TrainHParams, init_train_state,
+                                   make_train_step)
+    cfg = dataclasses.replace(configs.get_config(
+        "granite_moe_3b_a800m", smoke=True), dtype="float32")
+    hp = TrainHParams(microbatches=2, lr_peak=5e-3, warmup_steps=2,
+                      total_steps=50)
+    cpu = init_train_state(cfg, torch.Generator().manual_seed(3), hp,
+                           device="cpu")
+    card = _to_device(cpu, DEVICE)
+    step = make_train_step(cfg, None, hp)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    worst = {}
+    for i in range(3):
+        batch = _train_batch(torch, cfg, 4, 32, 10 + i, "cpu")
+        card, mc = step(card, _to_device(batch, DEVICE))
+        cpu, mh = step(cpu, batch)
+        for key in ("loss", "grad_norm", "moe_dropped_frac"):
+            a, b = float(mc[key]), float(mh[key])
+            check(abs(a - b) <= 1e-5 * abs(b) + 1e-7, f"train SMOKE step "
+                  f"{i}: {key} card {a} CPU {b}")
+    n_route = 3 * hp.microbatches * cfg.n_layers * 2
+    lm_counts_after(torch, ctx, "train-smoke", {
+        "router_topk": n_route, "router_topk_plain": n_route}, t0,
+        record=())
+    for part, got, want in (("params", card["params"], cpu["params"]),
+                            ("mu", card["opt"]["mu"], cpu["opt"]["mu"]),
+                            ("nu", card["opt"]["nu"], cpu["opt"]["nu"])):
+        worst[part] = max(leaf_close(torch, g, w) for g, w in
+                          zip(tree_leaves(got), tree_leaves(want)))
+    infl = float(torch.max(torch.abs(card["influence"].cpu() /
+                                     cpu["influence"] - 1)))
+    check(max(worst.values()) <= TRAIN_TOL and infl <= 1e-5,
+          f"train SMOKE: card and CPU differ after 3 steps: {worst}, "
+          f"influence {infl:.3g}")
+    log("train", f"{cfg.name} float32, 3 steps (batch 4 x 32, 2 "
+        f"microbatches, remat): card (router kernel) and CPU (plain) loss "
+        f"{float(mc['loss']):.6f} / {float(mh['loss']):.6f}, grad_norm "
+        f"{float(mc['grad_norm']):.6f} / {float(mh['grad_norm']):.6f}; "
+        f"largest error over each leaf's largest value: "
+        f"{', '.join(f'{k} {v:.3g}' for k, v in worst.items())}, "
+        f"influence {infl:.3g} relative (tolerance {TRAIN_TOL}, 1e-5)")
+    for arch in ("jamba_1p5_large_398b", "rwkv6_3b"):
+        cfg = dataclasses.replace(configs.get_config(arch, smoke=True),
+                                  dtype="float32")
+        params = M.init_params(cfg, torch.Generator().manual_seed(5),
+                               device="cpu")
+        rs = MOE.init_router_state(cfg, device="cpu")
+        batch = _train_batch(torch, cfg, 2, 64, 12, "cpu")
+        out = {}
+        for dev in (DEVICE, "cpu"):
+            p = _to_device(params, dev)
+            for leaf in tree_leaves(p):
+                leaf.requires_grad_(True)
+            b = _to_device(batch, dev)
+            logits, _, _ = M.forward(p, b, cfg, influence=None if rs is None
+                                     else rs["influence"].to(dev))
+            loss = M.loss_fn(logits, b["labels"], cfg)
+            loss.backward()
+            out[dev] = (float(loss), _grads(p))
+        (lc, gc), (lh, gh) = out[DEVICE], out["cpu"]
+        errs = [leaf_close(torch, a, b) for a, b in zip(gc, gh)
+                if a is not None or b is not None]
+        check(abs(lc - lh) <= 1e-5 * abs(lh) and max(errs) <= TRAIN_TOL,
+              f"train {cfg.name}: card and CPU differ: loss {lc} / {lh}, "
+              f"largest gradient error {max(errs):.3g}")
+        log("train", f"{cfg.name} float32 B=2 S=64, forward + grad: card "
+            f"and CPU loss {lc:.6f} / {lh:.6f}, largest gradient error "
+            f"over its leaf's largest value {max(errs):.3g} over "
+            f"{len(errs)} leaves (tolerance {TRAIN_TOL})")
+
+
+def train_remat_bits(torch, ctx):
+    """granite SMOKE (head dim 16, the smallest the flash kernels take: the
+    SMOKE's 8 is not built) in its bf16 activations at B=1, S=4096, on the
+    card: the loss, logits and every gradient with ``remat=True`` (each
+    layer recomputed in the backward, its flash and router kernels
+    launched again) bit-equal to ``remat=False``."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels.ops import reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = dataclasses.replace(configs.get_config(
+        "granite_moe_3b_a800m", smoke=True), head_dim=16)
+    params = M.init_params(cfg, torch.Generator(device=DEVICE)
+                           .manual_seed(6), device=DEVICE)
+    infl = MOE.init_router_state(cfg, device=DEVICE)["influence"]
+    batch = _train_batch(torch, cfg, 1, PREFILL_S, 13, DEVICE)
+
+    def run(remat, tag):
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+            p.grad = None
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _, _ = M.forward(params, batch, cfg, remat=remat,
+                                 influence=infl)
+        loss = M.loss_fn(logits, batch["labels"], cfg)
+        loss.backward()
+        n = cfg.n_layers * (2 if remat else 1)
+        lm_counts_after(torch, ctx, tag, {"flash_attention_tc": n,
+                                          "router_topk": n}, t0, record=())
+        return loss.detach(), logits.detach(), \
+            [g.clone() for g in _grads(params) if g is not None]
+
+    plain = run(False, "train-remat")
+    remat = run(True, "train-remat")
+    same = torch.equal(plain[0], remat[0]) and \
+        torch.equal(plain[1], remat[1]) and \
+        all(torch.equal(a, b) for a, b in zip(plain[2], remat[2]))
+    if not same:
+        again = run(False, "train-remat")
+        base = all(torch.equal(a, b) for a, b in zip(plain[2], again[2]))
+        raise SmokeError(f"train: remat=True differs from remat=False on "
+                         f"{cfg.name} at S={PREFILL_S}; two remat=False runs "
+                         f"{'agree' if base else 'differ too'}")
+    log("train", f"{cfg.name} (head dim 16) bf16 B=1 S={PREFILL_S}: loss, "
+        f"logits and {len(plain[2])} gradients with remat bit-equal to "
+        f"without (flash and router launched {cfg.n_layers} times without, "
+        f"{2 * cfg.n_layers} with)")
+
+
+def train_full(torch, ctx):
+    """granite CONFIG at its published widths: float32 parameters and
+    moments, bf16 activations, no compression, remat; batch TRAIN_B x
+    TRAIN_S from a seeded numpy generator in TRAIN_MICRO microbatches,
+    TRAIN_STEPS steps. Gates: every loss finite, the influence moved and
+    positive, flash and router launched twice a layer a microbatch
+    (forward and remat recompute) and nothing else. Prints s a step,
+    tokens/s, peak memory and the optimizer's share of a step (its
+    ``adamw_update`` timed by a wrapper that synchronizes around it), then
+    profiles one more step (device busy share, device time by kernel)."""
+    import math
+    from repro_torch.configs import granite_moe_3b_a800m as granite
+    from repro_torch.kernels.ops import reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.train import TrainHParams, init_train_state
+    from repro_torch.train import step as STEP
+    cfg = granite.CONFIG
+    hp = TrainHParams(microbatches=TRAIN_MICRO, grad_compress="none")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, torch.Generator(device=DEVICE)
+                             .manual_seed(0), hp, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = M.param_count(state["params"])
+    state_gib = torch.cuda.memory_allocated() / 2 ** 30
+    log("train", f"{cfg.name}: {n_params:,} parameters, params + moments "
+        f"{state_gib:.2f} GiB made on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    opt_s = []
+    inner = STEP.adamw_update
+
+    def timed_update(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        opt_s.append(time.perf_counter() - t)
+        return out
+
+    STEP.adamw_update = timed_update
+    try:
+        step = STEP.make_train_step(cfg, None, hp)
+        walls, losses = [], []
+        reset_launch_counts()
+        t_run = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            batch = _train_batch(torch, cfg, TRAIN_B, TRAIN_S, 20 + i,
+                                 DEVICE)
+            t1 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))       # synchronizes
+            walls.append(time.perf_counter() - t1)
+            check(math.isfinite(losses[-1]) and
+                  math.isfinite(float(m["grad_norm"])),
+                  f"train: step {i} loss {losses[-1]} grad_norm "
+                  f"{float(m['grad_norm'])}")
+    finally:
+        STEP.adamw_update = inner
+    n = TRAIN_STEPS * TRAIN_MICRO * cfg.n_layers * 2
+    _, counts = lm_counts_after(torch, ctx, "train", {
+        "flash_attention_tc": n, "router_topk": n}, t_run, record=())
+    keep_path(ctx, "train", counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    batch = _train_batch(torch, cfg, TRAIN_B, TRAIN_S, 20 + TRAIN_STEPS,
+                         DEVICE)
+    profile_call(torch, ctx, "train", lambda: step(state, batch))
+    infl = state["influence"]
+    check(bool((infl > 0).all()) and not bool((infl == 1).all()),
+          "train: the influence did not move or is not positive")
+    steady = walls[1:] if len(walls) > 1 else walls
+    s_step = sum(steady) / len(steady)
+    opt_share = sum(opt_s[1:]) / sum(steady) if len(opt_s) > 1 \
+        else opt_s[0] / walls[0]
+    log_infl = torch.log(infl)
+    log("train", f"{cfg.name} full width, batch {TRAIN_B} x {TRAIN_S} in "
+        f"{TRAIN_MICRO} microbatches, remat, float32 state, bf16 "
+        f"activations: steps {', '.join(f'{w:.3f}' for w in walls)} s "
+        f"(steady {s_step:.3f} s a step = "
+        f"{TRAIN_B * TRAIN_S / s_step:.1f} tokens/s), optimizer "
+        f"{', '.join(f'{t:.3f}' for t in opt_s)} s = {opt_share:.1%} of a "
+        f"steady step, loss {', '.join(f'{v:.4f}' for v in losses)}, peak "
+        f"memory {peak:.2f} GiB, flash launches "
+        f"{counts['flash_attention_tc']} and router {counts['router_topk']}"
+        f" = {cfg.n_layers} layers x 2 (forward, recompute) x "
+        f"{TRAIN_MICRO} microbatches x {TRAIN_STEPS} steps; influence "
+        f"moved: |log| max {float(log_infl.abs().max()):.4f}, min "
+        f"{float(infl.min()):.4f}  [{ctx['card']}]")
+    del state
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch, ctx):
+    t0 = time.perf_counter()
+    train_flash_grad(torch, ctx)
+    train_router_gates(torch, ctx)
+    t0 = lap("train: flash autograd and router gates", t0)
+    train_smoke_agreement(torch, ctx)
+    t0 = lap("train: SMOKE card vs CPU", t0)
+    train_remat_bits(torch, ctx)
+    t0 = lap("train: remat bit-equality", t0)
+    train_full(torch, ctx)
+    lap("train: granite full width", t0)
 
 
 # ---------------------------------------------------------------------------
@@ -3853,6 +4240,7 @@ def main() -> int:
            "serve": lambda: phase_serve(torch, ctx),
            "prefill": lambda: phase_prefill(torch, ctx),
            "archs": lambda: phase_archs(torch, ctx),
+           "train": lambda: phase_train(torch, ctx),
            "timing": lambda: phase_timing(torch, ctx)}
     t_all = time.perf_counter()
     for name in PHASES[1:]:

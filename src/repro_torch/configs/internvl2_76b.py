@@ -10,8 +10,8 @@ precomputed patch+text embeddings ([B, S, d_model] bf16), so
 64 heads / 16 -> head-TP.
 
 Literal copy of the reference's module of the same name (``CONFIG``,
-``SMOKE``, ``LONG_CONTEXT_OK``); sharding overrides and training
-hyperparameters belong to later slices and are not carried."""
+``SMOKE``, ``LONG_CONTEXT_OK``, ``TRAIN_HPARAMS``); sharding overrides
+belong to a later slice and are not carried."""
 from repro_torch.models.config import LayerSpec, ModelConfig
 
 CONFIG = ModelConfig(
@@ -33,3 +33,7 @@ SMOKE = ModelConfig(
 )
 
 LONG_CONTEXT_OK = False  # pure full attention -> long_500k skipped
+
+# d_model=8192 embeddings-input activations are the largest in the pool;
+# 2 grad-accum microbatches halve the live footprint (same step FLOPs)
+TRAIN_HPARAMS = {"microbatches": 2}

@@ -7,8 +7,7 @@ MoE on odd positions. 64 heads divide 16 -> head-TP; mamba d_inner=16384
 is channel-TP over model. Optimizer moments in bf16 (400B class).
 
 Literal copy of the reference's module of the same name (``CONFIG``,
-``SMOKE``, ``LONG_CONTEXT_OK``); training hyperparameters belong to a
-later slice and are not carried."""
+``SMOKE``, ``LONG_CONTEXT_OK``, ``TRAIN_HPARAMS``)."""
 from repro_torch.models.config import LayerSpec, ModelConfig, MoEConfig
 
 _PATTERN = tuple(
@@ -43,3 +42,7 @@ SMOKE = ModelConfig(
 )
 
 LONG_CONTEXT_OK = True  # 7/8 of layers are SSM; attention is 1/8
+
+# heaviest train cell in the pool (72L hybrid + MoE): 2 grad-accum
+# microbatches halve the live activation/dispatch footprint
+TRAIN_HPARAMS = {"microbatches": 2, "grad_acc_dtype": "bfloat16"}

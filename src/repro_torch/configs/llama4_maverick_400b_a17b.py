@@ -10,8 +10,8 @@ Optimizer moments bf16 (400B class). Balanced-k-means router (paper Eq. 1
 influence balancing) is the *default* router for this arch.
 
 Literal copy of the reference's module of the same name (``CONFIG``,
-``SMOKE``, ``LONG_CONTEXT_OK``); sharding overrides and training
-hyperparameters belong to later slices and are not carried."""
+``SMOKE``, ``LONG_CONTEXT_OK``, ``TRAIN_HPARAMS``); sharding overrides
+belong to a later slice and are not carried."""
 from repro_torch.models.config import LayerSpec, ModelConfig, MoEConfig
 
 _PATTERN = (LayerSpec("full", "dense"), LayerSpec("full", "moe"))
@@ -42,3 +42,7 @@ SMOKE = ModelConfig(
 )
 
 LONG_CONTEXT_OK = False  # full attention -> long_500k skipped
+
+# 400B-class: microbatched grad accumulation in bf16 (grads of bf16 params
+# are natively bf16; f32 accumulators double their HBM)
+TRAIN_HPARAMS = {"microbatches": 2, "grad_acc_dtype": "bfloat16"}

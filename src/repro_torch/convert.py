@@ -14,7 +14,9 @@ objects of the reference, so the port still imports nothing of it.
   packages can resume from the same previous state (the port's
   ``WarmState`` holds numpy fields as the reference's does);
 * ``params_from_numpy`` turns a reference model's parameter tree (numpy
-  leaves) into the port's tree of tensors.
+  leaves) into the port's tree of tensors;
+* ``train_state_from_numpy`` turns a reference train state (params,
+  ``opt``, ``influence``, ``ef``, numpy leaves) into the port's.
 """
 from __future__ import annotations
 
@@ -88,3 +90,22 @@ def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
         t = torch.from_numpy(a)
     t = t.to(device)
     return t if dtype is None else t.to(dtype)
+
+
+def train_state_from_numpy(state, device):
+    """A reference train state (``jax.tree.map(np.asarray, state)``:
+    ``params``, ``opt`` {mu, nu, step}, and ``influence`` and ``ef`` where
+    present) as the port's state dict on ``device``, every leaf in its
+    own dtype (bfloat16 moments included), the step an int32 scalar."""
+    opt = state["opt"]
+    out = {"params": params_from_numpy(state["params"], device),
+           "opt": {"mu": params_from_numpy(opt["mu"], device),
+                   "nu": params_from_numpy(opt["nu"], device),
+                   "step": torch.tensor(int(np.asarray(opt["step"])),
+                                        dtype=torch.int32, device=device)}}
+    if "influence" in state:
+        out["influence"] = torch.tensor(np.asarray(state["influence"]),
+                                        dtype=torch.float32, device=device)
+    if "ef" in state:
+        out["ef"] = params_from_numpy(state["ef"], device)
+    return out

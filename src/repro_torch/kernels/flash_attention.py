@@ -30,6 +30,11 @@ kernel cannot take raises; nothing falls back to another kernel or to the
 plain version. ``flash_attention_tc.launches`` and
 ``flash_attention_f32.launches`` count kernel launches,
 ``flash_attention_plain.calls`` plain calls.
+
+Training goes through ``FlashAttentionFn``:
+the same forward, and a backward that recomputes the attention of each
+query chunk in plain PyTorch (no backward kernel: the TPU kernel has
+none either).
 """
 from __future__ import annotations
 
@@ -43,32 +48,39 @@ class UnsupportedHeadDimError(ValueError):
     """The CUDA kernel is built for the head dims ``HEAD_DIMS`` only."""
 
 
+def _plain_chunk(qi, k, v, q0: int, softcap: float):
+    """Float32 causal attention of the queries ``qi`` [B, C, H, dh] at
+    positions ``q0 ..`` against ``k``/``v`` [B, T, KV, dh] (the keys up
+    to the chunk's end): dense scores, masked at -1e30 above the
+    diagonal, an exact softmax and the PV product. Returns float32
+    [B, C, H, dh]."""
+    B, C, H, dh = qi.shape
+    KV = k.shape[2]
+    qf = qi.float().reshape(B, C, KV, H // KV, dh)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qf, k.float()) * dh ** -0.5
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    qpos = torch.arange(q0, q0 + C, device=qi.device)
+    kpos = torch.arange(k.shape[1], device=qi.device)
+    s = torch.where(kpos[None, :] <= qpos[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqt,btkd->bqkgd", p, v.float())
+    return o.reshape(B, C, H, dh)
+
+
 def flash_attention_plain(q, k, v, softcap: float = 0.0,
                           q_chunk: int = 512):
-    """Plain version of ``flash_attention_cuda``: for each chunk of
-    ``q_chunk`` queries, the dense float32 scores against the keys up to
-    the chunk's end, masked at -1e30 above the diagonal, an exact softmax
-    and the PV product; the chunking bounds the score scratch and changes
-    no row's arithmetic."""
+    """Plain version of ``flash_attention_cuda``: ``_plain_chunk`` for each
+    chunk of ``q_chunk`` queries against the keys up to the chunk's end;
+    the chunking bounds the score scratch and changes no row's
+    arithmetic."""
     flash_attention_plain.calls += 1
     B, S, H, dh = q.shape
-    KV = k.shape[2]
-    G = H // KV
-    scale = dh ** -0.5
-    kf, vf = k.float(), v.float()
     out = torch.empty(B, S, H, dh, dtype=q.dtype, device=q.device)
     for q0 in range(0, S, q_chunk):
         q1 = min(q0 + q_chunk, S)
-        qi = q[:, q0:q1].float().reshape(B, q1 - q0, KV, G, dh)
-        s = torch.einsum("bqkgd,btkd->bkgqt", qi, kf[:, :q1]) * scale
-        if softcap:
-            s = torch.tanh(s / softcap) * softcap
-        qpos = torch.arange(q0, q1, device=q.device)
-        kpos = torch.arange(q1, device=q.device)
-        s = torch.where(kpos[None, :] <= qpos[:, None], s, NEG_INF)
-        p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkgqt,btkd->bqkgd", p, vf[:, :q1])
-        out[:, q0:q1] = o.reshape(B, q1 - q0, H, dh).to(q.dtype)
+        out[:, q0:q1] = _plain_chunk(q[:, q0:q1], k[:, :q1], v[:, :q1], q0,
+                                     softcap).to(q.dtype)
     return out
 
 
@@ -195,3 +207,49 @@ def flash_attention_cuda(q, k, v, softcap: float = 0.0):
     if route == "tensor_cores":
         return flash_attention_tc(q, k, v, softcap)
     return flash_attention_f32(q, k, v, softcap)
+
+
+# queries a chunk of the backward's recompute: its float32 scores and
+# softmax weights are [B, H, chunk, S] each (granite at S = 4096: 192 MB)
+BACKWARD_CHUNK = 512
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal flash attention with a gradient. Forward: the kernel of
+    ``flash_attention_cuda`` on the card (the plain version on the CPU),
+    saving only q, k and v. Backward: each chunk of ``BACKWARD_CHUNK``
+    queries recomputed in plain float32 PyTorch (``_plain_chunk``) under
+    autograd, its gradients taken there and summed into dk and dv: the
+    reference's recipe, whose ``_flash_full`` checkpoints each chunk pair
+    and recomputes it in the backward. No backward kernel exists (the TPU
+    kernel has none). The recompute keeps the softmax weights in float32
+    where the bfloat16 kernel rounds them to bfloat16 before the PV
+    product, so the gradients are those of the float32 function at the
+    bf16 inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.softcap = softcap
+        return flash_attention_cuda(q, k, v, softcap)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        S = q.shape[1]
+        dq = torch.empty_like(q)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        for q0 in range(0, S, BACKWARD_CHUNK):
+            q1 = min(q0 + BACKWARD_CHUNK, S)
+            with torch.enable_grad():
+                qi = q[:, q0:q1].detach().float().requires_grad_()
+                ki = k[:, :q1].detach().float().requires_grad_()
+                vi = v[:, :q1].detach().float().requires_grad_()
+                o = _plain_chunk(qi, ki, vi, q0, ctx.softcap)
+                gq, gk, gv = torch.autograd.grad(
+                    o, (qi, ki, vi), grad_out[:, q0:q1].float())
+            dq[:, q0:q1] = gq
+            dk[:, :q1] += gk
+            dv[:, :q1] += gv
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None

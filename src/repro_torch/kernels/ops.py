@@ -412,9 +412,15 @@ def flash_attention(q, k, v, bq: int = 512, bk: int = 512,
     a float32 call the CUDA-core kernel (``flash_attention.kernel_for``);
     both have their own 64-key tiles and mask a ragged last tile
     themselves, so S is not padded and nothing is copied: they read the
-    ``[B, S, heads, dh]`` layout through strides."""
-    from .flash_attention import flash_attention_cuda
+    ``[B, S, heads, dh]`` layout through strides. With gradients on and
+    an input that requires one, the same kernel runs under
+    ``flash_attention.FlashAttentionFn``, whose backward recomputes the
+    attention in plain PyTorch."""
+    from .flash_attention import FlashAttentionFn, flash_attention_cuda
     del bq, bk
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, float(softcap or 0.0))
     return flash_attention_cuda(q, k, v, softcap)
 
 

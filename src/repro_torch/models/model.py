@@ -8,15 +8,21 @@ driven by a ``create`` callback, as in the reference, so the tree and its
 key names match (``convert.params_from_numpy`` carries a reference tree
 over). Layer stacks keep the leading ``repeat`` dim; the reference's
 ``lax.scan`` over repeats is a Python loop over the stacked ``[R, ...]``
-weights here. ``remat`` and ``unroll`` only shape the reference's
-compiled program and are accepted and ignored; so is ``rules`` (the
-sharding table of the multi-device slice).
+weights here, each leaf unbound once a forward (one stack in the
+backward, where a select per layer would allocate a zero tensor of the
+whole leaf for each layer's gradient). ``unroll`` only shapes the
+reference's compiled program and is accepted and ignored; so is
+``rules`` (the sharding table of the multi-device slice). ``remat`` with
+gradients on wraps each layer in ``torch.utils.checkpoint`` (the
+reference checkpoints each repeat of its scan): the backward recomputes
+the layer's forward, kernels included, from its input.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -117,6 +123,15 @@ def _index(tree, r: int):
     return tree[r]
 
 
+def _unbind(tree, n: int) -> list:
+    """``[_index(tree, r) for r in range(n)]``, each leaf unbound once:
+    views of the same values, whose backward is one stack a leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: v[r] for k, v in parts.items()} for r in range(n)]
+    return torch.unbind(tree)
+
+
 def _stack(trees: list):
     """Stack a list of identically shaped trees along a new leading dim."""
     if isinstance(trees[0], dict):
@@ -202,6 +217,15 @@ def _layer_apply(p, spec: LayerSpec, x, cfg, rules=None, positions=None,
     return x + out2, new_cache, new_infl, stats
 
 
+def _remat_layer(p, spec, x, cfg, positions, influence):
+    """The layer ``torch.utils.checkpoint`` recomputes in the backward:
+    ``_layer_apply`` at training (no cache). Its recompute routes as the
+    first pass did (the router kernel is deterministic); the influence it
+    recomputes is dropped, the first pass's is kept."""
+    return _layer_apply(p, spec, x, cfg, None, positions,
+                        influence=influence)
+
+
 def _store(cache, built, state):
     """An SSM layer's new ``state`` (a dict): at decode (``cache`` given)
     copied into the cache's own tensors, and the cache returned; at
@@ -222,7 +246,8 @@ def forward(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False,
     ``influence``: [n_repeats, n_moe, E] balanced-k-means router state.
     ``want_cache``: emit the populated decode cache (prefill).
     ``last_only``: unembed only the final position."""
-    del unroll, remat
+    del unroll
+    remat = remat and torch.is_grad_enabled() and not want_cache
     x = _embed_input(params, batch, cfg, rules)
     S = x.shape[1]
     dev = x.device
@@ -232,8 +257,7 @@ def forward(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False,
     use_infl = influence is not None
     E = cfg.moe.n_experts if cfg.moe else 1
     ninfs, drops, caches = [], [], []
-    for r in range(cfg.n_repeats):
-        p_r = _index(params["layers"], r)
+    for r, p_r in enumerate(_unbind(params["layers"], cfg.n_repeats)):
         new_infls = []
         drop = torch.zeros((), dtype=torch.float32, device=dev)
         cache_r = {}
@@ -241,9 +265,15 @@ def forward(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False,
             li = moe_positions.index(i) if i in moe_positions else None
             inf_i = influence[r][li] if (use_infl and li is not None) \
                 else None
-            x, nc, ni, st = _layer_apply(p_r[f"pos{i}"], spec, x, cfg, rules,
-                                         positions, influence=inf_i,
-                                         want_cache=want_cache)
+            if remat:
+                x, nc, ni, st = checkpoint(
+                    _remat_layer, p_r[f"pos{i}"], spec, x, cfg, positions,
+                    inf_i, use_reentrant=False)
+            else:
+                x, nc, ni, st = _layer_apply(p_r[f"pos{i}"], spec, x, cfg,
+                                             rules, positions,
+                                             influence=inf_i,
+                                             want_cache=want_cache)
             if want_cache:
                 cache_r[f"pos{i}"] = nc
             if li is not None:
@@ -289,6 +319,24 @@ def _unembed(params, x, cfg, rules=None):
     if cfg.input_mode == "codebooks":
         return torch.einsum("bsd,ndv->bsnv", x, w)
     return x @ w
+
+
+def loss_fn(logits, labels, cfg, z_loss: float = 1e-4):
+    """Mean cross entropy over the padded vocab in float32: padded ids
+    masked at -1e30, ``logsumexp - gold``, plus ``z_loss * logsumexp^2``
+    when ``z_loss``. ``logits`` [B, S, V] with ``labels`` [B, S], or
+    [B, S, n, V] with [B, S, n] (codebooks)."""
+    V = cfg.vocab_padded
+    lf = logits.to(torch.float32)
+    if cfg.vocab_size < V:
+        pad = torch.arange(V, device=lf.device) >= cfg.vocab_size
+        lf = torch.where(pad, -1e30, lf)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    return torch.mean(nll)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,14 @@ the reference's bit for bit for the same ``sq``; without an influence (the
 serving paths: ``decode_step`` and ``prefill`` pass none) it routes
 unscaled, which is the reference's division by ones.
 
+With gradients on (training), the kernel still chooses the experts, and
+the gates come from ``router_logits`` over all experts (``[T, E]``, a
+product the size of the router's own) gathered at the kernel's indices:
+the same logits, differentiable in the tokens and the centroids, as the
+reference's ``top_k`` of ``router_logits`` is. Gathering the chosen
+centroids instead would make a ``[T, K, D]`` tensor, larger than the
+product for every config.
+
 Dispatch is the reference's gather-based scheme, integer for integer: the
 capacity ``C``, the stable argsort of expert ids, ``starts``, ``valid``
 and ``slot``. ``rules`` is accepted and ignored on this single-device
@@ -72,6 +80,16 @@ def router_logits(params, x, m, influence):
     return -eff  # min effective distance == max logit
 
 
+def router_gates(params, x, m, influence, eidx):
+    """The logits of the experts ``eidx`` [T, K] (the router kernel's
+    choice) of tokens x [T, D]: ``router_logits`` gathered, so
+    differentiable in x and the centroids, where the kernel's eff carries
+    no gradient. The influence stays out of the graph (None: ones)."""
+    infl = (torch.ones(m.n_experts, dtype=torch.float32, device=x.device)
+            if influence is None else influence.detach())
+    return torch.gather(router_logits(params, x, m, infl), 1, eidx.long())
+
+
 def _gather_rows(src, idx):
     """src [B, N, D], idx [B, M] -> src[b, idx[b, m]] as [B, M, D]."""
     return torch.gather(src, 1, idx[..., None].expand(-1, -1, src.shape[2]))
@@ -90,9 +108,14 @@ def moe_apply(params, x, cfg, rules=None, influence=None):
     dev = x.device
 
     if m.router == "balanced_kmeans":
-        eidx, eff = ops.router_topk_divide(x.reshape(B * S, D),
-                                           params["centroids"], influence, K)
-        gates = -eff                      # top-k logits, descending
+        xt = x.reshape(B * S, D)
+        eidx, eff = ops.router_topk_divide(xt, params["centroids"],
+                                           influence, K)
+        if torch.is_grad_enabled() and (xt.requires_grad or
+                                        params["centroids"].requires_grad):
+            gates = router_gates(params, xt, m, influence, eidx)
+        else:
+            gates = -eff                  # top-k logits, descending
     else:
         logits = router_logits(params, x.reshape(B * S, D), m, influence)
         # stable descending sort: ties keep the lower expert first, as

@@ -81,19 +81,31 @@ def _ssm_chunk(h0, dt_c, b_c, x_c, cmat, a):
     da = torch.exp(dt_c[..., None] * a)                    # [B,C,di,ds]
     db = dt_c[..., None] * b_c[:, :, None, :] * x_c[..., None]
     # inclusive scan of (a, b) under (al, bl) . (ar, br) = (al ar, bl ar + br),
-    # doubling the reach each step; each step writes into the other buffer
-    # of a pair (what it reads is still needed while it writes)
+    # doubling the reach each step
     C = da.shape[1]
-    da2, db2 = torch.empty_like(da), torch.empty_like(db)
-    step = 1
-    while step < C:
-        da2[:, :step] = da[:, :step]
-        db2[:, :step] = db[:, :step]
-        torch.addcmul(db[:, step:], db[:, :-step], da[:, step:],
-                      out=db2[:, step:])
-        torch.mul(da[:, :-step], da[:, step:], out=da2[:, step:])
-        da, da2, db, db2 = da2, da, db2, db
-        step *= 2
+    if torch.is_grad_enabled() and (da.requires_grad or db.requires_grad):
+        # training: the same ops in the same order, out of place (autograd
+        # refuses out=), so the forward is bit-equal to serving's
+        step = 1
+        while step < C:
+            db = torch.cat([db[:, :step], torch.addcmul(
+                db[:, step:], db[:, :-step], da[:, step:])], dim=1)
+            da = torch.cat([da[:, :step],
+                            torch.mul(da[:, :-step], da[:, step:])], dim=1)
+            step *= 2
+    else:
+        # serving: each step writes into the other buffer of a pair (what
+        # it reads is still needed while it writes)
+        da2, db2 = torch.empty_like(da), torch.empty_like(db)
+        step = 1
+        while step < C:
+            da2[:, :step] = da[:, :step]
+            db2[:, :step] = db[:, :step]
+            torch.addcmul(db[:, step:], db[:, :-step], da[:, step:],
+                          out=db2[:, step:])
+            torch.mul(da[:, :-step], da[:, step:], out=da2[:, step:])
+            da, da2, db, db2 = da2, da, db2, db
+            step *= 2
     h = da * h0[:, None] + db                              # [B,C,di,ds]
     y = torch.einsum("bcds,bcs->bcd", h, cmat)
     return y, h[:, -1]

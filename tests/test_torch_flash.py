@@ -1,8 +1,9 @@
 """Causal flash attention: the port's ``ops.flash_attention`` (its plain
 version on the CPU) against the JAX package's ``ops.flash_attention`` (the
 Pallas kernel in interpret mode), and the port's ``attention`` against the
-reference's across the ``FLASH_S_MIN`` switch. Inputs are made with numpy
-and handed to both.
+reference's across the ``FLASH_S_MIN`` switch, and the training path's
+``FlashAttentionFn`` against ``jax.grad`` of the reference's
+``_flash_full``. Inputs are made with numpy and handed to both.
 
 Tolerances: 2e-5 in float32 and 2e-2 in bfloat16 for the kernel, the
 reference's own (tests/test_kernels_flash_router.py): an exact softmax
@@ -12,6 +13,9 @@ uses the LM parity tolerance of 1e-4 (tests/test_torch_lm.py): the
 projections and RoPE around the attention add float32 rounding of their
 own.
 """
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -230,3 +234,89 @@ def test_attention_matches_reference_across_flash_switch(monkeypatch, S,
                                    np.asarray(wc[kk], np.float32),
                                    rtol=tol, atol=tol)
 
+# FlashAttentionFn (training): gradients against jax.grad of the
+# reference's _flash_full. Float32 within 1e-4 relative and 1e-5 absolute
+# (outputs and gradients of order 1; the backward recomputes each
+# 512-query chunk with an exact softmax where the reference differentiates
+# its online one over 2048-key chunks); bfloat16 within 5e-2. On the card
+# the bf16 kernel rounds the softmax weights to bfloat16 before the PV
+# product and the recompute does not: the gradients are those of the
+# float32 function at the bf16 inputs, held there against autograd
+# through the plain version within 2e-2 of each row's largest value
+# (chip_smoke.py's train phase).
+GRAD_TOL = {"float32": dict(rtol=1e-4, atol=1e-5),
+            "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+
+
+def _f32(x):
+    return x.detach().float().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x, np.float32)
+
+
+FLASH_CASES = {
+    # (S, H, KV, dh, softcap, dtype)
+    "mha": (640, 4, 4, 16, 0.0, "float32"),
+    "gqa-softcap30": (640, 4, 2, 16, 30.0, "float32"),
+    "mqa-4096": (4096, 4, 1, 16, 0.0, "float32"),
+    "gqa-softcap30-bf16": (640, 6, 2, 32, 30.0, "bfloat16"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_function_matches_reference_grad(case):
+    """``ops.flash_attention`` with inputs that require grad (so through
+    ``FlashAttentionFn``) against ``_flash_full`` under ``jax.grad``: the
+    output and dq, dk, dv of ``sum(out * w)`` for a seeded cotangent w.
+    S = 640 is ragged against the backward's 512-query chunks (and one
+    chunk in the reference); S = 4096 takes the reference's 2048 chunks."""
+    S, H, KV, dh, cap, dtype = FLASH_CASES[case]
+    rng = np.random.default_rng(11)
+    q, k, v = (rng.standard_normal((1, S, n, dh)).astype(np.float32)
+               for n in (H, KV, KV))
+    w = rng.standard_normal((1, S, H, dh)).astype(np.float32)
+    rcfg = dataclasses.replace(ref_configs.get_config(
+        "granite_moe_3b_a800m", smoke=True), n_heads=H, n_kv_heads=KV, head_dim=dh,
+                               logit_softcap=cap or None, dtype=dtype)
+    rules = resolve_rules(MESH, rcfg, "train")
+    jdt = jnp.dtype(dtype)
+
+    def ref(q_, k_, v_):
+        out = RL._flash_full(q_, k_, v_, rcfg, rules)
+        return jnp.sum(out.astype(jnp.float32) * w), out
+
+    (_, wout), wgrads = jax.value_and_grad(ref, argnums=(0, 1, 2),
+                                           has_aux=True)(
+        *(jnp.asarray(t).astype(jdt) for t in (q, k, v)))
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(t).to(tdt).requires_grad_()
+                  for t in (q, k, v))
+    out = ops.flash_attention(tq, tk, tv, softcap=cap)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    torch.sum(out.float() * torch.from_numpy(w)).backward()
+    tol = GRAD_TOL[dtype]
+    np.testing.assert_allclose(_f32(out), _f32(wout), **tol)
+    for name, g, want in zip("qkv", (tq.grad, tk.grad, tv.grad), wgrads):
+        assert g.dtype == tdt
+        np.testing.assert_allclose(_f32(g), _f32(want), **tol,
+                                   err_msg=f"d{name}")
+
+
+def test_flash_takes_the_function_only_with_gradients():
+    """Without an input that requires grad, or under no_grad, the plain
+    path (no autograd node) as before; with one, the Function: one counted
+    plain call forward, none in its backward."""
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 64, n, 16))
+                                .astype(np.float32)) for n in (4, 2, 2))
+    assert ops.flash_attention(q, k, v).grad_fn is None
+    q.requires_grad_()
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v).grad_fn is None
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention_plain"] == 1
+    assert torch.equal(out.detach(), fa.flash_attention_plain(q.detach(), k,
+                                                              v))
+    out.sum().backward()
+    assert ops.launch_counts()["flash_attention_plain"] == 2   # the check
+    assert k.grad is None and q.grad.shape == q.shape

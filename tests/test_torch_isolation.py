@@ -44,6 +44,14 @@ def test_port_has_files():
     assert os.path.join(PORT, "kernels", "ops.py") in files
 
 
+@pytest.mark.parametrize("module", ["optim/__init__.py", "optim/adamw.py",
+                                    "optim/schedules.py", "train/__init__.py",
+                                    "train/step.py"])
+def test_training_modules_are_scanned(module):
+    """The training slice's modules are among the files scanned below."""
+    assert os.path.join(PORT, *module.split("/")) in _port_files()
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_or_reference_import(path):
