@@ -41,8 +41,14 @@ timed beside it), serves the dense decoder family and the SSM configs at publish
 jamba and rwkv6; internvl2, llama4 and jamba cut in depth to fit the card)
 through the same entry points, with launch counts per layer kind,
 card-vs-CPU transcripts on each SMOKE and each SSM layer's time at
-S = 4096 with its recurrence's share, times each kernel with CUDA events against its bound,
-and prints one JSON line of kernel records. Every phase raises on failure. The last line is
+S = 4096 with its recurrence's share, trains (autograd through the flash
+and router kernels, SMOKE steps card vs CPU, remat bit-equal), drives
+the training loop (granite and gemma3 SMOKE through
+``launch.train.main``; granite at full width through ``Trainer``:
+trained, preempted by a SIGINT, its 40.5 GB checkpoint written under
+``build/`` and restored into the abstract state, trained on), times each
+kernel with CUDA events against its bound, and prints one JSON line of
+kernel records. Every phase raises on failure. The last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every phase
 passed. Without a CUDA device, or without the rest of the repository
 beside it, the script exits non-zero and prints no result.
@@ -68,7 +74,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("card", "build", "kernels", "lm_kernels", "main", "paths",
           "agreement", "profile", "repartition", "hierarchical", "pserve",
           "refine", "sharded", "experiments", "serve", "prefill", "archs",
-          "train", "timing")
+          "train", "trainer", "timing")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_F32_FLOPS = 67e12
@@ -129,10 +135,11 @@ SHARDED_HIER = (8, 8)
 # k = 64 (at k = 1024 its clustered warm-up ends unbalanced, as the
 # reference's does: ROADMAP.md queue 3 item 17)
 REDIST_BALANCE_K = 64
-# the paper's §5 matrix: every method over the mesh zoo at n = 2^17 points
-# a family (refined3d twice that) and k = 256, over SHARDED_P ranks; the
-# small matrix that goes through run_matrix's own launch
-EXPERIMENTS = {"n": 1 << 17, "k": 256, "seed": 0}
+# the paper's §5 matrix: every method over the mesh zoo at n = 2^16 points
+# a family (refined3d twice that; cut from 2^17 for time, PERF.md §5:
+# every rank builds every mesh on the host) and k = 256, over SHARDED_P
+# ranks; the small matrix that goes through run_matrix's own launch
+EXPERIMENTS = {"n": 1 << 16, "k": 256, "seed": 0}
 EXPERIMENTS_SMALL = {"n": 1 << 12, "k": 16, "seed": 0,
                      "families": ["tri", "climate25d"],
                      "methods": ["geographer", "sfc"]}
@@ -1195,10 +1202,13 @@ def log_sim(tag, sim, wall, counts, card):
 
 def phase_repartition(torch, ctx):
     """The load-balance time series on the main cell's points under the
-    drifting hotspot, T steps warm (twice) and cold through
+    drifting hotspot, T steps warm and cold through
     ``simulate_loadbalance``; its scan-semantics twin from the same cold
-    start; ``repartition`` of an unchanged problem; then the full
-    configuration of benchmarks/repartition.py with its claims."""
+    start (equal to the warm run: its iterations and final labels); then
+    ``repartition`` of an unchanged problem; then the full configuration
+    of benchmarks/repartition.py with its claims. (No second warm run held
+    bit-equal to the first, for time: the scan's equality holds the same
+    run; PERF.md §5.)"""
     import numpy as np
     from repro_torch.core import meshes
     from repro_torch.core.balanced_kmeans import BKMConfig
@@ -1212,21 +1222,13 @@ def phase_repartition(torch, ctx):
     boot = ("assign_reduce", "prefix_sum")   # weighted cold starts
     sims = {}
     for tag, mode in (("repartition-warm", "warm"),
-                      ("repartition-warm-repeat", "warm"),
                       ("repartition-cold", "cold")):
         sims[tag], wall, counts = run_counted(
             torch, ctx, tag,
             lambda: simulate_loadbalance(prob, wl, REPART_T, mode=mode),
             boot)
         log_sim(tag, sims[tag], wall, counts, ctx["card"])
-    warm, again = sims["repartition-warm"], sims["repartition-warm-repeat"]
-    check(np.array_equal(warm["final_result"].labels,
-                         again["final_result"].labels) and
-          [r["iters"] for r in warm["per_step"]] ==
-          [r["iters"] for r in again["per_step"]],
-          "repartition: two warm runs differ")
-    log("repartition", "two warm runs: labels bit-identical, the same "
-        "iterations every step")
+    warm = sims["repartition-warm"]
     sw, sc = warm["summary"], sims["repartition-cold"]["summary"]
     mig = (sw["mean_migration_fraction"]
            / max(sc["mean_migration_fraction"], 1e-9))
@@ -1307,9 +1309,9 @@ def phase_repartition(torch, ctx):
 
 def phase_hierarchical(torch, ctx):
     """``partition(main problem, hierarchy=(32, 32))`` batched and with
-    the one-lane-a-call refinement: bit-identical; one run under the
-    profiler; then the card against the port on the CPU at n = 2^16,
-    (8, 8)."""
+    the one-lane-a-call refinement: bit-identical; then the card against
+    the port on the CPU at n = 2^16, (8, 8). (No run under the profiler,
+    for time: its device busy share, 3.6-4.2%, is in PERF.md.)"""
     import numpy as np
     from repro_torch.partition import PartitionProblem, partition
     pts = np.random.default_rng(0).uniform(0.0, 1.0, (MAIN_N, MAIN_D))
@@ -1341,9 +1343,6 @@ def phase_hierarchical(torch, ctx):
     log("hierarchical", "the batched run and the sequential one: labels, "
         "centers and influence bit-identical")
     t0 = lap("hierarchical: the two runs", t0)
-    profile_call(torch, ctx, "hierarchical",
-                 lambda: partition(prob, hierarchy=HIER))
-    t0 = lap("hierarchical: the profiled run", t0)
     lane_layout(torch, ctx, "hierarchical", pts[: MAIN_N // HIER[0]])
     hierarchical_agreement(torch, ctx, pts[:HIER_CPU_N])
     lap("hierarchical: lane layout and the CPU agreement", t0)
@@ -1862,8 +1861,9 @@ REDIST_COLS = ("wall", "assign_reduce", "sweeps", "all_reduces",
 def redistribute_on_rank(torch, points):
     """Inside a launch of P ranks: ``make_distributed_partitioner(P)`` on
     the main cell, this rank's rows of ``points`` (the reference's deal),
-    twice, once with rank 0 under the profiler, and once at k =
-    ``REDIST_BALANCE_K`` for the balance gate. Gates, on every rank:
+    twice, and once at k = ``REDIST_BALANCE_K`` for the balance gate (no
+    third run under the profiler, for time: its device busy share is in
+    PERF.md). Gates, on every rank:
     row 1 launched once a sweep and nothing else ran, two runs bit-equal,
     the valid keys (recomputed on the card) sorted and inside the rank's
     splitter range, the offset the prefix of the counts; on rank 0, over
@@ -1873,7 +1873,6 @@ def redistribute_on_rank(torch, points):
     (every rank's numbers as a [P, len(REDIST_COLS)] table, rank 0's
     summary)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.balanced_kmeans import BKMConfig
     from repro_torch.core.partitioner import make_distributed_partitioner
     from repro_torch.core.sfc import hilbert_index_int32
@@ -1891,18 +1890,6 @@ def redistribute_on_rank(torch, points):
         P, BKMConfig(k=REDIST_BALANCE_K, epsilon=EPS))(shard))
     A, rp, rv, centers, infl, imb, dropped, st = first
     parts = {"solves": time.perf_counter() - t0}
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 ) if r == 0 else contextlib.nullcontext() as prof:
-        # every rank's profiler is running before rank 0's clock starts
-        comm.all_reduce(torch.zeros(1, device=DEVICE))
-        t0 = time.perf_counter()
-        run(shard)
-        torch.cuda.synchronize()
-        pwall = time.perf_counter() - t0
-    if r == 0:
-        rows_, device_s = device_rows(prof)
-    parts["profile"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     red = st["redistribution"]
     gates = {"repeat": all(np.array_equal(a, b)
@@ -1937,9 +1924,7 @@ def redistribute_on_rank(torch, points):
                    "seconds": parts,
                    "balance_k_imbalance": float(coarse[5]),
                    "iters": int(st["iters"]), "cap": red["cap"],
-                   "backend": st["backend"], "gates": gates,
-                   "profile": {"wall": pwall, "device_s": device_s,
-                               "rows": [x[:3] for x in rows_[:8]]}}
+                   "backend": st["backend"], "gates": gates}
     sec, col = st["seconds"], st["collectives"]
     row = torch.zeros(P, len(REDIST_COLS), dtype=torch.float64,
                       device=DEVICE)
@@ -1960,6 +1945,22 @@ def rows_sorted(torch, x):
     for j in reversed(range(x.shape[1])):
         x = x[torch.sort(x[:, j], stable=True).indices]
     return x
+
+
+@contextlib.contextmanager
+def rank_cpu_threads(torch, ranks):
+    """A rank's CPU work on its share of the host's cores: ``ranks``
+    processes of a launch each running every core's worth of intra-op
+    threads oversubscribe the host (the card-vs-CPU agreements inside
+    the four-rank launch took 24.5 to 54.2 s from one machine to the next
+    with every core's worth a rank)."""
+    import os
+    before = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or ranks) // ranks))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
 
 
 def redistribute_extras(torch, points):
@@ -1985,7 +1986,8 @@ def redistribute_extras(torch, points):
     t0 = time.perf_counter()
     card = make_distributed_partitioner(P, cfg)(mine)
     t1 = time.perf_counter()
-    cpu = make_distributed_partitioner(P, cfg, device="cpu")(mine)
+    with rank_cpu_threads(torch, P):
+        cpu = make_distributed_partitioner(P, cfg, device="cpu")(mine)
     t2 = time.perf_counter()
     same = all(np.array_equal(card[i], cpu[i]) for i in (1, 2))
     valid = card[2]
@@ -2035,17 +2037,12 @@ def log_redistribute(ctx, tag, table, summary, extras=None):
         check(v["gates"] == 1, f"{tag} rank {r}: a gate failed "
               f"(rank 0's: {summary['gates']})")
     s = summary
-    p = s["profile"]
     log(tag, f"n={MAIN_N} k={MAIN_K} devices={P} ({s['backend']}): cap "
         f"{s['cap']}, {P * s['cap']} slots a rank, dropped {s['dropped']}, "
         f"iters {s['iters']}, imbalance {s['imbalance']:.6f}; gates "
         f"{s['gates']}  [{card}]")
-    log(tag, f"rank 0 under the profiler: wall {p['wall']:.3f} s, device "
-        f"busy {p['device_s']:.3f} s = {p['device_s'] / p['wall']:.1%}  "
-        f"[{card}]")
     for part, sec in s["seconds"].items():
         log("time", f"{tag}: {part}: {sec:.1f} s")
-    log_rows(tag, [x + ("CUDA",) for x in p["rows"]], n=8)
     check(all(s["gates"].values()), f"{tag}: gates {s['gates']}")
     check(s["dropped"] == 0, f"{tag}: {s['dropped']} points dropped")
     # at k = 1024 the warm-up on each rank's curve prefix ends unbalanced,
@@ -2080,20 +2077,15 @@ def log_redistribute(ctx, tag, table, summary, extras=None):
 
 
 def sharded_one(prob):
-    """Rank body of the ``devices=1`` launch (NCCL), run twice: the first
-    solve of the process and a second one. The first's labels come home
-    to be held against the single-device run; the second must equal it.
-    Then the distributed partitioner at P=1 (``redistribute_on_rank``)."""
-    import numpy as np
+    """Rank body of the ``devices=1`` launch (NCCL): one solve, whose
+    labels come home to be held against the single-device run (that
+    equality also holds the launch's determinism). Then the distributed
+    partitioner at P=1 (``redistribute_on_rank``)."""
     import torch
     from repro_torch.partition import partition
     res, table, counts = rank_run(torch, lambda: partition(prob, devices=1))
-    again, table2, counts2 = rank_run(torch,
-                                      lambda: partition(prob, devices=1))
-    check(same_result(np, res, again), "devices=1: two runs differ")
     return (res.labels, res.centers, res.influence,
             run_summary(res, table, counts),
-            run_summary(again, table2, counts2),
             redistribute_on_rank(torch, prob.points))
 
 
@@ -2106,13 +2098,12 @@ def refine_on_ranks(torch, tri):
     mesh, held against the single-card ``refine()`` of the same labels
     (``tri``: the problem, the labels, the single card's labels and
     stats, the drifting hotspot's weights at t = 1); the rounds alone,
-    timed and profiled on every rank; ``partition(devices=P,
+    timed on every rank (no profiled repeat, for time: the device busy
+    share of a round is in PERF.md); ``partition(devices=P,
     refine=True)`` against ``refine(partition(devices=P), devices=P)``;
-    one warm ``repartition(devices=P, refine=True)`` step against the
-    unrefined step."""
+    one warm ``repartition(devices=P, refine=True)`` step, its refined cut
+    against its own unrefined one (``cut_before``)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import metrics
     from repro_torch.dist import current
     from repro_torch.eval import ShardedGraph
     from repro_torch.partition import partition, refine, repartition
@@ -2132,7 +2123,7 @@ def refine_on_ranks(torch, tri):
                     "stats": {key: st[key] for key in REFINE_KEYS
                               + ("devices",)},
                     "table": table}
-    # the rounds alone: timed, then under the profiler, on every rank
+    # the rounds alone, timed on every rank
     lc, _, _, iw, keys, k, limit, max_rounds = round_inputs(prob, base)
     args = (lc, iw, keys, k, limit, max_rounds)
     torch.cuda.synchronize()
@@ -2142,22 +2133,11 @@ def refine_on_ranks(torch, tri):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     after = comm.counters()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # every rank's profiler is running before any rank's clock starts
-        # (a process's first profiler takes seconds to start)
-        comm.all_reduce(torch.zeros(1, device=DEVICE))
-        t0 = time.perf_counter()
-        _lp_rounds_sharded(graph, *args, comm, device=DEVICE)
-        torch.cuda.synchronize()
-        pwall = time.perf_counter() - t0
-    _, device_s = device_rows(prof)
-    row = torch.zeros(P, 7, dtype=torch.float64, device=DEVICE)
+    row = torch.zeros(P, 5, dtype=torch.float64, device=DEVICE)
     row[comm.rank] = torch.tensor(
         [wall, rounds, after["all_reduces"] - before["all_reduces"],
          after["seconds"] - before["seconds"],
-         after["bytes"] - before["bytes"], pwall, device_s],
-        dtype=torch.float64)
+         after["bytes"] - before["bytes"]], dtype=torch.float64)
     out["rounds"] = {"table": comm.all_reduce(row).tolist(),
                      "graph_s": t_graph}
     # the front doors: the sharded solve refined over the same ranks
@@ -2175,12 +2155,9 @@ def refine_on_ranks(torch, tri):
     step, table, counts = rank_run(torch, lambda: repartition(
         step_prob, composed, devices=P, refine=True),
         allowed=("assign_reduce", "prefix_sum"))
-    plain = repartition(step_prob, composed, devices=P)
     out["warm"] = {
         "stats": {key: step.stats["refine"][key] for key in REFINE_KEYS},
         "imbalance": step.imbalance(), "iters": step.stats["iters"],
-        "cut_plain": metrics.edge_cut(plain.labels, prob.indptr,
-                                      prob.indices),
         "table": table, "counts": counts}
     return out
 
@@ -2202,14 +2179,12 @@ def log_refine_on_ranks(ctx, out):
           f"{out['refine-mesh']['stats']['devices']}")
     rr = out["rounds"]
     for rank, row in enumerate(rr["table"]):
-        wall, rounds, calls, ar_s, nbytes, pwall, dev_s = row
+        wall, rounds, calls, ar_s, nbytes = row
         log("sharded-refine-rounds", f"rank {rank}: {int(rounds)} rounds in "
             f"{wall:.3f} s = {wall / rounds * 1e3:.2f} ms a round; "
             f"{int(calls)} all-reduces ({calls / rounds:.0f} a round) taking "
             f"{ar_s:.3f} s = {ar_s / wall:.1%} of the rounds; "
-            f"{int(nbytes / rounds)} bytes a round; device busy "
-            f"{dev_s:.4f} s = {dev_s / pwall:.1%} of {pwall:.3f} s under "
-            f"the profiler  [{card}]")
+            f"{int(nbytes / rounds)} bytes a round  [{card}]")
         check(calls == 4 * rounds, f"rank {rank}: {int(calls)} all-reduces "
               f"in {int(rounds)} rounds, want 4 a round")
     log("sharded-refine-rounds", f"ShardedGraph of the cell built in "
@@ -2227,13 +2202,13 @@ def log_refine_on_ranks(ctx, out):
     walls = ", ".join(f"{row[0]:.3f}" for row in w["table"])
     log("sharded-refine-warm", f"repartition(devices={SHARDED_P}, "
         f"refine=True), DriftingHotspot t=1: iters {w['iters']}, "
-        f"{w['stats']}, unrefined cut {w['cut_plain']}, imbalance "
+        f"{w['stats']}, imbalance "
         f"{w['imbalance']:.6f}; wall per rank {walls} s  [{card}]")
     check(w["imbalance"] <= EPS + 1e-6,
           f"sharded warm refine: imbalance {w['imbalance']:.6f}")
-    check(w["stats"]["cut_after"] <= w["cut_plain"],
+    check(w["stats"]["cut_after"] <= w["stats"]["cut_before"],
           f"sharded warm refine: cut {w['stats']['cut_after']} above the "
-          f"unrefined step's {w['cut_plain']}")
+          f"unrefined {w['stats']['cut_before']}")
     for tag in ("compose", "warm"):
         for r, row in enumerate(out[tag]["table"]):
             ctx["paths"][f"sharded-refine-{tag} rank {r}"] = {
@@ -2246,7 +2221,6 @@ def sharded_suite(prob, sub, qprob, qlabels, tri):
     ranks, the distributed partitioner last. Returns rank 0's summary."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import meshes
     from repro_torch.core.timeseries import simulate_loadbalance
     from repro_torch.dist import current
@@ -2268,39 +2242,23 @@ def sharded_suite(prob, sub, qprob, qlabels, tri):
     out["probe"] = {op: comm.all_reduce(x, op).cpu().tolist()
                     for op in ("sum", "min", "max")}
     runs = {}
-    for tag, devices, opts in (("flat", P, {}), ("flat-repeat", P, {}),
-                               ("mesh", SHARDED_MESH, {}),
+    for tag, devices, opts in (("flat", P, {}), ("mesh", SHARDED_MESH, {}),
                                ("device-bootstrap", P,
                                 {"bootstrap": "device"})):
         res, table, counts = rank_run(
             torch, lambda: partition(prob, devices=devices, **opts))
         runs[tag] = res
         out[tag] = run_summary(res, table, counts)
-    out["flat-repeat"]["equal"] = same_result(np, runs["flat"],
-                                              runs["flat-repeat"])
     out["mesh"]["equal"] = same_result(np, runs["flat"], runs["mesh"])
     out["device-bootstrap"]["blocks_used"] = int(
         len(np.unique(runs["device-bootstrap"].labels)))
-    mark("devices=4 twice, (2, 2), device bootstrap")
-    # where a rank's time goes: rank 0 under the profiler, every rank
-    # solving
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 ) if comm.rank == 0 else contextlib.nullcontext() as prof:
-        t0 = time.perf_counter()
-        partition(prob, devices=P)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    if comm.rank == 0:
-        rows, device_s = device_rows(prof)
-        out["profile"] = {"wall": wall, "device_s": device_s,
-                          "rows": [(r[0], r[1], r[2]) for r in rows[:10]]}
     del runs
-    mark("the profiled run")
+    mark("devices=4, (2, 2), device bootstrap")
     # agreement: the card against CPU ranks on the same deal
     card, table, counts = rank_run(
         torch, lambda: partition(sub, devices=P, warmup=False))
-    cpu = partition(sub, devices=P, warmup=False, device="cpu")
+    with rank_cpu_threads(torch, P):
+        cpu = partition(sub, devices=P, warmup=False, device="cpu")
     out["agreement"] = {
         "card": run_summary(card, table, counts),
         "cpu_imbalance": cpu.imbalance(),
@@ -2386,15 +2344,14 @@ def phase_sharded(torch, ctx):
     prob = PartitionProblem(points=pts, k=MAIN_K, epsilon=EPS, seed=0)
     single = partition(prob)
     t0 = time.perf_counter()
-    labels, centers, infl, s, s2, redist = launch.launch(
+    labels, centers, infl, s, redist = launch.launch(
         sharded_one, 1, args=(prob,), device="cuda", timeout=600)
     wall = time.perf_counter() - t0
     log_run("sharded-1", s, ctx["card"])
-    log_run("sharded-1-repeat", s2, ctx["card"])
     ctx["paths"]["sharded-1"] = s["counts"]
     log_redistribute(ctx, "redistribute-1", *redist)
-    log("sharded-1", f"launch of 1 rank, two solves: {wall:.1f} s with the "
-        f"process start; the two runs bit-identical")
+    log("sharded-1", f"launch of 1 rank: {wall:.1f} s with the process "
+        f"start")
     check(s["backend"] == launch.choose_backend("cuda", 1),
           f"devices=1 ran on {s['backend']}")
     check(np.array_equal(labels, single.labels)
@@ -2430,7 +2387,7 @@ def phase_sharded(torch, ctx):
     want = {"sum": [10.0, -6.0], "min": [1.0, -3.0], "max": [4.0, 0.0]}
     check(out["probe"] == want, f"gloo all-reduce on the card gave "
           f"{out['probe']}, want {want}")
-    for tag in ("flat", "flat-repeat", "mesh", "device-bootstrap"):
+    for tag in ("flat", "mesh", "device-bootstrap"):
         s = out[tag]
         log_run(f"sharded-{tag}", s, ctx["card"])
         check(s["imbalance"] <= EPS + 1e-6,
@@ -2438,18 +2395,11 @@ def phase_sharded(torch, ctx):
         for r in range(SHARDED_P):
             ctx["paths"][f"sharded-{tag} rank {r}"] = {
                 "assign_reduce": int(s["table"][r][1])}
-    check(out["flat-repeat"]["equal"], "devices=4: two runs differ")
     check(out["mesh"]["equal"], "devices=(2, 2) differs from devices=4")
     check(out["device-bootstrap"]["blocks_used"] == MAIN_K,
           "device bootstrap left blocks empty")
-    log("sharded", "devices=4 twice and devices=(2, 2): labels, centers "
-        "and influence bit-identical; every run balanced")
-    p = out["profile"]
-    log("sharded-profile", f"rank 0 of {SHARDED_P}, devices={SHARDED_P}: "
-        f"wall {p['wall']:.3f} s under the profiler, device busy "
-        f"{p['device_s']:.3f} s = {p['device_s'] / p['wall']:.1%} of wall "
-        f" [{ctx['card']}]")
-    log_rows("sharded-profile", [r + ("CUDA",) for r in p["rows"]], n=8)
+    log("sharded", "devices=4 and devices=(2, 2): labels, centers and "
+        "influence bit-identical; every run balanced")
     a = out["agreement"]
     log_run("sharded-agreement", a["card"], ctx["card"])
     log("sharded-agreement", f"first {SHARDED_AGREE_N} points, k="
@@ -2940,9 +2890,10 @@ def greedy(torch, logits, cfg):
     return torch.argmax(lf, dim=-1).to(torch.int32)
 
 
-def prefill_agreement(torch, cfg, params, depth=1, tag="prefill"):
+def prefill_agreement(torch, cfg, params, depth=1, tag="prefill", first=0):
     """``depth`` layers at full width (a depth below one pattern period
-    keeps the period's first positions), S = 4096: prefill (flash kernel in
+    keeps the period's positions from ``first`` on), S = 4096: prefill
+    (flash kernel in
     the full layers, the band in sliding-window ones) against
     token-by-token decode from scratch (dense attention against the
     cache, windowed in sliding-window layers), both with the router
@@ -2954,7 +2905,7 @@ def prefill_agreement(torch, cfg, params, depth=1, tag="prefill"):
     import dataclasses
     import numpy as np
     from repro_torch.models import model as M
-    pattern = cfg.pattern[:min(depth, cfg.period)]
+    pattern = cfg.pattern[first:first + min(depth, cfg.period)]
     cfg2 = dataclasses.replace(cfg, n_layers=depth, pattern=pattern)
     if cfg.moe is not None:
         cfg2 = dataclasses.replace(cfg2, moe=dataclasses.replace(
@@ -2962,7 +2913,7 @@ def prefill_agreement(torch, cfg, params, depth=1, tag="prefill"):
     reps = depth // len(pattern)
     p2 = dict(params, layers={
         f"pos{i}": {kk: _index_repeats(vv, reps) for kk, vv in
-                    params["layers"][f"pos{i}"].items()}
+                    params["layers"][f"pos{first + i}"].items()}
         for i in range(len(pattern))})
     toks = torch.tensor(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (1, PREFILL_S)), dtype=torch.int32, device=DEVICE)
@@ -2992,7 +2943,8 @@ def prefill_agreement(torch, cfg, params, depth=1, tag="prefill"):
                              atol=LM_BF16_TOL),
               f"prefill vs stepwise decode: step {t} logits differ "
               f"({errs[-1]:.3g})")
-    log(tag, f"{cfg.name} agreement at depth {depth}, full width, "
+    log(tag, f"{cfg.name} agreement at depth {depth} (pattern positions "
+        f"{first}-{first + len(pattern) - 1}), full width, "
         f"S={PREFILL_S}: "
         f"prefill vs {PREFILL_S} one-token steps, max |logit err| "
         f"{max(errs):.3g} over the last prompt position and 8 steps after "
@@ -3028,13 +2980,14 @@ ARCH_CELLS = (
      "does not fit one 80 GB card"),
     ("rwkv6_3b", None, "fits"),
 )
-# prefill-vs-stepwise agreements at full width: arch -> depth (gemma3's
-# pattern period: five sliding-window layers and a global one; jamba's
-# first two positions: a Mamba layer with a dense MLP and one with MoE).
-# The depths keep the whole script under 900 s: a one-token step costs
-# 2-3.3 ms a layer on the H100, so the 4,096 steps take 8-14 s a layer.
-ARCH_AGREEMENTS = {"gemma3_1b": 6, "phi3_mini_3p8b": 1,
-                   "jamba_1p5_large_398b": 2, "rwkv6_3b": 1}
+# prefill-vs-stepwise agreements at full width: arch -> (depth, first
+# pattern position): gemma3's positions 4-5, the last sliding-window layer
+# of its period and the global one; jamba's position 0, a Mamba layer
+# with a dense MLP (granite's agreement holds the MoE path). The depths
+# keep the whole script under 900 s: a one-token step costs 2-3.3 ms a
+# layer on the H100, so the 4,096 steps take 8-14 s a layer.
+ARCH_AGREEMENTS = {"gemma3_1b": (2, 4), "phi3_mini_3p8b": (1, 0),
+                   "jamba_1p5_large_398b": (1, 0), "rwkv6_3b": (1, 0)}
 
 
 def arch_batch(torch, cfg, B, S, seed):
@@ -3291,8 +3244,9 @@ def phase_archs(torch, ctx):
         if any(sp.attn in ("mamba", "rwkv") for sp in cfg.pattern):
             ssm_layer_profile(torch, ctx, cfg, params, wall)
         if arch in ARCH_AGREEMENTS:
-            prefill_agreement(torch, cfg, params, ARCH_AGREEMENTS[arch],
-                              tag="archs")
+            depth, first = ARCH_AGREEMENTS[arch]
+            prefill_agreement(torch, cfg, params, depth, tag="archs",
+                              first=first)
         del params
         torch.cuda.empty_cache()
         serve_agreement(torch, arch)
@@ -3300,12 +3254,12 @@ def phase_archs(torch, ctx):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the training step (granite at full width)
+# phase 12: the training step (autograd through the kernels, card vs CPU)
 # ---------------------------------------------------------------------------
 
-# granite CONFIG trained at full width: batch TRAIN_B x TRAIN_S tokens in
-# TRAIN_MICRO microbatches, TRAIN_STEPS steps
-TRAIN_B, TRAIN_S, TRAIN_MICRO, TRAIN_STEPS = 2, 4096, 2, 3
+# granite CONFIG trained at full width (the trainer phase): batch TRAIN_B x
+# TRAIN_S tokens in TRAIN_MICRO microbatches
+TRAIN_B, TRAIN_S, TRAIN_MICRO = 2, 4096, 2
 # card against CPU in float32 (SMOKE): losses and grad norms within 1e-5
 # relative; gradients, parameters and moments within 1e-4 of each leaf's
 # largest value (cuBLAS and the CPU sum in other orders; Adam's first
@@ -3576,35 +3530,242 @@ def train_remat_bits(torch, ctx):
         f"{2 * cfg.n_layers} with)")
 
 
-def train_full(torch, ctx):
-    """granite CONFIG at its published widths: float32 parameters and
-    moments, bf16 activations, no compression, remat; batch TRAIN_B x
-    TRAIN_S from a seeded numpy generator in TRAIN_MICRO microbatches,
-    TRAIN_STEPS steps. Gates: every loss finite, the influence moved and
-    positive, flash and router launched twice a layer a microbatch
-    (forward and remat recompute) and nothing else. Prints s a step,
-    tokens/s, peak memory and the optimizer's share of a step (its
-    ``adamw_update`` timed by a wrapper that synchronizes around it), then
-    profiles one more step (device busy share, device time by kernel)."""
+def phase_train(torch, ctx):
+    t0 = time.perf_counter()
+    train_flash_grad(torch, ctx)
+    train_router_gates(torch, ctx)
+    t0 = lap("train: flash autograd and router gates", t0)
+    train_smoke_agreement(torch, ctx)
+    t0 = lap("train: SMOKE card vs CPU", t0)
+    train_remat_bits(torch, ctx)
+    lap("train: remat bit-equality", t0)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the training loop (granite trained, preempted and resumed)
+# ---------------------------------------------------------------------------
+
+# granite SMOKE through launch.train.main: batch x seq in microbatches,
+# steps (a checkpoint every 2), and the step the preempted run is
+# interrupted in (and saves)
+TRAINER_SMOKE = {"batch": 4, "seq": 32, "micro": 2, "steps": 6,
+                 "preempt": 3}
+# granite CONFIG: A trains TRAINER_STEPS steps; B is interrupted in step
+# TRAINER_PREEMPT and saves it; C restores it and trains to TRAINER_STEPS
+TRAINER_STEPS, TRAINER_PREEMPT = 4, 2
+# C's losses against A's (the same steps on the same batches)
+TRAINER_TOL = 1e-5
+# git-ignored, on the checkout's disk (/tmp may be a small tmpfs)
+CKPT_ROOT = ROOT / "build" / "trainer-ckpt"
+
+
+@contextlib.contextmanager
+def sigint_inside_update(at_step):
+    """Send SIGINT from inside ``adamw_update`` of the step that makes
+    ``at_step``, half way through its in-place updates of the leaves."""
+    import signal
+    from repro_torch.optim import adamw as ADAMW
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import step as STEP
+    inner_update, inner_slices = STEP.adamw_update, ADAMW._slices
+    left = [0]          # _slices calls until the signal
+
+    def update(params, grads, opt_state, cfg, lr):
+        if int(opt_state["step"]) + 1 == at_step:
+            n = len(tree_leaves(params))
+            left[0] = n + n // 2      # global_norm's calls, then half
+        return inner_update(params, grads, opt_state, cfg, lr)
+
+    def slices(*ts):
+        if left[0]:
+            left[0] -= 1
+            if not left[0]:
+                signal.raise_signal(signal.SIGINT)
+        yield from inner_slices(*ts)
+
+    STEP.adamw_update, ADAMW._slices = update, slices
+    try:
+        yield
+    finally:
+        STEP.adamw_update, ADAMW._slices = inner_update, inner_slices
+
+
+def same_state(torch, got, want) -> bool:
+    from repro_torch.optim.adamw import tree_leaves
+    a, b = tree_leaves(got), tree_leaves(want)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x.detach().cpu(),
+                                           y.detach().cpu())
+        for x, y in zip(a, b))
+
+
+def metrics_of(history):
+    return [{k: v for k, v in m.items() if k != "wall_s"} for m in history]
+
+
+def trainer_smoke(torch, ctx):
+    """granite and gemma3 SMOKE through ``launch.train.main`` on the card
+    with a checkpoint every 2 steps. granite: an uninterrupted run (a);
+    the same run with a SIGINT inside ``adamw_update`` of step
+    ``preempt``, which must save that step and re-raise (b); a fresh
+    ``Trainer`` resumed from it on ``islice(data, preempt, None)`` (c).
+    Gates: c's final state equal bit for bit to a's last checkpoint, and
+    its metrics to a's last steps; that checkpoint restored onto the CPU
+    bit for bit, and a CPU-written copy restored onto the card; the
+    router launched twice a layer a microbatch, flash never (S=32)."""
+    import dataclasses
+    import itertools
     import math
-    from repro_torch.configs import granite_moe_3b_a800m as granite
+    import shutil
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.data import SyntheticLM
     from repro_torch.kernels.ops import reset_launch_counts
+    from repro_torch.launch import train as LT
+    from repro_torch.train import Trainer, abstract_train_state
+    sm = TRAINER_SMOKE
+    root = CKPT_ROOT / "smoke"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def argv(arch, name):
+        return ["--arch", arch, "--steps", str(sm["steps"]), "--batch",
+                str(sm["batch"]), "--seq", str(sm["seq"]), "--microbatches",
+                str(sm["micro"]), "--log-every", "1", "--ckpt-every", "2",
+                "--ckpt-dir", str(root / name), "--device", DEVICE]
+
+    every_two = list(range(2, sm["steps"] + 1, 2))
+    gemma, hist = LT.main(argv("gemma3-1b", "gemma3"))
+    check(gemma.ckpt.all_steps() == every_two and len(hist) == sm["steps"]
+          and all(math.isfinite(m["loss"]) for m in hist),
+          f"trainer SMOKE gemma3: checkpoints {gemma.ckpt.all_steps()}, "
+          f"history {hist}")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    a, hist_a = LT.main(argv("granite-moe-3b-a800m", "a"))
+    n = sm["steps"] * sm["micro"] * a.cfg.n_layers * 2
+    _, counts = lm_counts_after(torch, ctx, "trainer-smoke",
+                                {"router_topk": n}, t0, record=())
+    keep_path(ctx, "trainer-smoke", counts)
+    check(a.ckpt.all_steps() == every_two,
+          f"trainer SMOKE granite: checkpoints {a.ckpt.all_steps()}")
+    interrupted = False
+    with sigint_inside_update(sm["preempt"]):
+        try:
+            LT.main(argv("granite-moe-3b-a800m", "b"))
+        except KeyboardInterrupt:
+            interrupted = True
+    saved = CheckpointManager(str(root / "b")).all_steps()
+    check(interrupted and saved == [2, sm["preempt"]],
+          f"trainer SMOKE: the preempted run raised {interrupted}, saved "
+          f"{saved}, want [2, {sm['preempt']}]")
+    c = Trainer(a.cfg, a.rules, a.hp,
+                dataclasses.replace(a.tc, ckpt_dir=str(root / "b")))
+    state, start = c.init_or_resume()
+    check(start == sm["preempt"], f"trainer SMOKE resumed at {start}")
+    data = itertools.islice(iter(SyntheticLM(a.cfg, sm["batch"], sm["seq"])),
+                            start, None)
+    state, hist_c = c.fit(data, state, start)
+    like = abstract_train_state(a.cfg, a.hp)
+    want, _ = CheckpointManager(str(root / "a")).restore(like,
+                                                         device=DEVICE)
+    check(same_state(torch, state, want) and
+          metrics_of(hist_c) == metrics_of(hist_a[start:]),
+          f"trainer SMOKE: resumed from step {start}, the final state or "
+          f"the metrics differ from the uninterrupted run: "
+          f"{metrics_of(hist_c)} vs {metrics_of(hist_a[start:])}")
+    cpu, _ = CheckpointManager(str(root / "a")).restore(like, device="cpu")
+    CheckpointManager(str(root / "cpu")).save(sm["steps"], cpu)
+    back, _ = CheckpointManager(str(root / "cpu")).restore(like,
+                                                           device=DEVICE)
+    check(same_state(torch, cpu, want) and same_state(torch, back, want),
+          "trainer SMOKE: a checkpoint moved between the card and the CPU "
+          "changed")
+    shutil.rmtree(root, ignore_errors=True)
+    gemma_losses = ", ".join(f"{m['loss']:.4f}" for m in hist)
+    resumed = ", ".join(f"{m['loss']:.6f}" for m in hist_c)
+    log("trainer", f"SMOKE via launch.train.main on {DEVICE} (batch "
+        f"{sm['batch']} x {sm['seq']}, {sm['micro']} microbatches, "
+        f"{sm['steps']} steps, a checkpoint every 2): gemma3 losses "
+        f"{gemma_losses}; granite router launched {counts['router_topk']} "
+        f"times; SIGINT inside adamw_update of step {sm['preempt']} saved "
+        f"steps {saved} and re-raised; the resumed run's final state and "
+        f"its steps {start + 1}-{sm['steps']} metrics bit-equal to the "
+        f"uninterrupted run (losses {resumed}); the card's checkpoint "
+        f"restored on the CPU and a CPU-written copy on the card bit for "
+        f"bit")
+
+
+def mem_available() -> int:
+    """MemAvailable of /proc/meminfo in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return -1
+
+
+def trainer_full(torch, ctx):
+    """granite CONFIG through ``Trainer`` at the train phase's shapes
+    (batch TRAIN_B x TRAIN_S from ``SyntheticLM`` in TRAIN_MICRO
+    microbatches, remat, float32 state, bf16 activations), with the
+    launcher's ``TrainHParams``.
+
+    A: TRAINER_STEPS steps, no checkpoint: s a step, tokens/s, the
+    optimizer's share (``adamw_update`` timed by a synchronizing wrapper),
+    peak memory; flash and router launched twice a layer a microbatch and
+    nothing else; the influence moved; one more step profiled.
+    B: a fresh run, SIGINT inside ``adamw_update`` of step
+    TRAINER_PREEMPT: it must save that step (params, mu, nu, influence,
+    step) and re-raise; the save's seconds, GB/s and bytes on disk.
+    C: that checkpoint restored into ``abstract_train_state`` on the card
+    (peak under 80 GB), then steps TRAINER_PREEMPT+1.. on the same
+    batches: losses within TRAINER_TOL of A's (bit-equality printed)."""
+    import gc
+    import itertools
+    import math
+    import shutil
+    from repro_torch import configs
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import granite_moe_3b_a800m as granite
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist.rules import resolve_rules
+    from repro_torch.kernels.ops import reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model as M
-    from repro_torch.train import TrainHParams, init_train_state
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import (Trainer, TrainerConfig, TrainHParams,
+                                   abstract_train_state)
     from repro_torch.train import step as STEP
     cfg = granite.CONFIG
-    hp = TrainHParams(microbatches=TRAIN_MICRO, grad_compress="none")
-    torch.cuda.empty_cache()
+    # launch/train.py's hyperparameters for --steps TRAINER_STEPS
+    hp = TrainHParams(microbatches=TRAIN_MICRO, lr_peak=3e-4,
+                      warmup_steps=max(TRAINER_STEPS // 10, 1),
+                      total_steps=TRAINER_STEPS, grad_compress="none")
+    rules = resolve_rules(make_host_mesh(device=DEVICE), cfg, "train",
+                          batch_size=TRAIN_B,
+                          overrides=configs.sharding_overrides(
+                              "granite-moe-3b-a800m", "train"))
+    card = ctx["card"]
+
+    def data(start=0):
+        return itertools.islice(iter(SyntheticLM(cfg, TRAIN_B, TRAIN_S)),
+                                start, None)
+
+    def losses(hist):
+        return [m["loss"] for m in hist]
+
+    # A: uninterrupted
     torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, rules, hp, TrainerConfig(steps=TRAINER_STEPS,
+                                                    log_every=1))
     t0 = time.perf_counter()
-    state = init_train_state(cfg, torch.Generator(device=DEVICE)
-                             .manual_seed(0), hp, device=DEVICE)
+    state, _ = trainer.init_or_resume()
     torch.cuda.synchronize()
     n_params = M.param_count(state["params"])
-    state_gib = torch.cuda.memory_allocated() / 2 ** 30
-    log("train", f"{cfg.name}: {n_params:,} parameters, params + moments "
-        f"{state_gib:.2f} GiB made on the card in "
-        f"{time.perf_counter() - t0:.3f} s")
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(state))
+    log("trainer", f"{cfg.name}: {n_params:,} parameters; params, moments, "
+        f"influence and step {state_bytes / 1e9:.2f} GB made on the card "
+        f"in {time.perf_counter() - t0:.3f} s")
     opt_s = []
     inner = STEP.adamw_update
 
@@ -3618,67 +3779,143 @@ def train_full(torch, ctx):
 
     STEP.adamw_update = timed_update
     try:
-        step = STEP.make_train_step(cfg, None, hp)
-        walls, losses = [], []
         reset_launch_counts()
         t_run = time.perf_counter()
-        for i in range(TRAIN_STEPS):
-            batch = _train_batch(torch, cfg, TRAIN_B, TRAIN_S, 20 + i,
-                                 DEVICE)
-            t1 = time.perf_counter()
-            state, m = step(state, batch)
-            losses.append(float(m["loss"]))       # synchronizes
-            walls.append(time.perf_counter() - t1)
-            check(math.isfinite(losses[-1]) and
-                  math.isfinite(float(m["grad_norm"])),
-                  f"train: step {i} loss {losses[-1]} grad_norm "
-                  f"{float(m['grad_norm'])}")
+        state, hist_a = trainer.fit(data(), state, 0)
     finally:
         STEP.adamw_update = inner
-    n = TRAIN_STEPS * TRAIN_MICRO * cfg.n_layers * 2
-    _, counts = lm_counts_after(torch, ctx, "train", {
+    n = TRAINER_STEPS * TRAIN_MICRO * cfg.n_layers * 2
+    _, counts = lm_counts_after(torch, ctx, "trainer", {
         "flash_attention_tc": n, "router_topk": n}, t_run, record=())
-    keep_path(ctx, "train", counts)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    batch = _train_batch(torch, cfg, TRAIN_B, TRAIN_S, 20 + TRAIN_STEPS,
-                         DEVICE)
-    profile_call(torch, ctx, "train", lambda: step(state, batch))
+    keep_path(ctx, "trainer", counts)
+    peak_a = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+              for m in hist_a), f"trainer A: {hist_a}")
     infl = state["influence"]
     check(bool((infl > 0).all()) and not bool((infl == 1).all()),
-          "train: the influence did not move or is not positive")
-    steady = walls[1:] if len(walls) > 1 else walls
+          "trainer A: the influence did not move or is not positive")
+    walls = [m["wall_s"] for m in hist_a]
+    walls = [walls[0]] + [b - a for a, b in zip(walls, walls[1:])]
+    steady = walls[1:]
     s_step = sum(steady) / len(steady)
-    opt_share = sum(opt_s[1:]) / sum(steady) if len(opt_s) > 1 \
-        else opt_s[0] / walls[0]
-    log_infl = torch.log(infl)
-    log("train", f"{cfg.name} full width, batch {TRAIN_B} x {TRAIN_S} in "
-        f"{TRAIN_MICRO} microbatches, remat, float32 state, bf16 "
-        f"activations: steps {', '.join(f'{w:.3f}' for w in walls)} s "
-        f"(steady {s_step:.3f} s a step = "
-        f"{TRAIN_B * TRAIN_S / s_step:.1f} tokens/s), optimizer "
+    opt_share = sum(opt_s[1:]) / sum(steady)
+    log("trainer", f"A: {cfg.name} full width through Trainer.fit, batch "
+        f"{TRAIN_B} x {TRAIN_S} (SyntheticLM) in {TRAIN_MICRO} "
+        f"microbatches, remat, float32 state, bf16 activations: steps "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s (steady {s_step:.3f} s a "
+        f"step = {TRAIN_B * TRAIN_S / s_step:.1f} tokens/s), optimizer "
         f"{', '.join(f'{t:.3f}' for t in opt_s)} s = {opt_share:.1%} of a "
-        f"steady step, loss {', '.join(f'{v:.4f}' for v in losses)}, peak "
-        f"memory {peak:.2f} GiB, flash launches "
+        f"steady step, loss {', '.join(f'{v:.6f}' for v in losses(hist_a))}"
+        f", peak memory {peak_a:.2f} GiB, flash launches "
         f"{counts['flash_attention_tc']} and router {counts['router_topk']}"
-        f" = {cfg.n_layers} layers x 2 (forward, recompute) x "
-        f"{TRAIN_MICRO} microbatches x {TRAIN_STEPS} steps; influence "
-        f"moved: |log| max {float(log_infl.abs().max()):.4f}, min "
-        f"{float(infl.min()):.4f}  [{ctx['card']}]")
-    del state
+        f" = {cfg.n_layers} layers x 2 (forward, recompute) x {TRAIN_MICRO}"
+        f" microbatches x {TRAINER_STEPS} steps; influence moved: |log| "
+        f"max {float(torch.log(infl).abs().max()):.4f}, min "
+        f"{float(infl.min()):.4f}  [{card}]")
+    batch = {k: torch.as_tensor(v, device=DEVICE)
+             for k, v in next(data(TRAINER_STEPS)).items()}
+    profile_call(torch, ctx, "trainer",
+                 lambda: trainer.step_fn(state, batch))
+    del state, trainer, batch, infl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # B: preempted inside step TRAINER_PREEMPT; it saves that step
+    ckpt_dir = CKPT_ROOT / "full"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    try:
+        need = sum(x.numel() * x.element_size() for x in tree_leaves(
+            abstract_train_state(cfg, hp)))
+        free = shutil.disk_usage(ckpt_dir).free
+        avail = mem_available()
+        log("trainer", f"B: the checkpoint needs {need:,} bytes; "
+            f"{ckpt_dir} has {free:,} bytes free; host "
+            f"MemAvailable {avail:,} bytes; card memory allocated "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+        check(free > need, f"trainer B: {free:,} bytes free on the disk "
+              f"of {ckpt_dir}, the checkpoint needs {need:,}")
+        trainer = Trainer(cfg, rules, hp, TrainerConfig(
+            steps=TRAINER_STEPS, log_every=1, ckpt_dir=str(ckpt_dir)))
+        interrupted = False
+        t0 = time.perf_counter()
+        with sigint_inside_update(TRAINER_PREEMPT):
+            try:
+                trainer.fit(data())
+            except KeyboardInterrupt:
+                interrupted = True
+        wall_b = time.perf_counter() - t0
+        steps = trainer.ckpt.all_steps()
+        check(interrupted and steps == [TRAINER_PREEMPT],
+              f"trainer B: raised {interrupted}, saved {steps}")
+        st = trainer.ckpt.stats["save"]
+        step_dir = ckpt_dir / f"step_{TRAINER_PREEMPT:09d}"
+        on_disk = sum(f.stat().st_size for f in step_dir.iterdir())
+        hist_b = list(trainer.history)
+        check(st["bytes"] == need, f"trainer B: saved {st['bytes']:,} "
+              f"bytes, the state holds {need:,}")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("trainer", f"B: SIGINT inside adamw_update of step "
+            f"{TRAINER_PREEMPT}: the step completed, step {steps} saved "
+            f"and KeyboardInterrupt re-raised ({wall_b:.1f} s from init); "
+            f"save {st['call_s']:.3f} s for {st['bytes'] / 1e9:.3f} GB = "
+            f"{st['bytes'] / 1e9 / st['call_s']:.3f} GB/s (device-to-host "
+            f"copies {st['snapshot_s']:.3f} s; files, CRC32 beside them, "
+            f"and the copies {st['write_s']:.3f} s), {on_disk:,} bytes on "
+            f"disk; losses {', '.join(f'{v:.6f}' for v in losses(hist_b))} "
+            f"(A's {', '.join(f'{v:.6f}' for v in losses(hist_a)[:len(hist_b)])}"
+            f"); card memory after {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+            f" GiB  [{card}]")
+
+        # C: restore into the abstract state on the card, train on
+        torch.cuda.reset_peak_memory_stats()
+        mgr = CheckpointManager(str(ckpt_dir))
+        state, start = mgr.restore(abstract_train_state(cfg, hp),
+                                   device=DEVICE)
+        rs = mgr.stats["restore"]
+        peak_restore = torch.cuda.max_memory_allocated()
+        trainer = Trainer(cfg, rules, hp, TrainerConfig(
+            steps=TRAINER_STEPS, log_every=1))
+        state, hist_c = trainer.fit(data(start), state, start)
+        peak_c = torch.cuda.max_memory_allocated()
+        want, got = losses(hist_a)[start:], losses(hist_c)
+        rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        check(start == TRAINER_PREEMPT and len(got) == len(want) and
+              rel <= TRAINER_TOL, f"trainer C: resumed at {start}, losses "
+              f"{got} vs A's {want} (largest relative difference {rel:.3g})")
+        check(peak_c < 80e9, f"trainer C: peak {peak_c:,} bytes")
+        log("trainer", f"C: restore of step {start} into "
+            f"abstract_train_state on the card {rs['call_s']:.3f} s for "
+            f"{rs['bytes'] / 1e9:.3f} GB = {rs['bytes'] / 1e9 / rs['call_s']:.3f}"
+            f" GB/s (reads {rs['read_s']:.3f} s, CRC32 {rs['crc_s']:.3f} s, "
+            f"host-to-device {rs['load_s']:.3f} s; the file cache warm "
+            f"from B's write), peak {peak_restore / 2 ** 30:.2f} GiB after "
+            f"the restore and {peak_c / 2 ** 30:.2f} GiB with steps "
+            f"{start + 1}-{TRAINER_STEPS} (limit 80 GB); losses "
+            f"{', '.join(f'{v:.6f}' for v in got)} against A's "
+            f"{', '.join(f'{v:.6f}' for v in want)}: largest relative "
+            f"difference {rel:.3g} (limit {TRAINER_TOL}), bit-equal "
+            f"{metrics_of(hist_c) == metrics_of(hist_a[start:])}  [{card}]")
+        del state, trainer
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
     torch.cuda.empty_cache()
 
 
-def phase_train(torch, ctx):
+def phase_trainer(torch, ctx):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("trainer", f"card memory allocated at the start: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
     t0 = time.perf_counter()
-    train_flash_grad(torch, ctx)
-    train_router_gates(torch, ctx)
-    t0 = lap("train: flash autograd and router gates", t0)
-    train_smoke_agreement(torch, ctx)
-    t0 = lap("train: SMOKE card vs CPU", t0)
-    train_remat_bits(torch, ctx)
-    t0 = lap("train: remat bit-equality", t0)
-    train_full(torch, ctx)
-    lap("train: granite full width", t0)
+    trainer_smoke(torch, ctx)
+    t0 = lap("trainer: SMOKE via launch.train, preempted and resumed", t0)
+    trainer_full(torch, ctx)
+    lap("trainer: granite full width, A, B (save) and C (restore)", t0)
 
 
 # ---------------------------------------------------------------------------
@@ -4241,6 +4478,7 @@ def main() -> int:
            "prefill": lambda: phase_prefill(torch, ctx),
            "archs": lambda: phase_archs(torch, ctx),
            "train": lambda: phase_train(torch, ctx),
+           "trainer": lambda: phase_trainer(torch, ctx),
            "timing": lambda: phase_timing(torch, ctx)}
     t_all = time.perf_counter()
     for name in PHASES[1:]:

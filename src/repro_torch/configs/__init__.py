@@ -4,8 +4,9 @@ It knows the reference's ten architectures and their CLI aliases, and all
 ten are ported (``PORTED``, in the order they were); ``get`` raises
 ``KeyError`` for an unknown name. Each module exposes
 ``CONFIG`` (the full configuration), ``SMOKE`` (a reduced one of the same
-family for CPU tests) and ``LONG_CONTEXT_OK``. Sharding overrides belong
-to the multi-device slice and are not carried.
+family for CPU tests) and ``LONG_CONTEXT_OK``, and may expose
+``SHARDING_OVERRIDES`` ({mode: {logical: mesh_axes}}, read by
+``sharding_overrides``); as in the reference, no config defines it.
 """
 from __future__ import annotations
 
@@ -66,3 +67,10 @@ def get_config(name: str, smoke: bool = False):
 
 def long_context_ok(name: str) -> bool:
     return getattr(get(name), "LONG_CONTEXT_OK", False)
+
+
+def sharding_overrides(name: str, mode: str) -> dict:
+    """The arch's {logical: mesh_axes} overrides for ``mode``, the
+    ``"all"`` entry first."""
+    ov = getattr(get(name), "SHARDING_OVERRIDES", {})
+    return dict(ov.get("all", {}), **ov.get(mode, {}))

@@ -1,17 +1,33 @@
-"""Mesh rules of the sharded partitioner (counterpart of the partition
-half of ``repro/dist/rules.py``; the language-model sharding rules wait
-for the training slice).
+"""Mesh rules (reference: ``repro/dist/rules.py``): the sharded
+partitioner's meshes, and the language model's logical-axis sharding
+rules.
 
-The reference lays its shards on a 1-D device mesh with axis ``"shard"``
-or a 2-D ``("coarse", "refine")`` mesh. The port runs one process (or
-thread) per rank, so a mesh is the calling rank's ``Communicator``
-viewed with that shape: ``partition_mesh(P)`` and
+**Language model.** Model and training code name each tensor's axes
+logically (``act_batch``, ``embed``, ``expert``, ...); ``resolve_rules``
+maps them to mesh axes (``None`` = replicated) for a phase in {"train",
+"prefill", "decode", "long_decode"}: the reference's table, its phase
+rule (FSDP of ``embed`` over ``data`` in train), its drop of batch
+parallelism when the batch does not divide, the per-arch overrides
+(``configs.sharding_overrides``) and its drop of axes the mesh lacks.
+The mesh is ``launch.mesh.Mesh``, of one rank: ``Rules.shard`` checks
+the names against the tensor's rank and returns it (every extent is 1),
+and ``Rules.sharding`` / ``param_shardings`` give ``NamedSharding``
+objects whose ``device`` is the rank's (where
+``CheckpointManager.restore`` places a leaf).
+
+**Partitioner.** The reference lays its shards on a 1-D device mesh
+with axis ``"shard"`` or a 2-D ``("coarse", "refine")`` mesh. The port
+runs one process (or thread) per rank, so a mesh is the calling rank's
+``Communicator`` viewed with that shape: ``partition_mesh(P)`` and
 ``partition_mesh2d(P1, P2)`` return it. The flat rank order of
 ``(P1, P2)`` is the row-major order of ``P1*P2``: rank ``c*P2 + j`` sits
 at coarse row c, refine column j, as in the reference's
 ``reshape(p1, p2)`` of the first ``p1*p2`` devices.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
 
 from .comm import Communicator, current
 
@@ -91,3 +107,149 @@ def partition_mesh2d(p1: int, p2: int) -> Communicator:
         raise RuntimeError("partition_mesh2d: the caller is not a rank; "
                            "run inside torchrun or dist.launch")
     return comm_for((p1, p2))
+
+
+# ---------------------------------------------------------------------------
+# language-model sharding rules
+# ---------------------------------------------------------------------------
+
+# mesh axis aliases
+_DATA = "data"
+_MODEL = "model"
+_POD = "pod"
+
+
+def _batch_axes(mesh):
+    if _POD in mesh.axis_names:
+        return (_POD, _DATA)
+    return _DATA
+
+
+def _default_table(mesh, phase: str) -> dict:
+    batch = _batch_axes(mesh)
+    table: dict[str, Any] = {
+        # --- activations
+        "act_batch": batch,
+        "act_seq": None,            # flash path q-chunks when seq unsharded
+        "act_res_seq": None,        # residual-stream sequence axis
+        "logits_seq": None,
+        "act_embed": None,
+        "act_mlp": _MODEL,
+        "act_heads": _MODEL,
+        "act_kv": _MODEL,
+        "act_vocab": _MODEL,
+        "act_e_embed": None,
+        # --- caches
+        "cache_seq": None,
+        "cache_kv": _MODEL,
+        # --- params
+        "repeat": None,             # stacked-layer leading axis
+        "nil": None,
+        "embed": _DATA if phase == "train" else None,   # FSDP in train
+        "mlp": _MODEL,
+        "heads": _MODEL,
+        "heads_joined": _MODEL,
+        "kv_heads": _MODEL,
+        "head_dim": None,
+        "vocab": _MODEL,
+        "rank": None,
+        "state": None,
+        "conv": None,
+        "expert": _MODEL,
+        "e_embed": None,
+        "e_mlp": None,
+        "codebooks": None,
+    }
+    return table
+
+
+def _axis_extent(mesh, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    ext = 1
+    for a in axes:
+        ext *= mesh.shape[a]
+    return ext
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's placement: the mesh and its partition spec (a tuple of
+    mesh axes or None, one a dim)."""
+    mesh: Any
+    spec: tuple
+
+    @property
+    def device(self):
+        return self.mesh.device
+
+
+@dataclasses.dataclass(frozen=True)
+class Rules:
+    """Resolved logical -> mesh table for one (mesh, config, phase)."""
+    mesh: Any
+    table: Mapping[str, Any]
+    phase: str = "train"
+
+    def spec(self, *logical) -> tuple:
+        """Partition spec of a tuple of logical axis names (None entries
+        and unknown names are replicated), a one-axis tuple written as
+        its axis (as ``jax.sharding.PartitionSpec`` holds it)."""
+        def entry(name):
+            axes = self.table.get(name) if name is not None else None
+            return axes[0] if isinstance(axes, tuple) and len(axes) == 1 \
+                else axes
+        return tuple(entry(name) for name in logical)
+
+    def sharding(self, logical) -> NamedSharding:
+        """The sharding of a logical-axis tuple (e.g. a param spec)."""
+        return NamedSharding(self.mesh, self.spec(*logical))
+
+    def shard(self, x, *logical):
+        """``x`` under the resolved sharding: the names must match
+        ``x.ndim``; on one rank that is ``x`` itself."""
+        assert len(logical) == x.ndim, (
+            f"{len(logical)} logical names for rank-{x.ndim} tensor")
+        return x
+
+
+def resolve_rules(mesh, cfg, phase: str, batch_size: int | None = None,
+                  overrides: Mapping[str, Any] | None = None) -> Rules:
+    """The sharding rules of ``phase`` on ``mesh`` (``launch.mesh.Mesh``).
+
+    ``batch_size``: when given and not divisible by the batch axes'
+    extent, batch data-parallelism is dropped. ``overrides``: {logical:
+    mesh_axes} merged last (``configs.sharding_overrides``). Mesh axes the
+    mesh does not have are dropped.
+    """
+    if phase not in ("train", "prefill", "decode", "long_decode"):
+        raise ValueError(f"unknown phase {phase!r}")
+    table = _default_table(mesh, phase)
+    if batch_size is not None:
+        ext = _axis_extent(mesh, table["act_batch"])
+        if ext > 1 and batch_size % ext != 0:
+            table["act_batch"] = None
+    if overrides:
+        table.update(overrides)
+    names = set(mesh.axis_names)
+
+    def known(axes):
+        if axes is None:
+            return None
+        if isinstance(axes, str):
+            return axes if axes in names else None
+        kept = tuple(a for a in axes if a in names)
+        return kept if kept else None
+
+    table = {k: known(v) for k, v in table.items()}
+    return Rules(mesh=mesh, table=table, phase=phase)
+
+
+def param_shardings(rules: Rules, logical_specs):
+    """A tree of logical-axis tuples -> the tree of their shardings."""
+    if isinstance(logical_specs, dict):
+        return {k: param_shardings(rules, v)
+                for k, v in logical_specs.items()}
+    return rules.sharding(logical_specs)

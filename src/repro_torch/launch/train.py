@@ -1,0 +1,67 @@
+"""Training driver: ``python -m repro_torch.launch.train --arch <id>
+[--device cpu] [...]`` (reference: ``repro/launch/train.py``, with the
+same flags plus ``--device``).
+
+Trains the smoke config of ``--arch`` by default (``--full``: its
+``CONFIG``) on ``SyntheticLM`` batches through ``Trainer.fit``, on the
+card unless ``--device cpu``, with checkpoints and resume under
+``--ckpt-dir``. As in the reference, a resumed run replays the data
+stream from batch 0 (ROADMAP.md queue 3 item 21). ``--data-parallel`` or
+``--model-parallel`` above 1 raise (ROADMAP.md queue 1 item 4.9).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+from repro_torch import configs
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.dist.rules import resolve_rules
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.train import Trainer, TrainerConfig, TrainHParams
+
+
+def main(argv=None):
+    """Parse ``argv`` (default: the command line), train, print the last
+    metrics; returns (trainer, history)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--full", action="store_true",
+                    help="production config (default: smoke config)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--grad-compress", default="none",
+                    choices=["none", "bf16", "int8"])
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--data-parallel", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = configs.get_config(args.arch, smoke=not args.full)
+    mesh = make_host_mesh(args.data_parallel, args.model_parallel,
+                          device=args.device)
+    rules = resolve_rules(mesh, cfg, "train", batch_size=args.batch,
+                          overrides=configs.sharding_overrides(
+                              args.arch, "train"))
+    hp = TrainHParams(microbatches=args.microbatches,
+                      lr_peak=args.lr, warmup_steps=max(args.steps // 10, 1),
+                      total_steps=args.steps,
+                      grad_compress=args.grad_compress)
+    tc = TrainerConfig(steps=args.steps, log_every=args.log_every,
+                       ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir)
+    trainer = Trainer(cfg, rules, hp, tc)
+    data = SyntheticLM(cfg, args.batch, args.seq)
+    _, history = trainer.fit(iter(data))
+    print(json.dumps(history[-3:], indent=1))
+    print(f"final loss: {history[-1]['loss']:.4f} on {trainer.device}")
+    return trainer, history
+
+
+if __name__ == "__main__":
+    main()

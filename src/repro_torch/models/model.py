@@ -12,7 +12,10 @@ weights here, each leaf unbound once a forward (one stack in the
 backward, where a select per layer would allocate a zero tensor of the
 whole leaf for each layer's gradient). ``unroll`` only shapes the
 reference's compiled program and is accepted and ignored; so is
-``rules`` (the sharding table of the multi-device slice). ``remat`` with
+``rules`` (``dist.rules.Rules`` on a one-rank mesh, where every sharding
+constraint is the identity). ``abstract_params`` gives the tree as
+``meta`` tensors, and ``param_logical_specs`` and ``cache_logical_specs``
+its logical axis names, as the reference's do. ``remat`` with
 gradients on wraps each layer in ``torch.utils.checkpoint`` (the
 reference checkpoints each repeat of its scan): the backward recomputes
 the layer's forward, kernels included, from its input.
@@ -106,6 +109,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
         return w.mul_(scale if scale else 0.02).to(device=dev, dtype=pdt)
 
     return _param_tree(cfg, create)
+
+
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree as ``meta`` tensors of ``cfg.param_dtype``: the
+    shapes and dtypes without storage (the reference's
+    ``ShapeDtypeStruct`` tree)."""
+    pdt = getattr(torch, cfg.param_dtype)
+    return _param_tree(
+        cfg, lambda shape, axes, scale, init="normal":
+        torch.empty(shape, dtype=pdt, device="meta"))
+
+
+def param_logical_specs(cfg: ModelConfig):
+    """The parameter tree's logical axis names, a tuple a leaf."""
+    return _param_tree(
+        cfg, lambda shape, axes, scale, init="normal": tuple(axes))
 
 
 def _leaves(tree):
@@ -388,6 +407,25 @@ def extend_cache(cache, cfg: ModelConfig, max_seq: int):
         out[f"pos{i}"] = {kk: torch.nn.functional.pad(
             v, (0, 0, 0, 0, 0, pad)) for kk, v in c.items()}
     return out
+
+
+def cache_logical_specs(cfg: ModelConfig):
+    """The decode cache's logical axis names, a tuple a leaf, in
+    ``init_cache``'s tree."""
+    specs = {}
+    for i, spec in enumerate(cfg.pattern):
+        if spec.attn in ("full", "swa"):
+            s = ("repeat", "act_batch", "cache_seq", "cache_kv", None)
+            c = {"k": s, "v": s}
+        elif spec.attn == "mamba":
+            c = {"h": ("repeat", "act_batch", "act_mlp", None),
+                 "conv": ("repeat", "act_batch", None, "act_mlp")}
+        else:
+            c = {"s": ("repeat", "act_batch", None, None, None),
+                 "shift_t": ("repeat", "act_batch", None),
+                 "shift_c": ("repeat", "act_batch", None)}
+        specs[f"pos{i}"] = c
+    return specs
 
 
 def decode_step(params, cache, batch, pos, cfg: ModelConfig, rules=None,

@@ -27,8 +27,10 @@ Where the reference differs in how, not what:
   bits cannot be reproduced here (a deliberate departure; the rest of the
   arithmetic is the reference's).
 
-``abstract_train_state`` and ``train_state_logical_specs`` wait for the
-port's ``abstract_params`` and ``param_logical_specs``.
+``abstract_train_state`` mirrors ``init_train_state`` in ``meta``
+tensors (no storage: what ``CheckpointManager.restore`` fills on a
+resume), and ``train_state_logical_specs`` gives each leaf's logical
+axis names, as the reference's do.
 """
 from __future__ import annotations
 
@@ -73,6 +75,48 @@ def init_train_state(cfg, generator: torch.Generator, hp: TrainHParams,
     if hp.grad_compress in ("bf16", "int8"):
         state["ef"] = tree_map(lambda p: torch.zeros(
             p.shape, dtype=torch.float32, device=p.device), params)
+    return state
+
+
+def _n_moe_with_influence(cfg) -> int:
+    """MoE layers a repeat that carry the router's influence (0 without
+    a balanced-k-means router)."""
+    if cfg.moe is None or cfg.moe.router != "balanced_kmeans":
+        return 0
+    return sum(1 for s in cfg.pattern if s.mlp == "moe")
+
+
+def abstract_train_state(cfg, hp: TrainHParams):
+    """``init_train_state``'s tree as ``meta`` tensors: shapes and dtypes,
+    no storage."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    params = M.abstract_params(cfg)
+    mdt = getattr(torch, _adamw_cfg(cfg, hp).moment_dtype)
+    state = {"params": params,
+             "opt": {"mu": tree_map(lambda p: meta(p.shape, mdt), params),
+                     "nu": tree_map(lambda p: meta(p.shape, mdt), params),
+                     "step": meta((), torch.int32)}}
+    n_moe = _n_moe_with_influence(cfg)
+    if n_moe:
+        state["influence"] = meta((cfg.n_repeats, n_moe, cfg.moe.n_experts),
+                                  torch.float32)
+    if hp.grad_compress in ("bf16", "int8"):
+        state["ef"] = tree_map(lambda p: meta(p.shape, torch.float32),
+                               params)
+    return state
+
+
+def train_state_logical_specs(cfg, hp: TrainHParams):
+    """The logical axis names of every leaf of the train state."""
+    pspec = M.param_logical_specs(cfg)
+    state = {"params": pspec,
+             "opt": {"mu": pspec, "nu": pspec, "step": ()}}
+    if _n_moe_with_influence(cfg):
+        state["influence"] = ("repeat", None, None)
+    if hp.grad_compress in ("bf16", "int8"):
+        state["ef"] = pspec
     return state
 
 

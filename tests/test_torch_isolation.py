@@ -46,9 +46,13 @@ def test_port_has_files():
 
 @pytest.mark.parametrize("module", ["optim/__init__.py", "optim/adamw.py",
                                     "optim/schedules.py", "train/__init__.py",
-                                    "train/step.py"])
+                                    "train/step.py", "train/trainer.py",
+                                    "ckpt/__init__.py", "ckpt/manager.py",
+                                    "data/__init__.py", "data/pipeline.py",
+                                    "launch/train.py", "launch/mesh.py",
+                                    "launch/shapes.py"])
 def test_training_modules_are_scanned(module):
-    """The training slice's modules are among the files scanned below."""
+    """The training slices' modules are among the files scanned below."""
     assert os.path.join(PORT, *module.split("/")) in _port_files()
 
 
