@@ -47,10 +47,14 @@ the training loop (granite and gemma3 SMOKE through
 ``launch.train.main``; granite at full width through ``Trainer``:
 trained, preempted by a SIGINT, its 40.5 GB checkpoint written under
 ``build/`` and restored into the abstract state, trained on), times each
-kernel with CUDA events against its bound, and prints one JSON line of
-kernel records. Every phase raises on failure. The last line is
-``{"ok": true, "device": {...}}`` and is printed only when every phase
-passed. Without a CUDA device, or without the rest of the repository
+kernel with CUDA events against its bound, dry-runs on ``meta`` tensors
+(``launch.dryrun``, no model on the card) every cell whose peak memory it
+measured and gates the estimate within 10% of the measured peak, prints
+the first MFU readings (``launch.roofline.model_flops``) of the trainer's
+step and granite's prefill and the main sweep's
+``kernel_roofline_record``, and prints one JSON line of kernel records.
+Every phase raises on failure. The last line is ``{"ok": true,
+"device": {...}}`` and is printed only when every phase passed. Without a CUDA device, or without the rest of the repository
 beside it, the script exits non-zero and prints no result.
 
 ``--phases build,lm_kernels,serve,prefill`` runs a subset (the card
@@ -74,7 +78,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("card", "build", "kernels", "lm_kernels", "main", "paths",
           "agreement", "profile", "repartition", "hierarchical", "pserve",
           "refine", "sharded", "experiments", "serve", "prefill", "archs",
-          "train", "trainer", "timing")
+          "train", "trainer", "timing", "roofline")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_F32_FLOPS = 67e12
@@ -148,6 +152,11 @@ EXPERIMENTS_SMALL = {"n": 1 << 12, "k": 16, "seed": 0,
 SERVE_BATCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 6, 12, 16
 SERVE_MAX_SEQ = 64
 PREFILL_S, PREFILL_NEW = 4096, 16
+# the cells the roofline phase dry-runs, as launch.shapes.ShapeCell's
+# (name, seq, batch, mode): the engine's serve (a cache of SERVE_MAX_SEQ
+# at batch SERVE_BATCH) and the prefill at B=1
+SERVE_CELL = ("serve_engine", SERVE_MAX_SEQ, SERVE_BATCH, "decode")
+PREFILL_CELL = ("prefill_4k", PREFILL_S, 1, "prefill")
 # phi3-mini's prefill attention (B, S, H, KV, dh): the flash kernels at dh 96
 PHI3_FLASH = (1, PREFILL_S, 32, 32, 96)
 # PREFILL_S is a multiple of Mamba's chunk (128) and RWKV's (16). At a
@@ -2665,6 +2674,7 @@ def granite_params(torch, ctx):
     from repro_torch.configs import granite_moe_3b_a800m as granite
     from repro_torch.models import model as M
     if "lm_params" not in ctx:
+        ctx["lm_base"] = torch.cuda.memory_allocated()
         gen = torch.Generator(device=DEVICE).manual_seed(0)
         t0 = time.perf_counter()
         ctx["lm_params"] = M.init_params(granite.CONFIG, gen, device=DEVICE)
@@ -2721,6 +2731,8 @@ def phase_serve(torch, ctx):
     n_steps = len(steps)
     wall, counts = lm_counts_after(torch, ctx, "serve", {
         "router_topk": cfg.n_layers * n_steps}, t0)
+    keep_peak(torch, ctx, "serve", "granite_moe_3b_a800m", SERVE_CELL,
+              ctx["lm_base"])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     n_tok = sum(len(r.out) for r in reqs)
     for r in reqs:
@@ -2852,6 +2864,8 @@ def phase_prefill(torch, ctx):
         "flash_attention_tc": cfg.n_layers, "router_topk": cfg.n_layers}, t0,
         record=("flash_attention_tc", "flash_attention"))   # the router's
     # line reads serve's launches
+    keep_peak(torch, ctx, "prefill", "granite_moe_3b_a800m", PREFILL_CELL,
+              ctx["lm_base"])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(logits.shape == (1, 1, cfg.vocab_padded) and
           bool(torch.isfinite(logits.float()).all()),
@@ -2871,6 +2885,7 @@ def phase_prefill(torch, ctx):
     M.prefill(params, {"tokens": toks}, cfg)
     torch.cuda.synchronize()
     again = time.perf_counter() - t2
+    ctx["prefill_s"] = again
     log("prefill", f"{cfg.name} B=1 S={PREFILL_S}: prefill {wall:.3f} s "
         f"(repeat {again:.3f} s), flash launches: tensor cores "
         f"{counts['flash_attention_tc']} (the model's q/k/v passed its "
@@ -3015,13 +3030,26 @@ def keep_path(ctx, tag, counts):
     ctx["paths"][tag] = {n: c for n, c in counts.items() if c}
 
 
-def serve_arch(torch, ctx, cfg, params):
+def keep_peak(torch, ctx, tag, arch, cell, base, cfg_overrides=None,
+              hp=None):
+    """The peak of a run the roofline phase dry-runs: the bytes allocated
+    at its peak (``max_memory_allocated`` since the run's reset) above
+    ``base``, the bytes allocated before the run's parameters or state
+    were made; with what ``dryrun.run_cell`` needs to build the cell."""
+    ctx.setdefault("peaks", {})[tag] = {
+        "arch": arch, "cell": cell, "cfg_overrides": cfg_overrides,
+        "hp": hp, "measured": torch.cuda.max_memory_allocated() - base}
+
+
+def serve_arch(torch, ctx, cfg, params, origin):
     """``ServeEngine.run`` at granite's serve shapes (batch 4, 6 requests
     x 12-token prompts, 16 new tokens; codebook prompts [12, n]). The
     engine takes no embeddings config: that one steps ``make_serve_step``
     through the engine's rounds (two groups of 12 + 16 positions) over
     seeded embeddings, with the engine's one host read a step. The router
-    must launch once a MoE layer a step, flash never."""
+    must launch once a MoE layer a step, flash never. ``origin``: (arch,
+    the config's cut as ``cfg_overrides``, the bytes allocated before the
+    parameters were made) for the roofline phase."""
     import numpy as np
     from repro_torch.kernels.ops import reset_launch_counts
     from repro_torch.models import model as M
@@ -3080,6 +3108,8 @@ def serve_arch(torch, ctx, cfg, params):
     wall, counts = lm_counts_after(torch, ctx, tag, {
         "router_topk": n_moe * n_steps}, t0, record=())
     keep_path(ctx, tag, counts)
+    keep_peak(torch, ctx, tag, origin[0], SERVE_CELL, origin[2],
+              cfg_overrides=origin[1])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log("archs", f"{cfg.name} serve: batch {SERVE_BATCH}, {SERVE_REQUESTS} "
         f"requests x {SERVE_PROMPT}-position prompts, {SERVE_NEW} new tokens"
@@ -3090,7 +3120,7 @@ def serve_arch(torch, ctx, cfg, params):
         f"{peak:.2f} GiB; request 0: {first}  [{ctx['card']}]")
 
 
-def prefill_arch(torch, ctx, cfg, params):
+def prefill_arch(torch, ctx, cfg, params, origin):
     """``prefill`` at B=1, S=4096 (tensor-core flash once a full-attention
     layer, the band in sliding-window layers, the router once a MoE
     layer), then ``extend_cache`` and 16 greedy decode steps (seeded
@@ -3109,6 +3139,8 @@ def prefill_arch(torch, ctx, cfg, params):
     wall, counts = lm_counts_after(torch, ctx, tag, {
         "flash_attention_tc": n_full, "router_topk": n_moe}, t0, record=())
     keep_path(ctx, tag, counts)
+    keep_peak(torch, ctx, tag, origin[0], PREFILL_CELL, origin[2],
+              cfg_overrides=origin[1])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     heads = (cfg.n_codebooks,) if cfg.input_mode == "codebooks" else ()
     check(tuple(logits.shape) == (1, 1, *heads, cfg.vocab_padded) and
@@ -3226,10 +3258,12 @@ def phase_archs(torch, ctx):
     for arch, depth, why in ARCH_CELLS:
         t0 = time.perf_counter()
         cfg = configs.get_config(arch)
+        cut = None
         if depth is not None:
-            cfg = dataclasses.replace(cfg, n_layers=depth,
-                                      pattern=cfg.pattern[:min(depth,
-                                                               cfg.period)])
+            cut = {"n_layers": depth,
+                   "pattern": cfg.pattern[:min(depth, cfg.period)]}
+            cfg = dataclasses.replace(cfg, **cut)
+        origin = (arch, cut, torch.cuda.memory_allocated())
         gen = torch.Generator(device=DEVICE).manual_seed(0)
         params = M.init_params(cfg, gen, device=DEVICE)
         torch.cuda.synchronize()
@@ -3239,8 +3273,8 @@ def phase_archs(torch, ctx):
             f"{cfg.d_model}, {M.param_count(params):,} parameters "
             f"({cfg.param_dtype}) made on the card in "
             f"{time.perf_counter() - t0:.1f} s")
-        serve_arch(torch, ctx, cfg, params)
-        wall = prefill_arch(torch, ctx, cfg, params)
+        serve_arch(torch, ctx, cfg, params, origin)
+        wall = prefill_arch(torch, ctx, cfg, params, origin)
         if any(sp.attn in ("mamba", "rwkv") for sp in cfg.pattern):
             ssm_layer_profile(torch, ctx, cfg, params, wall)
         if arch in ARCH_AGREEMENTS:
@@ -3260,6 +3294,7 @@ def phase_archs(torch, ctx):
 # granite CONFIG trained at full width (the trainer phase): batch TRAIN_B x
 # TRAIN_S tokens in TRAIN_MICRO microbatches
 TRAIN_B, TRAIN_S, TRAIN_MICRO = 2, 4096, 2
+TRAINER_CELL = ("trainer_a", TRAIN_S, TRAIN_B, "train")
 # card against CPU in float32 (SMOKE): losses and grad norms within 1e-5
 # relative; gradients, parameters and moments within 1e-4 of each leaf's
 # largest value (cuBLAS and the CPU sum in other orders; Adam's first
@@ -3754,6 +3789,7 @@ def trainer_full(torch, ctx):
         return [m["loss"] for m in hist]
 
     # A: uninterrupted
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(cfg, rules, hp, TrainerConfig(steps=TRAINER_STEPS,
                                                     log_every=1))
@@ -3788,6 +3824,8 @@ def trainer_full(torch, ctx):
     _, counts = lm_counts_after(torch, ctx, "trainer", {
         "flash_attention_tc": n, "router_topk": n}, t_run, record=())
     keep_path(ctx, "trainer", counts)
+    keep_peak(torch, ctx, "trainer", "granite_moe_3b_a800m", TRAINER_CELL,
+              base, hp=hp)
     peak_a = torch.cuda.max_memory_allocated() / 2 ** 30
     check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
               for m in hist_a), f"trainer A: {hist_a}")
@@ -3798,6 +3836,7 @@ def trainer_full(torch, ctx):
     walls = [walls[0]] + [b - a for a, b in zip(walls, walls[1:])]
     steady = walls[1:]
     s_step = sum(steady) / len(steady)
+    ctx["trainer_step_s"] = s_step
     opt_share = sum(opt_s[1:]) / sum(steady)
     log("trainer", f"A: {cfg.name} full width through Trainer.fit, batch "
         f"{TRAIN_B} x {TRAIN_S} (SyntheticLM) in {TRAIN_MICRO} "
@@ -3937,20 +3976,20 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 
 
 def bound(n, k, d, fused, blocks, pairs=None, layout=False):
-    """Least time for one sweep: float32 operations (2d for p.c, 7 for
-    the expansion, clamp, scale and the two compares, per pair computed;
-    2(d+2) per point for the moments) over the CUDA-core peak, and bytes
-    (each input read once, each output written once: points, centers and
+    """Least time for one sweep (ms, "operations" | "bytes"):
+    ``launch.kernel_roofline``'s ``cuda`` model on the ``h100`` row (2d+7
+    float32 operations a pair computed, 2(d+2) a point for the moments;
+    each input read once, each output written once: points, centers and
     inv2, idx/best/second, with the layout its order, fused the weights
-    and the per-block partials) over HBM bandwidth. ``pairs``: the pairs
-    this run computed (the kernel's count); None for all n*k, the dense
-    bound."""
-    pairs = n * k if pairs is None else pairs
-    flops = pairs * (2 * d + 7) + (2 * (d + 2) * n if fused else 0)
-    nbytes = 4 * (n * d + k * (d + 1) + 3 * n + (n if layout else 0))
-    if fused:
-        nbytes += 4 * (n + blocks * (d + 2) * k)
-    return larger_bound(flops / PEAK_F32_FLOPS, nbytes)
+    and the per-block partials). ``pairs``: the pairs this run computed
+    (the kernel's count); None for all n*k, the dense bound."""
+    from repro_torch.launch.kernel_roofline import kernel_roofline_record
+    rec = kernel_roofline_record(
+        n, d, k, platform="h100", backend="cuda", fused=fused,
+        blocks=blocks, layout=layout,
+        prune_frac=0.0 if pairs is None else 1.0 - pairs / (n * k))
+    return (rec["bound_s"] * 1e3,
+            "operations" if rec["bottleneck"] == "compute" else "bytes")
 
 
 def larger_bound(t_ops_s: float, nbytes: int):
@@ -4043,7 +4082,7 @@ def time_assign(torch, ctx):
                     name, inputs, MAIN_K, bp, 128, "f32", plain=True),
                     iters=2, warmup=1)
                 rec.update(ms=ms, bound_ms=bnd, bound_by=by,
-                           library_ms=None)
+                           library_ms=None, pairs=computed, blocks=blocks)
                 extra = (f", plain {rec['plain_ms']:.3f} ms, max |err| "
                          f"{rec['max_abs_err']:.3g}, labels "
                          f"{float((ki == pi).float().mean()):.6f}, launches "
@@ -4398,6 +4437,109 @@ def time_flash_shapes(torch, ctx):
             f"{flops / ms / 1e9:.1f} TFLOP/s  [{ctx['card']}]")
 
 
+# ---------------------------------------------------------------------------
+# phase: the launch analyses held against the card
+# ---------------------------------------------------------------------------
+
+# the dry run's peak over the measured one, per cell
+PEAK_RATIO = (0.90, 1.10)
+
+
+def main_sweep(torch, ctx):
+    """The main cell's fused sweep as the path launches it (the layout,
+    the final centers and influence): (ms, pairs computed, blocks), from
+    the timing phase when it ran, else timed here."""
+    rec = ctx["kernels"].get("assign_reduce", {})
+    if "pairs" in rec:
+        return rec["ms"], rec["pairs"], rec["blocks"]
+    from repro_torch.kernels.assign_kernel import (grid_blocks,
+                                                   points_per_thread)
+    from repro_torch.kernels.ops import point_layout
+    bp = path_block_p()
+    pts, _, final_c, final_i = main_state(torch, ctx)
+    w = torch.ones(MAIN_N, device=DEVICE)
+    inputs = kernel_inputs(torch, True, pts, final_c, final_i, w, bp, 128,
+                           point_layout(pts, bp))
+    pairs = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+    run_entry("assign_reduce", inputs, MAIN_K, bp, 128, "f32", pairs=pairs)
+    torch.cuda.synchronize()
+    ms = time_ms(torch, lambda: run_entry(
+        "assign_reduce", inputs, MAIN_K, bp, 128, "f32"), iters=20)
+    blocks = grid_blocks(MAIN_N, MAIN_D, MAIN_K, points_per_thread(bp), 0,
+                         True, pts.device)
+    return ms, int(pairs), blocks
+
+
+def phase_roofline(torch, ctx):
+    """The launch analyses against this run's measurements. Every cell
+    whose peak an earlier phase measured (``keep_peak``: each ``archs``
+    config's serve and prefill at the depth run there, granite's serve
+    and prefill, ``trainer`` A) is dry-run on ``meta`` tensors
+    (``launch.dryrun.run_cell``, no model on the card), and its estimate
+    (resident arguments + the liveness peak) must lie within PEAK_RATIO
+    of the measured peak; a miss lists the largest tensors live at the
+    estimated peak. Then the first MFU readings (``roofline.model_flops``
+    over the measured seconds over 989e12) of ``trainer`` A's steady
+    step and granite's warm prefill, and ``kernel_roofline_record`` on
+    the ``h100`` row with the ``cuda`` model for the main cell's measured
+    sweep."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.kernel_roofline import kernel_roofline_record
+    from repro_torch.launch.shapes import ShapeCell
+    card = ctx["card"]
+    peaks = ctx.get("peaks", {})
+    check(bool(peaks), "roofline: no phase measured a peak (run archs, "
+          "serve, prefill or trainer before it)")
+    misses = []
+    for tag, p in peaks.items():
+        t0 = time.perf_counter()
+        rec = D.run_cell(p["arch"], ShapeCell(*p["cell"]),
+                         do_roofline=False, hp=p["hp"],
+                         cfg_overrides=p["cfg_overrides"], tag=tag)
+        mem = rec["memory"]
+        est, got = mem["live_bytes"], p["measured"]
+        ratio = est / got
+        ok = PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]
+        log("roofline", f"{tag}: dry run {est / 2 ** 30:.3f} GiB (arguments "
+            f"{mem['resident_argument_bytes'] / 2 ** 30:.3f} + liveness "
+            f"peak {mem['peak_temp_estimate'] / 2 ** 30:.3f}), measured "
+            f"{got / 2 ** 30:.3f} GiB (max_memory_allocated above what was "
+            f"allocated before its parameters): ratio {ratio:.4f} "
+            f"({'within' if ok else 'OUTSIDE'} {PEAK_RATIO[0]}-"
+            f"{PEAK_RATIO[1]}), {p['cell'][0]} {rec['n_layers']} layers, "
+            f"traced in {time.perf_counter() - t0:.1f} s  [{card}]")
+        if not ok:
+            misses.append(tag)
+            for t in mem["largest_at_peak"]:
+                log("roofline", f"  {tag} live at the estimated peak: "
+                    f"{t['bytes'] / 2 ** 20:.1f} MiB {t['op']} {t['shape']} "
+                    f"{t['dtype']}")
+    check(not misses, f"roofline: the dry run's peak is outside "
+          f"{PEAK_RATIO} of the measured one for {misses}")
+    granite = configs.get_config("granite_moe_3b_a800m")
+    for what, mode, B, S, key in (
+            ("trainer A's steady step", "train", TRAIN_B, TRAIN_S,
+             "trainer_step_s"),
+            ("granite's warm prefill", "prefill", 1, PREFILL_S,
+             "prefill_s")):
+        if key not in ctx:
+            continue
+        secs = ctx[key]
+        mf = RL.model_flops(granite, mode, B, S)
+        log("roofline", f"MFU of {what} (B={B} S={S}): model_flops "
+            f"{mf:.6e} / {secs:.6f} s / {RL.PEAK_FLOPS:.0e} = "
+            f"{RL.mfu(granite, mode, B, S, secs):.6f}  [{card}]")
+    ms, pairs, blocks = main_sweep(torch, ctx)
+    krec = kernel_roofline_record(
+        MAIN_N, MAIN_D, MAIN_K, measured_s=ms / 1e3, platform="h100",
+        backend="cuda", fused=True, blocks=blocks, layout=True,
+        prune_frac=1.0 - pairs / (MAIN_N * MAIN_K))
+    log("roofline", "kernel_roofline_record(h100, cuda) of the main cell's "
+        "fused sweep: " + json.dumps(krec) + f"  [{card}]")
+
+
 # name -> (source, the TPU kernel or host step it replaces)
 KERNEL_META = {
     "assign_reduce": ("assign.cu", "src/repro/kernels/assign_kernel.py:374"),
@@ -4479,7 +4621,8 @@ def main() -> int:
            "archs": lambda: phase_archs(torch, ctx),
            "train": lambda: phase_train(torch, ctx),
            "trainer": lambda: phase_trainer(torch, ctx),
-           "timing": lambda: phase_timing(torch, ctx)}
+           "timing": lambda: phase_timing(torch, ctx),
+           "roofline": lambda: phase_roofline(torch, ctx)}
     t_all = time.perf_counter()
     for name in PHASES[1:]:
         if name in phases:

@@ -27,7 +27,10 @@ Dispatch (``kernel_for``), by device and dtype alone: a CPU tensor goes to
 the plain version; on the card a bfloat16 tensor to the tensor-core
 kernel and a float32 tensor to the CUDA-core kernel. A tensor the chosen
 kernel cannot take raises; nothing falls back to another kernel or to the
-plain version. ``flash_attention_tc.launches`` and
+plain version. A ``meta`` tensor (the dry run's) takes the kernel's route
+and its checks and, in place of the launch, ``meta.flash_attention``: an
+output of the kernel's shape and type, the kernel's cost reported, nothing
+counted. ``flash_attention_tc.launches`` and
 ``flash_attention_f32.launches`` count kernel launches,
 ``flash_attention_plain.calls`` plain calls.
 
@@ -39,6 +42,8 @@ none either).
 from __future__ import annotations
 
 import torch
+
+from . import meta
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
@@ -166,12 +171,15 @@ def _launch(library, entry, q, k, v, softcap):
 
 def flash_attention_tc(q, k, v, softcap: float = 0.0):
     """The bfloat16 tensor-core kernel (``csrc/flash_attention_tc.cu``);
-    the plain version for a CPU tensor."""
+    the plain version for a CPU tensor, ``meta.flash_attention`` (no
+    launch) for a ``meta`` one."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, softcap)
     check_kernel_inputs(q, k, v)
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention_tc: takes bfloat16, got {q.dtype}")
+    if q.device.type == "meta":
+        return meta.flash_attention("flash_attention_tc", q, k, v)
     out = _launch("flash_attention_tc", "repro_flash_attention_tc_fwd", q, k,
                   v, softcap)
     flash_attention_tc.launches += 1
@@ -183,12 +191,15 @@ flash_attention_tc.launches = 0
 
 def flash_attention_f32(q, k, v, softcap: float = 0.0):
     """The float32 CUDA-core kernel (``csrc/flash_attention.cu``); the
-    plain version for a CPU tensor."""
+    plain version for a CPU tensor, ``meta.flash_attention`` (no launch)
+    for a ``meta`` one."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, softcap)
     check_kernel_inputs(q, k, v)
     if q.dtype != torch.float32:
         raise ValueError(f"flash_attention_f32: takes float32, got {q.dtype}")
+    if q.device.type == "meta":
+        return meta.flash_attention("flash_attention", q, k, v)
     out = _launch("flash_attention", "repro_flash_attention_fwd", q, k, v,
                   softcap)
     flash_attention_f32.launches += 1

@@ -28,12 +28,16 @@ last one to finish, counted by a ticket, ranks them. The wrapper allocates
 the scratch with ``torch.empty`` and keeps one ticket a (device, stream).
 
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the
-kernel, with no fallback. ``router_topk_cuda.launches`` counts kernel
+kernel, with no fallback; a ``meta`` tensor (the dry run's) is checked as
+the kernel's inputs are and goes to ``meta.router_topk`` (outputs and
+scratch of the kernel's shapes, no launch, nothing counted). ``router_topk_cuda.launches`` counts kernel
 launches of every mode and ``router_topk_plain.calls`` plain calls.
 """
 from __future__ import annotations
 
 import torch
+
+from . import meta
 
 KMAX = 32       # the largest top_k the kernel keeps
 UNIT, MULTIPLY, DIVIDE = 0, 1, 2
@@ -103,6 +107,8 @@ def _ticket(stream):
 def _launch(x, centroids, scale, mode: int, top_k: int):
     from .build import load_library
     _check_inputs(x, centroids, scale, top_k)
+    if x.device.type == "meta":
+        return meta.router_topk(x, centroids, scale, top_k)
     T, D = x.shape
     E = centroids.shape[0]
     dev = x.device

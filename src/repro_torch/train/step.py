@@ -128,7 +128,11 @@ def _adamw_cfg(cfg, hp: TrainHParams) -> AdamWConfig:
 
 
 def _noise(shape, step: int, leaf: int, device) -> torch.Tensor:
-    """Uniform [0, 1) draws of a generator seeded from (17, step, leaf)."""
+    """Uniform [0, 1) draws of a generator seeded from (17, step, leaf);
+    on ``meta`` (the dry run: no values, no generator) an empty tensor of
+    the shape."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, device=device)
     seed = int(np.random.SeedSequence((17, step, leaf)).generate_state(
         1, np.uint64)[0] >> np.uint64(1))
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -214,8 +218,9 @@ def make_train_step(cfg, rules=None, hp: TrainHParams = TrainHParams()):
         grads = tree_unflatten(params, grads)
 
         ef = state.get("ef")
+        # the noise's seed; a meta state (the dry run) has no step value
         step0 = int(state["opt"]["step"]) if hp.grad_compress == "int8" \
-            else 0
+            and dev.type != "meta" else 0
         grads, new_ef = _compress(grads, ef, hp.grad_compress, step0)
         lr = schedule(state["opt"]["step"])
         _, new_opt, ostats = adamw_update(params, grads, state["opt"], acfg,
