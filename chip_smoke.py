@@ -78,7 +78,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("card", "build", "kernels", "lm_kernels", "main", "paths",
           "agreement", "profile", "repartition", "hierarchical", "pserve",
           "refine", "sharded", "experiments", "serve", "prefill", "archs",
-          "train", "trainer", "timing", "roofline")
+          "train", "trainer", "trainer_dp", "timing", "roofline")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_F32_FLOPS = 67e12
@@ -135,15 +135,21 @@ SHARDED_MESH = (2, 2)
 SHARDED_AGREE_N, SHARDED_AGREE_K = 1 << 16, 64
 SHARDED_T = 3
 SHARDED_HIER = (8, 8)
+# cut for time (PERF.md §5): the hierarchy over the ranks on the main
+# cell's first 2^20 points, the sharded refinement on tri at n = 2^20
+# (1024 x 1024; the single-card refine phase keeps REFINE_N)
+SHARDED_HIER_N = 1 << 20
+SHARDED_REFINE_N = 1 << 20
 # the distributed partitioner's balance gate: the main cell's points at
 # k = 64 (at k = 1024 its clustered warm-up ends unbalanced, as the
 # reference's does: ROADMAP.md queue 3 item 17)
 REDIST_BALANCE_K = 64
-# the paper's §5 matrix: every method over the mesh zoo at n = 2^16 points
-# a family (refined3d twice that; cut from 2^17 for time, PERF.md §5:
-# every rank builds every mesh on the host) and k = 256, over SHARDED_P
-# ranks; the small matrix that goes through run_matrix's own launch
-EXPERIMENTS = {"n": 1 << 16, "k": 256, "seed": 0}
+# the paper's §5 matrix: every method over the mesh zoo at n = 2^14 points
+# a family (refined3d twice that) and k = 128, 128 points a block (cut
+# from 2^17 and 2^16 points at k = 256 for time, PERF.md §5: every rank
+# builds every mesh on the host), over SHARDED_P ranks; the small matrix
+# that goes through run_matrix's own launch
+EXPERIMENTS = {"n": 1 << 14, "k": 128, "seed": 0}
 EXPERIMENTS_SMALL = {"n": 1 << 12, "k": 16, "seed": 0,
                      "families": ["tri", "climate25d"],
                      "methods": ["geographer", "sfc"]}
@@ -1870,7 +1876,8 @@ REDIST_COLS = ("wall", "assign_reduce", "sweeps", "all_reduces",
 def redistribute_on_rank(torch, points):
     """Inside a launch of P ranks: ``make_distributed_partitioner(P)`` on
     the main cell, this rank's rows of ``points`` (the reference's deal),
-    twice, and once at k = ``REDIST_BALANCE_K`` for the balance gate (no
+    twice at P=1 and once at P>1 (cut for time), and once at k =
+    ``REDIST_BALANCE_K`` for the balance gate (no
     third run under the profiler, for time: its device busy share is in
     PERF.md). Gates, on every rank:
     row 1 launched once a sweep and nothing else ran, two runs bit-equal,
@@ -1893,7 +1900,10 @@ def redistribute_on_rank(torch, points):
     run = make_distributed_partitioner(P, BKMConfig(k=MAIN_K, epsilon=EPS))
     t0 = time.perf_counter()
     first, _, counts = rank_run(torch, lambda: run(shard, return_stats=True))
-    again, _, _ = rank_run(torch, lambda: run(shard, return_stats=True))
+    # the repeat, bit-equal, at P=1 (NCCL); cut at P=4 for time (PERF.md
+    # §5: the four ranks' determinism is held by devices=4 against (2, 2))
+    again = rank_run(torch, lambda: run(shard, return_stats=True))[0] \
+        if P == 1 else first
     # the balance gate's cell: the same points at k = 64 (queue 3 item 17)
     coarse, _, _ = rank_run(torch, lambda: make_distributed_partitioner(
         P, BKMConfig(k=REDIST_BALANCE_K, epsilon=EPS))(shard))
@@ -2177,7 +2187,7 @@ def log_refine_on_ranks(ctx, out):
     for tag in ("refine-P", "refine-mesh"):
         r = out[tag]
         walls = ", ".join(f"{row[0]:.3f}" for row in r["table"])
-        log(f"sharded-{tag}", f"tri n={REFINE_N} k={MAIN_K}, devices="
+        log(f"sharded-{tag}", f"tri n={SHARDED_REFINE_N} k={MAIN_K}, devices="
             f"{r['stats']['devices']}: {r['stats']}; refine() wall per "
             f"rank {walls} s, all-reduces per rank "
             f"{[int(row[2]) for row in r['table']]}  [{card}]")
@@ -2288,7 +2298,8 @@ def sharded_suite(prob, sub, qprob, qlabels, tri):
     # the hierarchy: the coarse cut over all ranks, the lanes flat or over
     # the refine axis
     hier = {}
-    hprob = prob.replace(k=SHARDED_HIER[0] * SHARDED_HIER[1])
+    hprob = prob.replace(points=prob.points[:SHARDED_HIER_N],
+                         k=SHARDED_HIER[0] * SHARDED_HIER[1])
     for tag, devices in (("hier-flat", P), ("hier-mesh", SHARDED_MESH)):
         res, table, counts = rank_run(
             torch, lambda: partition(hprob, hierarchy=SHARDED_HIER,
@@ -2336,7 +2347,7 @@ def phase_sharded(torch, ctx):
     """The multi-device path: ``partition(devices=1)`` over NCCL against
     ``partition()`` on the main cell, and the distributed partitioner at
     P=1; then one launch of four gloo ranks sharing the card for
-    ``devices=4`` (twice), ``(2, 2)``, the device bootstrap, the agreement
+    ``devices=4``, ``(2, 2)``, the device bootstrap, the agreement
     with CPU ranks, ``evaluate_sharded``, warm repartitioning, the
     hierarchy, the sharded refinement rounds on the refine cell
     (``refine_on_ranks``) and the distributed partitioner at P=4
@@ -2373,7 +2384,12 @@ def phase_sharded(torch, ctx):
                            epsilon=EPS, seed=0)
     qprob = PartitionProblem.from_mesh(quality_mesh(ctx), k=REFINE_QUALITY_K)
     qlabels = partition(qprob).labels
-    tprob = PartitionProblem.from_mesh(tri_mesh(ctx), k=MAIN_K, epsilon=EPS)
+    from repro_torch.core import meshes
+    t0 = time.perf_counter()
+    tmesh = meshes.REGISTRY["tri"](SHARDED_REFINE_N, seed=0)
+    log("sharded-refine", f"{tmesh.name} n={tmesh.n} m={tmesh.m} built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tprob = PartitionProblem.from_mesh(tmesh, k=MAIN_K, epsilon=EPS)
     tbase = partition(tprob).labels
     want, t_want = timed(torch, lambda: refine(tprob, tbase))
     log("sharded-refine", f"single-card refine() of geographer's labels on "
@@ -2381,7 +2397,7 @@ def phase_sharded(torch, ctx):
         f"{t_want:.3f} s  [{ctx['card']}]")
     tri = {"prob": tprob, "base": tbase, "labels": want.labels,
            "stats": want.stats["refine"],
-           "w1": hotspot_weights(torch, tri_mesh(ctx), 1)[1]}
+           "w1": hotspot_weights(torch, tmesh, 1)[1]}
     t0 = time.perf_counter()
     out = launch.launch(sharded_suite, SHARDED_P,
                         args=(prob, sub, qprob, qlabels, tri), device="cuda",
@@ -3958,6 +3974,250 @@ def phase_trainer(torch, ctx):
 
 
 # ---------------------------------------------------------------------------
+# phase 7g: training over data ranks
+# ---------------------------------------------------------------------------
+
+# granite at full width, depth cut to TRAINER_DP_LAYERS of 32 (two ranks
+# each holding the whole expert leaves, 3.0e9 parameters of float32 state
+# at full depth, cannot share one card), global batch TRAINER_DP_B x
+# TRAIN_S in TRAIN_MICRO microbatches (a rank's microbatch at data=2 is
+# 1 x 4096: flash runs), TRAINER_DP_STEPS steps with the launcher's
+# TrainHParams, remat; TRAINER_DP_RANKS gloo ranks sharing the card
+# against data=1 in this process on the same seed and batches
+TRAINER_DP_LAYERS, TRAINER_DP_B, TRAINER_DP_STEPS = 8, 4, 3
+TRAINER_DP_RANKS = 2
+# data=2 against data=1 on the card: the batch's rows reach the bf16
+# matmuls and the float32 sums in other groupings, and a router near-tie
+# that flips moves a token's expert, a layer's load by 1 of its ~3,277
+# target (the CPU tests hold float32 parity at 1e-5 / 1e-3 / 1e-6). Read
+# on the H100 (PERF.md): 4.2e-7, 3.7e-6 and 6.8e-5 after 3 steps
+TRAINER_DP_TOL = {"loss": 1e-4, "grad_norm": 1e-2, "influence": 1e-2}
+# the seconds of the phases cut to make room for trainer_dp, before the
+# cuts (this script's last full run without trainer_dp, on an NVIDIA
+# H100 80GB HBM3 at 700 W; PERF.md §5 lists the cuts)
+CUT_BEFORE_S = {"sharded": 162.9, "experiments": 100.2}
+
+
+def trainer_dp_body(data):
+    """On each of ``data`` ranks (or in this process at data=1): granite
+    at the phase's shapes through ``Trainer.fit`` over a
+    ``make_host_mesh(data)`` mesh, the launch counts set to 0 just before
+    the fit and read just after, this rank's collectives over the fit,
+    its peak memory, and its last step under the profiler on rank 0 (the
+    device time of its own kernels over the step's wall). Returns rank
+    0's summary with every rank's table."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import granite_moe_3b_a800m as granite
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist.rules import resolve_rules
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import Trainer, TrainerConfig, TrainHParams
+    from torch.profiler import ProfilerActivity, profile
+    cfg = dataclasses.replace(granite.CONFIG, n_layers=TRAINER_DP_LAYERS)
+    hp = TrainHParams(microbatches=TRAIN_MICRO, lr_peak=3e-4,
+                      warmup_steps=max(TRAINER_DP_STEPS // 10, 1),
+                      total_steps=TRAINER_DP_STEPS, grad_compress="none")
+    mesh = make_host_mesh(data, device=DEVICE)
+    rules = resolve_rules(mesh, cfg, "train", batch_size=TRAINER_DP_B,
+                          overrides=configs.sharding_overrides(
+                              "granite-moe-3b-a800m", "train"))
+    comm = mesh.axis_comm("data")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, rules, hp, TrainerConfig(
+        steps=TRAINER_DP_STEPS, log_every=1))
+    state, _ = trainer.init_or_resume()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    stream = SyntheticLM(cfg, TRAINER_DP_B, TRAIN_S)
+    # the last step of the fit runs under the profiler on rank 0 (its
+    # device time: its own kernels), the others unprofiled
+    inner, busy = trainer.step_fn, ["profiled on rank 0 only"]
+
+    def step_fn(state, batch):
+        if int(state["opt"]["step"]) + 1 < TRAINER_DP_STEPS or (
+                comm is not None and comm.rank):
+            return inner(state, batch)
+        torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        try:
+            prof.__enter__()
+        except Exception as e:      # noqa: BLE001 - a reading, printed
+            busy[0] = f"the profiler did not start: {e!r}"[:200]
+            return inner(state, batch)
+        t1 = time.perf_counter()
+        out = inner(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        prof.__exit__(None, None, None)
+        busy[0] = (device_rows(prof)[1], wall)
+        return out
+
+    trainer.step_fn = step_fn
+    reset_launch_counts()
+    before = comm.counters() if comm is not None else None
+    t0 = time.perf_counter()
+    state, hist = trainer.fit(iter(stream), state, 0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = {n: c for n, c in launch_counts().items() if c}
+    moved = ({key: (after - before[key]) / TRAINER_DP_STEPS
+              for key, after in comm.counters().items()}
+             if comm is not None else {})
+    peak = torch.cuda.max_memory_allocated()
+    busy = busy[0]
+    infl = state["influence"].detach()
+    out = {"hist": [{k: v for k, v in m.items()} for m in hist],
+           "influence": infl.cpu().numpy(), "counts": counts,
+           "moved": moved, "init_s": init_s, "fit_s": fit_s,
+           "n_params": sum(int(np.prod(x.shape))
+                           for x in tree_leaves(state["params"]))}
+    row = [peak, counts.get("router_topk", 0),
+           counts.get("flash_attention_tc", 0), sum(counts.values()),
+           moved.get("all_reduces", 0), moved.get("all_gathers", 0),
+           busy[0] if isinstance(busy, tuple) else -1.0,
+           busy[1] if isinstance(busy, tuple) else -1.0,
+           out["n_params"]]
+    if comm is None:
+        out["table"] = [row]
+        out["same_influence"] = True
+        out["busy_error"] = None if isinstance(busy, tuple) else busy
+        return out
+    rows = comm.all_gather(torch.tensor(row, dtype=torch.float64,
+                                        device=DEVICE)).tolist()
+    every = comm.all_gather(infl)
+    out["table"] = rows
+    out["same_influence"] = all(torch.equal(every[0], every[r])
+                                for r in range(comm.size))
+    out["busy_error"] = None if isinstance(busy, tuple) else busy
+    return out
+
+
+def phase_trainer_dp(torch, ctx):
+    """Training over data ranks: granite at full width and cut depth,
+    ``data=TRAINER_DP_RANKS`` (gloo ranks sharing the card, one
+    ``dist.launch``) against ``data=1`` in this process, the same seed
+    and batches. Gates: losses and grad_norm within TRAINER_DP_TOL of
+    data=1, the influence within its tolerance of data=1 and bit-equal
+    across ranks, each rank's flash (6a) and router (5) launches = layers
+    x 2 (forward, recompute) x microbatches x steps and nothing else.
+    Prints the steady step's seconds at both, tokens/s, each rank's
+    peak, the collectives a step, device busy and MFU; then the seconds
+    the cuts made room for against the phase's own."""
+    import gc
+    import numpy as np
+    from repro_torch.configs import granite_moe_3b_a800m as granite
+    from repro_torch.dist import launch
+    from repro_torch.launch import roofline as RL
+    import dataclasses
+    card = ctx["card"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(granite.CONFIG, n_layers=TRAINER_DP_LAYERS)
+    n = TRAINER_DP_LAYERS * 2 * TRAIN_MICRO * TRAINER_DP_STEPS
+    want = {"flash_attention_tc": n, "router_topk": n}
+    t0 = time.perf_counter()
+    one = trainer_dp_body(1)
+    one_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    two = launch.launch(trainer_dp_body, TRAINER_DP_RANKS,
+                        args=(TRAINER_DP_RANKS,), device="cuda",
+                        timeout=900)
+    two_s = time.perf_counter() - t0
+    tokens = TRAINER_DP_B * TRAIN_S
+
+    def steady(hist):
+        # the steps between the first (warm-up) and the last (profiled)
+        walls = [m["wall_s"] for m in hist]
+        walls = [walls[0]] + [b - a for a, b in zip(walls, walls[1:])]
+        rest = walls[1:-1]
+        return walls, sum(rest) / len(rest)
+
+    for tag, res in (("data=1", one), (f"data={TRAINER_DP_RANKS}", two)):
+        walls, s_step = steady(res["hist"])
+        ctx.setdefault("trainer_dp", {})[tag] = s_step
+        for r, row in enumerate(res["table"]):
+            peak, router, flash, total, ars, ags, dev_s, wall, _ = row
+            path = f"trainer_dp {tag} rank {r}"
+            ctx["paths"][path] = {"router_topk": int(router),
+                                  "flash_attention_tc": int(flash)}
+            check(int(router) == n and int(flash) == n and
+                  int(total) == 2 * n,
+                  f"trainer_dp {tag} rank {r}: router {router}, flash "
+                  f"{flash}, all launches {total}; want {want}")
+            if wall > 0:
+                busy = (f"device busy {dev_s:.3f} s of a {wall:.3f} s "
+                        f"profiled step = {dev_s / wall:.1%} (this rank's "
+                        f"kernels)")
+            elif r:
+                busy = "profiled on rank 0 only"
+            else:
+                busy = f"device busy not measured ({res['busy_error']})"
+            log("trainer_dp", f"{tag} rank {r}: peak "
+                f"{peak / 2 ** 30:.2f} GiB, router {int(router)} and flash "
+                f"{int(flash)} launches = {TRAINER_DP_LAYERS} layers x 2 "
+                f"(forward, recompute) x {TRAIN_MICRO} microbatches x "
+                f"{TRAINER_DP_STEPS} steps; {busy}  [{card}]")
+        mfu = RL.mfu(cfg, "train", TRAINER_DP_B, TRAIN_S, s_step)
+        moved = res["moved"]
+        col = ("" if not moved else
+               f"; collectives a step (rank 0): all-reduces "
+               f"{moved['all_reduces']:.0f} ({moved['bytes'] / 1e9:.3f} GB, "
+               f"{moved['seconds']:.3f} s), all-gathers "
+               f"{moved['all_gathers']:.0f} ({moved['all_gather_bytes'] / 1e9:.3f}"
+               f" GB, {moved['all_gather_seconds']:.3f} s), reduce-scatters "
+               f"{moved['reduce_scatters']:.0f} "
+               f"({moved['reduce_scatter_bytes'] / 1e9:.3f} GB, "
+               f"{moved['reduce_scatter_seconds']:.3f} s)")
+        log("trainer_dp", f"{tag}: {cfg.name} at {TRAINER_DP_LAYERS} of 32 "
+            f"layers, {res['n_params']:,} parameters a rank, batch "
+            f"{TRAINER_DP_B} x {TRAIN_S} in {TRAIN_MICRO} microbatches: "
+            f"state made in {res['init_s']:.1f} s; steps "
+            f"{', '.join(f'{w:.3f}' for w in walls)} s (steady "
+            f"{s_step:.3f} s = {tokens / s_step:.1f} tokens/s, MFU "
+            f"{mfu:.6f}); losses "
+            f"{', '.join(f'{m['loss']:.6f}' for m in res['hist'])}, "
+            f"grad_norm "
+            f"{', '.join(f'{m['grad_norm']:.6f}' for m in res['hist'])}"
+            f"{col}  [{card}]")
+    tol = TRAINER_DP_TOL
+    rel = {key: max(abs(a[key] - b[key]) / abs(b[key]) for a, b in
+                    zip(two["hist"], one["hist"]))
+           for key in ("loss", "grad_norm")}
+    rel["influence"] = float(np.max(np.abs(two["influence"] -
+                                           one["influence"]) /
+                                    one["influence"]))
+    moved_infl = float(np.max(np.abs(np.log(one["influence"]))))
+    log("trainer_dp", f"data={TRAINER_DP_RANKS} against data=1: largest "
+        f"relative difference of the losses {rel['loss']:.3g} (limit "
+        f"{tol['loss']}), grad_norm {rel['grad_norm']:.3g} (limit "
+        f"{tol['grad_norm']}), influence {rel['influence']:.3g} (limit "
+        f"{tol['influence']}; |log influence| max {moved_infl:.4f} at "
+        f"data=1); influence bit-equal across ranks "
+        f"{two['same_influence']}; launch of {TRAINER_DP_RANKS} ranks "
+        f"{two_s:.1f} s with the process starts, data=1 {one_s:.1f} s")
+    check(two["same_influence"], "trainer_dp: the ranks' influences "
+          "differ")
+    check(moved_infl > 0, "trainer_dp: the influence did not move")
+    for key, lim in tol.items():
+        check(rel[key] <= lim, f"trainer_dp: {key} differs from data=1 by "
+              f"{rel[key]:.3g} (limit {lim})")
+    phase_s = time.perf_counter() - t_phase
+    ctx["trainer_dp_s"] = phase_s
+    log("trainer_dp", f"phase {phase_s:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # phase 8: timing
 # ---------------------------------------------------------------------------
 
@@ -4621,14 +4881,24 @@ def main() -> int:
            "archs": lambda: phase_archs(torch, ctx),
            "train": lambda: phase_train(torch, ctx),
            "trainer": lambda: phase_trainer(torch, ctx),
+           "trainer_dp": lambda: phase_trainer_dp(torch, ctx),
            "timing": lambda: phase_timing(torch, ctx),
            "roofline": lambda: phase_roofline(torch, ctx)}
     t_all = time.perf_counter()
+    took = {}
     for name in PHASES[1:]:
         if name in phases:
             t0 = time.perf_counter()
             run[name]()
-            log("time", f"phase {name}: {time.perf_counter() - t0:.1f} s")
+            took[name] = time.perf_counter() - t0
+            log("time", f"phase {name}: {took[name]:.1f} s")
+    if "trainer_dp" in took and set(CUT_BEFORE_S) <= set(took):
+        now = sum(took[name] for name in CUT_BEFORE_S)
+        before = sum(CUT_BEFORE_S.values())
+        log("time", f"room for trainer_dp: {' + '.join(CUT_BEFORE_S)} "
+            f"{now:.1f} s in this run against {before:.1f} s before the "
+            f"cuts: {before - now:.1f} s saved; trainer_dp "
+            f"{took['trainer_dp']:.1f} s")
     log("time", f"all phases: {time.perf_counter() - t_all:.1f} s")
     print(kernels_json(ctx))
     print(card_line())

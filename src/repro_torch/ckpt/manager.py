@@ -31,6 +31,15 @@ place, and makes a new tensor for a leaf on the ``meta`` device
 on ``device``, or on the card: a state restores without a second copy of
 itself on the device.
 
+Over data-parallel ranks, every rank calls ``save`` at the same point
+with ``splits`` (a tree like the state's of ``dist.fsdp.plan``'s
+``(dim, communicator)`` or None): each split leaf is gathered whole over
+its ranks, and rank 0 of the caller's group writes the one-rank format
+of the whole state, so a checkpoint does not depend on the number of
+ranks that wrote it. ``restore`` with ``shardings`` over those ranks
+(``train.step.state_shardings``) reads every leaf on every rank and keeps
+the rank's slice (``NamedSharding.local``).
+
 ``stats`` holds the last save's and restore's seconds and bytes: on a
 save the device-to-host copies (``snapshot_s``) and the file writes with
 their CRC32 sums, which run beside them (``write_s``, which holds a
@@ -52,6 +61,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import fsdp
+from repro_torch.dist.comm import current
 from repro_torch.optim.adamw import tree_leaves, tree_unflatten
 
 # the header numpy writes for an ml_dtypes.bfloat16 array
@@ -91,10 +102,23 @@ def _to_host(x: torch.Tensor, staging: torch.Tensor | None = None
     return host.numpy()
 
 
-def _staging(leaves) -> torch.Tensor | None:
+def _split_leaves(splits, state) -> list:
+    """``splits`` (a tree like ``state``'s, None where a subtree splits
+    nothing) as a list in ``tree_leaves(state)`` order."""
+    def walk(sp, st):
+        if isinstance(st, dict):
+            return [x for k in sorted(st)
+                    for x in walk(None if sp is None else sp.get(k), st[k])]
+        return [sp]
+    return walk(splits, state)
+
+
+def _staging(leaves, scale=None) -> torch.Tensor | None:
     """A page-locked buffer for the largest leaf on a CUDA device (device
-    copies into page-locked memory run at the link's rate), or None."""
-    n = max((x.numel() * x.element_size() for x in leaves
+    copies into page-locked memory run at the link's rate), or None.
+    ``scale``: each leaf's whole size over its own (its shard count)."""
+    scale = scale or [1] * len(leaves)
+    n = max((x.numel() * x.element_size() * f for x, f in zip(leaves, scale)
              if x.device.type == "cuda"), default=0)
     return torch.empty(n, dtype=torch.uint8, pin_memory=True) if n else None
 
@@ -144,16 +168,28 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------- save
-    def save(self, step: int, state) -> None:
-        """Write ``state`` (a tree of dicts of tensors) as step ``step``."""
+    def save(self, step: int, state, splits=None) -> None:
+        """Write ``state`` (a tree of dicts of tensors) as step ``step``.
+        ``splits``: the state is a data rank's shards, split as the tree
+        says (``dist.fsdp.plan``); every rank calls this, and rank 0 of
+        the caller's group (``dist.current()``) writes the whole state."""
         leaves = tree_leaves(state)
         treedef = treedef_str(state)
+        shards = (_split_leaves(splits, state) if splits is not None
+                  else [None] * len(leaves))
         self.wait()                      # one in-flight save at a time
         self.stats["save"] = stats = {"step": step, "snapshot_s": 0.0,
                                       "bytes": 0}
         t0 = time.perf_counter()
+        comm = current()
+        if splits is not None and comm is not None and comm.rank != 0:
+            for x, sh in zip(leaves, shards):       # the gathers alone
+                fsdp.whole(x, sh)
+            stats["call_s"] = time.perf_counter() - t0
+            return
         if self.async_save:
-            host = [(_to_host(x), _dtype_name(x)) for x in leaves]
+            host = [(_to_host(fsdp.whole(x, sh)), _dtype_name(x))
+                    for x, sh in zip(leaves, shards)]
             stats["snapshot_s"] = time.perf_counter() - t0
             self._worker = threading.Thread(
                 target=self._write, args=(step, iter(host), treedef, stats),
@@ -163,9 +199,11 @@ class CheckpointManager:
             def stream():
                 # each array is written before the next copy reuses the
                 # buffer: _write consumes one leaf at a time
-                staging = _staging(leaves)
-                for x in leaves:
+                staging = _staging(leaves, [1 if sh is None else
+                                            sh[1].size for sh in shards])
+                for x, sh in zip(leaves, shards):
                     t = time.perf_counter()
+                    x = fsdp.whole(x, sh)
                     arr = _to_host(x, staging if x.device.type == "cuda"
                                    else None)
                     stats["snapshot_s"] += time.perf_counter() - t
@@ -234,7 +272,10 @@ class CheckpointManager:
         device (``shardings``: a tree like the state's of
         ``dist.rules.param_shardings``), else on ``device`` (default
         ``cuda``). A checkpoint written on one device restores onto
-        another (elastic restore on one rank).
+        another (elastic restore). With ``shardings`` over data ranks,
+        each rank keeps its slice of every leaf (``state_like`` holds the
+        whole shapes, or the rank's shards to fill); a checkpoint of any
+        number of ranks restores on any other.
 
         Raises:
             FileNotFoundError: no checkpoint in the directory.
@@ -277,25 +318,34 @@ class CheckpointManager:
                 else:
                     dev = resolve_device(device)
                 out.append(self._place(arr, like, entry, step, i, dev,
-                                       strict_crc, stats))
+                                       strict_crc, stats, shard_leaves[i]))
                 del arr
         stats["call_s"] = time.perf_counter() - t0
         return tree_unflatten(state_like, out), step
 
     @staticmethod
-    def _place(arr, like, entry, step, i, dev, strict_crc, stats):
+    def _place(arr, like, entry, step, i, dev, strict_crc, stats,
+               sharding=None):
         """Leaf ``i``'s array checked against the manifest and ``like``,
-        as a tensor: ``like`` filled in place when it is a tensor, else a
-        new tensor on ``dev``."""
+        as a tensor (the rank's slice under ``sharding``): ``like``
+        filled in place when it is a tensor, else a new tensor on
+        ``dev``."""
         t = time.perf_counter()
         if strict_crc and _crc(arr) != entry["crc"]:
             raise IOError(f"crc mismatch in {entry['file']} @ step {step}")
         stats["crc_s"] += time.perf_counter() - t
-        if tuple(arr.shape) != tuple(like.shape):
-            raise ValueError(f"shape mismatch leaf {i}: "
-                             f"{arr.shape} vs {tuple(like.shape)}")
-        t = time.perf_counter()
         host = _from_host(arr, entry["dtype"])
+        got = tuple(arr.shape)
+        if sharding is not None and like.device.type != "meta":
+            got = sharding.shard_shape(got)     # like: the rank's shard
+        if got != tuple(like.shape):
+            raise ValueError(f"shape mismatch leaf {i}: "
+                             f"{got} vs {tuple(like.shape)}")
+        t = time.perf_counter()
+        if sharding is not None:
+            part = sharding.local(host)
+            if part.shape != host.shape:
+                host = part.contiguous()
         if like.device.type != "meta":
             with torch.no_grad():
                 like.copy_(host)

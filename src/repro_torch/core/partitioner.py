@@ -32,7 +32,7 @@ import torch
 from repro_torch.device import on_card, resolve_device
 from repro_torch.dist import launch
 from repro_torch.dist.comm import current
-from repro_torch.dist.rules import comm_for, mesh_size
+from repro_torch.dist.rules import comm_for, mesh_shape, mesh_size
 
 from .balanced_kmeans import BKMConfig, balanced_kmeans, pin_backend
 from .sfc import hilbert_index_int32, sfc_initial_centers_torch
@@ -326,70 +326,117 @@ def _result(A, rp, rv, centers, infl, stats, return_stats):
     return out + (stats,) if return_stats else out
 
 
-def _partition_launched(points, weights, cfg, *, device, return_stats):
+def _axis_comm(mesh, axis_name: str):
+    """(the communicator along ``axis_name`` of ``mesh``, the caller's
+    rank in the whole mesh): the group that shards the solve; the groups
+    along the other axis run the same solve (replicas)."""
+    world = mesh.comm if mesh.size > 1 else comm_for(1)
+    if len(mesh.extents) == 1 or mesh.size == 1:
+        return world, world.rank
+    if len(mesh.extents) != 2:
+        raise ValueError(f"a mesh of {len(mesh.extents)} axes: the "
+                         "distributed partitioner takes one or two")
+    return world.axis_group(mesh.axis_names.index(axis_name)), world.rank
+
+
+def _partition_launched(points, weights, cfg, *, device, return_stats,
+                        mesh=None, axis_name=None):
     """Body of every rank of a launch made by ``run`` outside a rank: the
-    rank's rows of the global arrays (``P(axis_name)``'s deal), then the
-    rank-order concatenation of every rank's slots, all-gathered."""
-    comm = current()
+    rank's rows of the global arrays (``P(axis_name)``'s deal: the rows
+    of the rank's coordinate on the axis, the same on every replica),
+    then the axis-order concatenation of its group's slots,
+    all-gathered."""
+    if mesh is None:
+        comm, rank = current(), current().rank
+    else:
+        comm, rank = _axis_comm(mesh, axis_name)
     rows = points.shape[0] // comm.size
     mine = slice(comm.rank * rows, (comm.rank + 1) * rows)
     A, r, centers, infl, stats = _partition_on_rank(
         points[mine], None if weights is None else weights[mine], cfg, comm,
-        device)
+        launch.rank_device(resolve_device(device), rank))
     A, rp, rv = (comm.all_gather(x).flatten(0, 1)
                  for x in (A, r.points, r.valid))
     return _result(A, rp, rv, centers, infl, stats, return_stats)
 
 
-def make_distributed_partitioner(devices, cfg: BKMConfig, *, device=None):
-    """The paper's distributed Geographer (§4.1) over ``devices`` ranks:
+def make_distributed_partitioner(devices, cfg: BKMConfig,
+                                 axis_name: str = "data", *, device=None):
+    """The paper's distributed Geographer (§4.1) over ``devices``:
     returns ``run(points, weights=None, *, return_stats=False)``.
+
+    ``devices`` is the number of ranks P, or a mesh of ranks
+    (``launch.mesh.Mesh``; a pair ``(P1, P2)`` is the mesh
+    ``make_mesh((P1, P2), ("data", "model"))``), sharded over
+    ``axis_name`` as the reference's ``shard_map`` over
+    ``mesh[axis_name]``: each group of ranks along that axis runs the
+    solve over its ``P = mesh.shape[axis_name]`` ranks, and the groups
+    along the other axis run the same solve on the same rows (the
+    reference's replication, ``in_specs`` ``P(axis_name)``): every
+    replica's result is ``devices=P``'s, bit for bit.
 
     Called outside a rank, ``run`` takes the global ``points`` [N, d] and
     ``weights`` [N] (None: unit), launches the ranks (``dist.launch``;
-    rank s holds rows ``[s*N/P, (s+1)*N/P)``) and returns the global
-    result. Called inside a rank (``dist.current()``), it takes the rank's
-    own shard and returns the rank's slots with the replicated values.
-    Either way it returns numpy arrays, the reference's: (A [P*P*cap]
-    block ids aligned with the redistributed order, -1 on invalid slots;
-    rp [P*P*cap, d]; rv [P*P*cap] bool; centers [k, d]; influence [k];
-    final_imbalance; n_dropped), the first three over this rank's
-    ``P*cap`` slots inside a rank; with ``return_stats`` the rank's stats
-    come last (rank 0's from outside).
+    the rank at coordinate s of the axis holds rows ``[s*N/P,
+    (s+1)*N/P)``) and returns the global result. Called inside a rank
+    (``dist.current()``), it takes the rank's own shard and returns the
+    rank's slots with the replicated values. Either way it returns numpy
+    arrays, the reference's: (A [P*P*cap] block ids aligned with the
+    redistributed order, -1 on invalid slots; rp [P*P*cap, d]; rv
+    [P*P*cap] bool; centers [k, d]; influence [k]; final_imbalance;
+    n_dropped), the first three over this rank's ``P*cap`` slots inside a
+    rank; with ``return_stats`` the rank's stats come last (rank 0's from
+    outside).
 
     Args:
-        devices: the number of ranks P.
+        devices: the number of ranks P, a mesh, or ``(P1, P2)``.
         cfg: BKMConfig of the solve.
-        device: every rank's device; None means ``cuda`` (rank r on card
-            ``r % device_count``).
+        axis_name: the mesh axis the points are sharded over (a mesh
+            only).
+        device: every rank's device; None means the mesh's, or ``cuda``
+            (rank r on card ``r % device_count``).
 
     Raises:
-        ValueError: ``devices`` is a (P1, P2) mesh (ROADMAP.md, queue 1
-            item 6: a mesh with axes beside the partition axis, the same
-            work replicated over them, is still to port), or N is not a
+        ValueError: the mesh has no axis ``axis_name``, or N is not a
             multiple of P.
     """
+    mesh = devices
     if isinstance(devices, (tuple, list)):
-        raise ValueError(
-            f"make_distributed_partitioner takes an int number of ranks, "
-            f"got devices={devices!r}: a mesh with axes beside the "
-            f"partition axis (the same work replicated over them) is still "
-            f"to port (ROADMAP.md, queue 1 item 6)")
-    P = mesh_size(devices)
+        from repro_torch.launch.mesh import Mesh
+        mesh = Mesh(("data", "model"), mesh_shape(devices),
+                    torch.device("cuda" if device is None else device))
+    if hasattr(mesh, "axis_names"):
+        if axis_name not in mesh.axis_names:
+            raise ValueError(f"the mesh {mesh.shape} has no axis "
+                             f"{axis_name!r} to shard the points over")
+        if device is None:
+            device = mesh.device
+        P, world = mesh.shape[axis_name], mesh.size
+    else:
+        mesh = None
+        P = world = mesh_size(devices)
 
     def run(points, weights=None, *, return_stats=False):
-        if launch.needed(P):
+        if launch.needed(world):
             resolve_device(device)      # no card: raise before launching
             points = np.asarray(points)
             if points.shape[0] % P:
                 raise ValueError(f"{points.shape[0]} points do not split "
                                  f"into {P} equal shards")
-            return launch.run(_partition_launched, P, device, points,
+            extra = {} if mesh is None else {"mesh": mesh,
+                                              "axis_name": axis_name}
+            return launch.run(_partition_launched, world, device, points,
                               None if weights is None else
                               np.asarray(weights), cfg, device=device,
-                              return_stats=return_stats)
+                              return_stats=return_stats, **extra)
+        if mesh is None:
+            comm, rank = comm_for(P), None
+        else:
+            comm, rank = _axis_comm(mesh, axis_name)
+        dev = device if rank is None else launch.rank_device(
+            resolve_device(device), rank)
         A, r, centers, infl, stats = _partition_on_rank(
-            points, weights, cfg, comm_for(P), device)
+            points, weights, cfg, comm, dev)
         return _result(A, r.points, r.valid, centers, infl, stats,
                        return_stats)
 

@@ -3,16 +3,20 @@
 
 A ``Communicator`` holds one rank's process group, its rank, the world
 size, the mesh shape ``(P,)`` or ``(P1, P2)`` and, for a 2-D mesh, the
-subgroup of its refine axis. It offers the reductions of the paper's
-communication discipline (§4.1), ``all_reduce(x, "sum" | "min" |
-"max")``, plus the shard id (the reference's ``axis_index``), and two
-collectives that move data: ``all_gather`` and ``all_to_all``, the
-reference's ``all_gather`` and ``all_to_all`` of the SFC redistribution
+subgroups along each of its axes (``axis_group``: the row of a rank, or
+its column). It offers the reductions of the paper's communication
+discipline (§4.1), ``all_reduce(x, "sum" | "min" | "max")``, plus the
+shard id (the reference's ``axis_index``), and the collectives that move
+data: ``all_gather`` and ``all_to_all``, the reference's ``all_gather``
+and ``all_to_all`` of the SFC redistribution
 (``core.partitioner._sfc_redistribute``, the sample sort under
-``make_distributed_partitioner``); no other path uses them. The rank
-order of ``(P1, P2)`` is the row-major flat order of ``P1*P2``, so a
-collective over the whole mesh runs over the same group in the same
-order as the flat mesh's and gives the same bits.
+``make_distributed_partitioner``), and ``gather_along`` /
+``reduce_scatter``, the all-gather of a data-parallel shard and the sum
+of its gradient that GSPMD inserts around an FSDP leaf
+(``dist.fsdp``). The rank order of ``(P1, P2)`` is the row-major flat
+order of ``P1*P2`` (``jax.make_mesh``'s order of the first ``P1*P2``
+devices), so a collective over the whole mesh runs over the same group
+in the same order as the flat mesh's and gives the same bits.
 
 ``current()`` is the communicator of the calling rank: the one a
 launcher (``dist.launch``) or a ``using(comm)`` block made active in
@@ -38,7 +42,16 @@ class CancelledError(RuntimeError):
 
 #: the collectives ``counters()`` counts apart: (kind, its count's key)
 KINDS = (("all_reduce", "all_reduces"), ("all_gather", "all_gathers"),
-         ("all_to_all", "all_to_alls"))
+         ("all_to_all", "all_to_alls"), ("reduce_scatter", "reduce_scatters"))
+
+#: (backend, device type) pairs whose process group reduce-scatters
+#: natively; elsewhere ``reduce_scatter`` all-reduces the whole tensor and
+#: keeps the rank's chunk (the same sums: one value a rank an element).
+#: gloo (torch 2.11) reduce-scatters CUDA tensors and CPU ones, but its
+#: work does not report completion before ``wait`` (``is_completed``
+#: stays False), which the cancellable wait of thread ranks (CPU tensors
+#: only) polls: on the CPU, gloo all-reduces instead.
+NATIVE_REDUCE_SCATTER = {("nccl", "cuda"), ("gloo", "cuda")}
 
 
 def _reduce_op(op: str):
@@ -48,8 +61,8 @@ def _reduce_op(op: str):
 
 class _Shared:
     """What the views of one rank's group share: the collective counters
-    (calls, host seconds, bytes of each kind) and the refine-axis
-    subgroups, made once per P2."""
+    (calls, host seconds, bytes of each kind) and the subgroups along the
+    axes of each mesh shape, made once per (shape, axis)."""
 
     def __init__(self, subgroup_factory, cancel=None):
         self.subgroup_factory = subgroup_factory
@@ -182,35 +195,98 @@ class Communicator:
         self._shared.finish("all_to_all", work, t0, _nbytes(src))
         return out.bool() if was_bool else out
 
-    def refine_group(self) -> "Communicator":
-        """The ranks of this rank's coarse row (the refine axis of a
-        ``(P1, P2)`` mesh) as a communicator of size P2. Every rank of the
-        mesh must call this at the same point of the program, as it may
-        create the subgroups."""
-        if len(self.shape) != 2:
-            raise ValueError(f"refine_group needs a (P1, P2) mesh, this "
-                             f"one is {self.shape}")
-        p1, p2 = self.shape
+    def gather_along(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` concatenated along ``dim`` in rank order
+        (the whole of a leaf held as one shard a rank). Bytes counted:
+        this rank's ``x``, as ``all_gather``'s."""
+        src = x.contiguous()
+        outs = [torch.empty_like(src) for _ in range(self.size)]
+        t0 = time.perf_counter()
+        work = self.group.allgather([outs], [src])
+        self._shared.finish("all_gather", work, t0, _nbytes(src))
+        return torch.cat(outs, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum of ``x`` over the ranks, this rank's chunk of it along
+        ``dim`` (chunk r of P equal ones for rank r): the gradient of a
+        shard that ``gather_along`` made whole. Natively where the backend
+        has it for the device (``NATIVE_REDUCE_SCATTER``), else the whole
+        sum by ``all_reduce`` (counted there) and its chunk. Bytes
+        counted: ``x``'s.
+
+        Raises:
+            ValueError: ``x.shape[dim]`` is not a multiple of P.
+        """
+        n = x.shape[dim]
+        if n % self.size:
+            raise ValueError(f"reduce_scatter splits dim {dim} of "
+                             f"{tuple(x.shape)} into {self.size} chunks")
+        part = n // self.size
+        if (self.backend, x.device.type) not in NATIVE_REDUCE_SCATTER:
+            return self.all_reduce(x).narrow(dim, self.rank * part,
+                                             part).contiguous()
+        src = x.movedim(dim, 0).contiguous()
+        out = torch.empty((part,) + tuple(src.shape[1:]), dtype=src.dtype,
+                          device=src.device)
+        t0 = time.perf_counter()
+        # flat: dim 0's chunks are contiguous runs of the flat tensor
+        work = self.group._reduce_scatter_base(
+            out.view(-1), src.view(-1), tdist.ReduceScatterOptions())
+        self._shared.finish("reduce_scatter", work, t0, _nbytes(src))
+        return out.movedim(0, dim).contiguous()
+
+    def axis_group(self, axis: int) -> "Communicator":
+        """The ranks that share this rank's coordinates on every axis but
+        ``axis`` of its mesh, as a 1-D communicator (the rank's index on
+        ``axis`` is its rank there): on a ``(P1, P2)`` mesh, axis 1 is
+        the rank's row (P2 ranks) and axis 0 its column (P1 ranks). Every
+        rank of the mesh must call this at the same point of the program,
+        as it may create the subgroups of that axis, each rank all of them
+        in the same order (``torch.distributed.new_group``'s rule). A
+        mesh whose other extents are 1 is its own axis group (the counters
+        shared, no subgroup made)."""
+        shape = self.shape
+        if not 0 <= axis < len(shape):
+            raise ValueError(f"mesh {shape} has no axis {axis}")
+        if shape[axis] == self.size:
+            return self.with_shape((self.size,))
+        p1, p2 = shape
         sh = self._shared
-        if p2 not in sh.subgroups:
+        key = (shape, axis)
+        if key not in sh.subgroups:
             if sh.subgroup_factory is None:
                 raise RuntimeError("this communicator cannot make "
                                    "subgroups")
-            sh.subgroups[p2] = [
-                sh.subgroup_factory([c * p2 + j for j in range(p2)])
-                for c in range(p1)]
-        group = sh.subgroups[p2][self.coarse_index]
-        return Communicator(group, self.refine_index, p2,
-                            backend=self.backend, shape=(p2,),
+            lines = ([[c * p2 + j for j in range(p2)] for c in range(p1)]
+                     if axis == 1 else
+                     [[c * p2 + j for c in range(p1)] for j in range(p2)])
+            sh.subgroups[key] = [sh.subgroup_factory(ranks)
+                                 for ranks in lines]
+        if axis == 1:
+            line, index = self.coarse_index, self.refine_index
+        else:
+            line, index = self.refine_index, self.coarse_index
+        return Communicator(sh.subgroups[key][line], index, shape[axis],
+                            backend=self.backend, shape=(shape[axis],),
                             _shared=_Shared(None, sh.cancel))
+
+    def refine_group(self) -> "Communicator":
+        """The ranks of this rank's coarse row (the refine axis of a
+        ``(P1, P2)`` mesh) as a communicator of size P2: ``axis_group(1)``.
+        Every rank of the mesh must call this at the same point of the
+        program, as it may create the subgroups."""
+        if len(self.shape) != 2:
+            raise ValueError(f"refine_group needs a (P1, P2) mesh, this "
+                             f"one is {self.shape}")
+        return self.axis_group(1)
 
     def counters(self) -> dict:
         """Collectives of this group so far, each kind apart: the
         all-reduces as ``{"all_reduces", "seconds", "bytes"}`` (host
         seconds inside ``all_reduce``), the others as ``"all_gathers"``,
         ``"all_gather_seconds"``, ``"all_gather_bytes"`` and the same for
-        ``all_to_all``. Callers take the difference around the work they
-        measure."""
+        ``all_to_all`` and ``reduce_scatter``. Callers take the
+        difference around the work they measure."""
         out = {}
         for kind, key in KINDS:
             calls, seconds, nbytes = self._shared.counts[kind]

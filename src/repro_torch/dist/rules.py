@@ -9,11 +9,17 @@ maps them to mesh axes (``None`` = replicated) for a phase in {"train",
 rule (FSDP of ``embed`` over ``data`` in train), its drop of batch
 parallelism when the batch does not divide, the per-arch overrides
 (``configs.sharding_overrides``) and its drop of axes the mesh lacks.
-The mesh is ``launch.mesh.Mesh``, of one rank: ``Rules.shard`` checks
-the names against the tensor's rank and returns it (every extent is 1),
-and ``Rules.sharding`` / ``param_shardings`` give ``NamedSharding``
-objects whose ``device`` is the rank's (where
-``CheckpointManager.restore`` places a leaf).
+The mesh is ``launch.mesh.Mesh``: a ``(data, model)`` mesh of ranks,
+each holding its own rows and shards. ``Rules.shard`` checks the names
+against the tensor's rank and returns it: a rank's activation is already
+its shard, and what GSPMD's constraints would move the port moves
+explicitly, ``Rules.reduce`` summing over the mesh axes of a logical axis
+(``act_batch``: the data ranks) and ``dist.fsdp`` gathering the leaves
+sharded over ``data``. ``Rules.sharding`` / ``param_shardings`` give
+``NamedSharding`` objects: the rank's ``device`` (where
+``CheckpointManager.restore`` places a leaf), the rank's ``shard_shape``
+of a leaf and its slice (``local``), split where the extent divides the
+dimension and whole elsewhere (``Rules.shard``'s rule in the reference).
 
 **Partitioner.** The reference lays its shards on a 1-D device mesh
 with axis ``"shard"`` or a 2-D ``("coarse", "refine")`` mesh. The port
@@ -174,6 +180,15 @@ def _axis_extent(mesh, axes) -> int:
     return ext
 
 
+def _split_axes(mesh, axes) -> tuple:
+    """The mesh axes of a spec entry whose extent is above 1."""
+    if axes is None:
+        return ()
+    if isinstance(axes, str):
+        axes = (axes,)
+    return tuple(a for a in axes if mesh.shape[a] > 1)
+
+
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """A leaf's placement: the mesh and its partition spec (a tuple of
@@ -184,6 +199,40 @@ class NamedSharding:
     @property
     def device(self):
         return self.mesh.device
+
+    def split_dims(self, shape) -> list:
+        """(dim, mesh axis) of each dimension of a leaf of ``shape`` that
+        is held as one shard a rank: its spec names a mesh axis of extent
+        above 1 that divides it. A dimension the extent does not divide
+        is held whole.
+
+        Raises:
+            NotImplementedError: a dimension split over two mesh axes.
+        """
+        out = []
+        for dim, (n, axes) in enumerate(zip(shape, self.spec)):
+            split = _split_axes(self.mesh, axes)
+            if len(split) > 1:
+                raise NotImplementedError(
+                    f"dim {dim} split over {split}: one mesh axis a "
+                    f"dimension (ROADMAP.md queue 1 item 4.10)")
+            if split and n % self.mesh.shape[split[0]] == 0:
+                out.append((dim, split[0]))
+        return out
+
+    def shard_shape(self, shape) -> tuple:
+        """The shape of a rank's shard of a leaf of ``shape``."""
+        shape = list(shape)
+        for dim, axis in self.split_dims(shape):
+            shape[dim] //= self.mesh.shape[axis]
+        return tuple(shape)
+
+    def local(self, x):
+        """This rank's shard of the whole leaf ``x`` (a view)."""
+        for dim, axis in self.split_dims(x.shape):
+            part = x.shape[dim] // self.mesh.shape[axis]
+            x = x.narrow(dim, self.mesh.coordinate(axis) * part, part)
+        return x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,10 +258,34 @@ class Rules:
 
     def shard(self, x, *logical):
         """``x`` under the resolved sharding: the names must match
-        ``x.ndim``; on one rank that is ``x`` itself."""
+        ``x.ndim``. A rank holds its own shard of every activation, so
+        that is ``x`` itself."""
         assert len(logical) == x.ndim, (
             f"{len(logical)} logical names for rank-{x.ndim} tensor")
         return x
+
+    def extent(self, logical: str) -> int:
+        """The number of ranks the logical axis is split over."""
+        return _axis_extent(self.mesh, self.table.get(logical))
+
+    def comm(self, logical: str):
+        """The communicator over the mesh axes of ``logical`` (None when
+        they have one rank between them)."""
+        split = _split_axes(self.mesh, self.table.get(logical))
+        if not split:
+            return None
+        if len(split) == 1:
+            return self.mesh.axis_comm(split[0])
+        return self.mesh.comm
+
+    def reduce(self, x, logical: str, op: str = "sum"):
+        """``x`` reduced over the mesh axes of the logical axis
+        ``logical``: the sum GSPMD inserts where a value computed from a
+        rank's shard of that axis is used whole (``act_batch``: the data
+        ranks' loads, losses and gradients). ``x`` itself when every one
+        of those extents is 1."""
+        comm = self.comm(logical)
+        return x if comm is None else comm.all_reduce(x, op)
 
 
 def resolve_rules(mesh, cfg, phase: str, batch_size: int | None = None,

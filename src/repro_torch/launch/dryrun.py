@@ -25,8 +25,9 @@ A cell is a ``launch/shapes.py`` name or a ``ShapeCell`` (the card's own
 cells: ``chip_smoke.py`` dry-runs the cells whose peaks it measures).
 ``--mesh single`` is one rank on one card, a deliberate departure from the
 reference, whose single mesh is a 256-chip pod (ROADMAP.md queue 3).
-``--mesh multi`` raises: the production mesh over ranks is ROADMAP.md
-queue 1 item 4.9.
+``--mesh multi`` raises: the production mesh over ranks, the pod's
+``(data, model)`` = 16 x 16, needs tensor parallelism over the model axis
+(ROADMAP.md queue 1 item 4.10).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch starcoder2-7b \
@@ -64,8 +65,9 @@ from repro_torch.train.step import (TrainHParams, abstract_train_state,
 HBM_PER_CARD = 80 * 10 ** 9
 
 MULTI_POD = ("--mesh multi needs the production mesh over ranks, "
-             "launch/mesh.py::make_production_mesh, which the port does not "
-             "have yet (ROADMAP.md queue 1 item 4.9); use --mesh single")
+             "launch/mesh.py::make_production_mesh, whose model axis the "
+             "port does not have yet (ROADMAP.md queue 1 item 4.10); use "
+             "--mesh single")
 
 # the reference's decode step takes its position as an int32 scalar
 # argument; the port's takes a Python int
@@ -155,7 +157,7 @@ def build_cell(arch: str, shape, multi_pod: bool = False,
 
     Raises:
         ValueError: ``multi_pod`` (the production mesh over ranks is
-            ROADMAP.md queue 1 item 4.9).
+            ROADMAP.md queue 1 item 4.10).
     """
     if multi_pod:
         raise ValueError(MULTI_POD)

@@ -6,16 +6,29 @@ Trains the smoke config of ``--arch`` by default (``--full``: its
 ``CONFIG``) on ``SyntheticLM`` batches through ``Trainer.fit``, on the
 card unless ``--device cpu``, with checkpoints and resume under
 ``--ckpt-dir``. As in the reference, a resumed run replays the data
-stream from batch 0 (ROADMAP.md queue 3 item 21). ``--data-parallel`` or
-``--model-parallel`` above 1 raise (ROADMAP.md queue 1 item 4.9).
+stream from batch 0 (ROADMAP.md queue 3 item 21).
+
+``--data-parallel D`` trains over D data ranks (``launch.mesh.
+make_host_mesh(D)``): called inside a rank of D (``torchrun
+--nproc-per-node D -m repro_torch.launch.train ...``, or a
+``dist.launch`` rank), it trains on that rank; called outside one, it
+launches D ranks on ``--device`` (``dist.launch``: processes; ranks
+sharing one card reduce over gloo, ranks with a card each over NCCL) and
+each runs the same command. Rank 0 prints what a one-rank run
+prints. ``--model-parallel`` above 1 raises (ROADMAP.md queue 1 item
+4.10).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import sys
+
+import torch
 
 from repro_torch import configs
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.dist import current, launch
 from repro_torch.dist.rules import resolve_rules
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.train import Trainer, TrainerConfig, TrainHParams
@@ -23,7 +36,9 @@ from repro_torch.train import Trainer, TrainerConfig, TrainHParams
 
 def main(argv=None):
     """Parse ``argv`` (default: the command line), train, print the last
-    metrics; returns (trainer, history)."""
+    metrics; returns (trainer, history). With ``--data-parallel`` above 1
+    called outside a rank, the ranks' trainers stay in their processes:
+    returns (None, rank 0's history)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--full", action="store_true",
@@ -43,9 +58,19 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    cfg = configs.get_config(args.arch, smoke=not args.full)
     mesh = make_host_mesh(args.data_parallel, args.model_parallel,
                           device=args.device)
+    if mesh.size > 1 and current() is None:
+        history = launch.launch(_rank_main, mesh.size, args=(list(
+            argv if argv is not None else sys.argv[1:]),),
+            device=args.device)
+        return None, history
+    if mesh.size > 1:           # a rank (torchrun's too) on its own card
+        dev = launch.rank_device(mesh.device, mesh.comm.rank)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        mesh = make_host_mesh(args.data_parallel, device=dev)
+    cfg = configs.get_config(args.arch, smoke=not args.full)
     rules = resolve_rules(mesh, cfg, "train", batch_size=args.batch,
                           overrides=configs.sharding_overrides(
                               args.arch, "train"))
@@ -58,9 +83,20 @@ def main(argv=None):
     trainer = Trainer(cfg, rules, hp, tc)
     data = SyntheticLM(cfg, args.batch, args.seq)
     _, history = trainer.fit(iter(data))
-    print(json.dumps(history[-3:], indent=1))
-    print(f"final loss: {history[-1]['loss']:.4f} on {trainer.device}")
+    comm = mesh.comm
+    if comm is None or comm.rank == 0:
+        print(json.dumps(history[-3:], indent=1))
+        where = trainer.device if comm is None else \
+            f"{comm.size} data ranks on {trainer.device}"
+        print(f"final loss: {history[-1]['loss']:.4f} on {where}",
+              flush=True)
     return trainer, history
+
+
+def _rank_main(argv):
+    """Body of a rank that ``main`` launched: the same command on the
+    rank; its history."""
+    return main(argv)[1]
 
 
 if __name__ == "__main__":

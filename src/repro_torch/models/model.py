@@ -11,9 +11,14 @@ over). Layer stacks keep the leading ``repeat`` dim; the reference's
 weights here, each leaf unbound once a forward (one stack in the
 backward, where a select per layer would allocate a zero tensor of the
 whole leaf for each layer's gradient). ``unroll`` only shapes the
-reference's compiled program and is accepted and ignored; so is
-``rules`` (``dist.rules.Rules`` on a one-rank mesh, where every sharding
-constraint is the identity). ``abstract_params`` gives the tree as
+reference's compiled program and is accepted and ignored. ``rules``
+(``dist.rules.Rules``) matters on a mesh of several data ranks in
+train: a rank then holds each leaf that the rules split over ``data``
+(every ``embed`` leaf) as its shard, and the forward makes it whole
+where it is used (``dist.fsdp.gather``): the embedding table and the
+head at their use, a layer's leaves inside the layer, so that remat's
+recompute gathers them again. Every other sharding constraint is the
+identity on a rank's own rows. ``abstract_params`` gives the tree as
 ``meta`` tensors, and ``param_logical_specs`` and ``cache_logical_specs``
 its logical axis names, as the reference's do. ``remat`` with
 gradients on wraps each layer in ``torch.utils.checkpoint`` (the
@@ -22,12 +27,15 @@ the layer's forward, kernels included, from its input.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import fsdp
+from repro_torch.dist.rules import param_shardings
 
 from . import layers as L
 from . import moe as MOE
@@ -166,21 +174,47 @@ def param_count(params) -> int:
 # forward
 # ---------------------------------------------------------------------------
 
-def _embed_input(params, batch, cfg, rules=None):
+def fsdp_plan(cfg, rules):
+    """Where the parameters of ``cfg`` are held as shards under
+    ``rules`` (``dist.fsdp.plan``): {"top": the splits of ``embed`` and
+    ``lm_head``, "layers": each pattern position's splits of one repeat's
+    leaves}, or None when no leaf is split (one data rank, or a phase
+    that does not shard ``embed``)."""
+    if rules is None or rules.mesh.size == 1:
+        return None
+    shapes = abstract_params(cfg)
+    sh = param_shardings(rules, param_logical_specs(cfg))
+    top = fsdp.plan({k: sh[k] for k in ("embed", "lm_head") if k in sh},
+                    {k: shapes[k] for k in ("embed", "lm_head")
+                     if k in shapes})
+    layers = fsdp.plan(sh["layers"], shapes["layers"], drop_leading=True)
+    if top is None and layers is None:
+        return None
+    return {"top": top or {}, "layers": layers or {}}
+
+
+def _top_leaf(params, key, plan):
+    """``params[key]`` whole (gathered where ``plan`` splits it)."""
+    split = None if plan is None else plan["top"].get(key)
+    return fsdp.gather(params[key], split)
+
+
+def _embed_input(params, batch, cfg, rules=None, plan=None):
     """tokens: the table's rows times sqrt(d); codebooks ([B, S, n] ids):
     the sum of each codebook's rows, codebook 0 first, in the activation
     dtype and unscaled; embeddings: ``batch["embeddings"]`` [B, S, D] cast
-    to the activation dtype."""
+    to the activation dtype. ``plan``: ``fsdp_plan``'s, the table
+    gathered first."""
     dt = cfg.act_dtype
     if cfg.input_mode == "embeddings":
         return batch["embeddings"].to(dt)
     tok = batch["tokens"].long()
     # gather, then cast: the same bits as the reference's cast-then-gather
     if cfg.input_mode == "codebooks":
-        emb = params["embed"]
+        emb = _top_leaf(params, "embed", plan)
         return sum(emb[i][tok[..., i]].to(dt)
                    for i in range(cfg.n_codebooks))
-    x = params["embed"][tok].to(dt)
+    x = _top_leaf(params, "embed", plan)[tok].to(dt)
     # sqrt(d) rounded to the activation dtype first, as the reference
     # does; the product of two such values is exact before its rounding
     scale = float(torch.tensor(cfg.d_model ** 0.5).to(dt))
@@ -236,12 +270,14 @@ def _layer_apply(p, spec: LayerSpec, x, cfg, rules=None, positions=None,
     return x + out2, new_cache, new_infl, stats
 
 
-def _remat_layer(p, spec, x, cfg, positions, influence):
+def _remat_layer(p, spec, x, cfg, positions, influence, gather):
     """The layer ``torch.utils.checkpoint`` recomputes in the backward:
+    its leaves made whole by ``gather`` (``dist.fsdp.gather_tree`` of the
+    layer's splits: the recompute gathers them again) and
     ``_layer_apply`` at training (no cache). Its recompute routes as the
-    first pass did (the router kernel is deterministic); the influence it
-    recomputes is dropped, the first pass's is kept."""
-    return _layer_apply(p, spec, x, cfg, None, positions,
+    first pass did (the router kernel is deterministic); the influence
+    and loads it recomputes are dropped, the first pass's are kept."""
+    return _layer_apply(gather(p), spec, x, cfg, None, positions,
                         influence=influence)
 
 
@@ -262,12 +298,16 @@ def forward(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False,
     """Training/prefill forward. Returns (logits, new_influence, moe_stats)
     or, with ``want_cache``, (logits, new_influence, moe_stats, cache).
 
-    ``influence``: [n_repeats, n_moe, E] balanced-k-means router state.
+    ``influence``: [n_repeats, n_moe, E] balanced-k-means router state;
+    with it, ``moe_stats["moe_load"]`` holds each MoE layer's realized
+    expert loads on this rank's rows, [n_repeats, n_moe, E] (what the
+    train step sums over the data ranks).
     ``want_cache``: emit the populated decode cache (prefill).
     ``last_only``: unembed only the final position."""
     del unroll
     remat = remat and torch.is_grad_enabled() and not want_cache
-    x = _embed_input(params, batch, cfg, rules)
+    plan = fsdp_plan(cfg, rules)
+    x = _embed_input(params, batch, cfg, rules, plan)
     S = x.shape[1]
     dev = x.device
     positions = torch.arange(S, device=dev)
@@ -275,9 +315,13 @@ def forward(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False,
                      and s.attn != "rwkv"]
     use_infl = influence is not None
     E = cfg.moe.n_experts if cfg.moe else 1
-    ninfs, drops, caches = [], [], []
+    layer_plans = {} if plan is None else plan["layers"]
+    gathers = [functools.partial(fsdp.gather_tree,
+                                 plan=layer_plans.get(f"pos{i}"))
+               for i in range(len(cfg.pattern))]
+    ninfs, loads, drops, caches = [], [], [], []
     for r, p_r in enumerate(_unbind(params["layers"], cfg.n_repeats)):
-        new_infls = []
+        new_infls, loads_r = [], []
         drop = torch.zeros((), dtype=torch.float32, device=dev)
         cache_r = {}
         for i, spec in enumerate(cfg.pattern):
@@ -287,10 +331,10 @@ def forward(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False,
             if remat:
                 x, nc, ni, st = checkpoint(
                     _remat_layer, p_r[f"pos{i}"], spec, x, cfg, positions,
-                    inf_i, use_reentrant=False)
+                    inf_i, gathers[i], use_reentrant=False)
             else:
-                x, nc, ni, st = _layer_apply(p_r[f"pos{i}"], spec, x, cfg,
-                                             rules, positions,
+                x, nc, ni, st = _layer_apply(gathers[i](p_r[f"pos{i}"]),
+                                             spec, x, cfg, rules, positions,
                                              influence=inf_i,
                                              want_cache=want_cache)
             if want_cache:
@@ -299,9 +343,13 @@ def forward(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False,
                 new_infls.append(ni if ni is not None else
                                  torch.ones(E, dtype=torch.float32,
                                             device=dev))
+                if "load" in st:
+                    loads_r.append(st["load"])
                 drop = drop + st.get("dropped_frac", 0.0)
         ninfs.append(torch.stack(new_infls) if new_infls else
                      torch.zeros((0, 1), dtype=torch.float32, device=dev))
+        if loads_r:
+            loads.append(torch.stack(loads_r))
         drops.append(drop)
         caches.append(cache_r)
     new_influence = torch.stack(ninfs) if use_infl else None
@@ -310,8 +358,10 @@ def forward(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False,
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
-    logits = _unembed(params, x, cfg, rules)
+    logits = _unembed(params, x, cfg, rules, plan)
     stats = {"moe_dropped_frac": drop_frac}
+    if use_infl and loads:
+        stats["moe_load"] = torch.stack(loads)
     if want_cache:
         return logits, new_influence, stats, _stack(caches)
     return logits, new_influence, stats
@@ -327,14 +377,14 @@ def prefill(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False):
     return logits, cache
 
 
-def _unembed(params, x, cfg, rules=None):
+def _unembed(params, x, cfg, rules=None, plan=None):
     """Logits [B, S, V], or [B, S, n_codebooks, V] with one head a
-    codebook."""
+    codebook. ``plan``: ``fsdp_plan``'s, the head gathered first."""
     dt = x.dtype
     if cfg.tie_embeddings:
-        w = params["embed"].to(dt).T
+        w = _top_leaf(params, "embed", plan).to(dt).T
     else:
-        w = params["lm_head"].to(dt)
+        w = _top_leaf(params, "lm_head", plan).to(dt)
     if cfg.input_mode == "codebooks":
         return torch.einsum("bsd,ndv->bsnv", x, w)
     return x @ w

@@ -96,7 +96,9 @@ def _gather_rows(src, idx):
 
 
 def moe_apply(params, x, cfg, rules=None, influence=None):
-    """x: [B, S, D]. Returns (out, new_influence, load_stats).
+    """x: [B, S, D]. Returns (out, new_influence, load_stats), the stats
+    holding ``dropped_frac``, ``load_imbalance`` and ``load`` [E] (the
+    realized tokens an expert) of these rows.
 
     Dispatch groups are per batch row: capacity is ``top_k * S / E * cf``
     per group."""
@@ -170,16 +172,25 @@ def moe_apply(params, x, cfg, rules=None, influence=None):
     # --- paper Eq. (1): influence update from realized loads -------------
     load = torch.sum(onehot.float(), dim=(0, 1))                 # [E]
     stats = {"dropped_frac": 1.0 - torch.mean(ok.float()),
-             "load_imbalance": torch.max(load) / (K * B * S / E) - 1.0}
+             "load_imbalance": torch.max(load) / (K * B * S / E) - 1.0,
+             "load": load}
     new_infl = None
     if m.router == "balanced_kmeans":
-        target = K * B * S / E
-        # no influence: the reference's ones, as the scalar 1.0 (the same
-        # bits, one launch fewer)
-        new_infl, _ = adapt_influence(
-            1.0 if influence is None else influence, load, target,
-            m.router_d_eff, m.router_influence_clip)
-        # only influence ratios matter; renormalize to geometric mean 1
-        new_infl = new_infl * torch.exp(-torch.mean(torch.log(
-            torch.clamp_min(new_infl, 1e-12))))
+        new_infl = update_influence(influence, load, K * B * S / E, m)
     return out, new_infl, stats
+
+
+def update_influence(influence, load, target, m):
+    """Paper Eq. (1) for one MoE layer: the influence [E] (None: the
+    reference's ones) moved by the realized ``load`` [E] against
+    ``target`` tokens an expert, then renormalized to geometric mean 1
+    (only influence ratios matter). ``moe_apply`` calls it on its rows'
+    loads; the data-parallel train step on the loads summed over the
+    data ranks, with the global batch's target."""
+    # no influence: the reference's ones, as the scalar 1.0 (the same
+    # bits, one launch fewer)
+    new_infl, _ = adapt_influence(
+        1.0 if influence is None else influence, load, target,
+        m.router_d_eff, m.router_influence_clip)
+    return new_infl * torch.exp(-torch.mean(torch.log(
+        torch.clamp_min(new_infl, 1e-12))))

@@ -76,13 +76,28 @@ def _slices(*ts):
         yield tuple(x[i:i + rows] for x in ts)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, split=None, comm=None) -> torch.Tensor:
     """sqrt of the sum over leaves of ``sum(x^2)`` in float32 (each leaf
-    summed slice by slice)."""
-    total = 0
-    for x in tree_leaves(tree):
+    summed slice by slice).
+
+    On data-parallel ranks (``comm``), the leaves flagged in ``split``
+    (``tree_leaves`` order) are this rank's shards: their partial sum is
+    summed over the ranks, and the leaves held whole are counted once.
+    Every rank gets the same bits (the all-reduce's result is every
+    rank's), so the clip scale is the same on every rank."""
+    leaves = tree_leaves(tree)
+    if comm is None or split is None:
+        split = [False] * len(leaves)
+    total, shards = 0, 0
+    for x, sharded in zip(leaves, split):
         for (s,) in _slices(x):
-            total = total + torch.sum(torch.square(s.to(torch.float32)))
+            part = torch.sum(torch.square(s.to(torch.float32)))
+            if sharded:
+                shards = shards + part
+            else:
+                total = total + part
+    if any(split):
+        total = comm.all_reduce(shards) + total
     return torch.sqrt(total)
 
 
@@ -97,13 +112,17 @@ def adamw_init(params, cfg: AdamWConfig):
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def adamw_update(params, grads, opt_state, cfg: AdamWConfig, lr):
+def adamw_update(params, grads, opt_state, cfg: AdamWConfig, lr, *,
+                 split=None, comm=None):
     """One AdamW step. Returns (params, opt_state, stats): ``params`` and
     the moments updated in place (the trees given, returned), a new step
     tensor, ``stats`` {"grad_norm" (pre-clip), "lr"}. ``lr`` is a float
-    or a float32 scalar tensor."""
+    or a float32 scalar tensor. On data-parallel ranks the trees hold the
+    rank's shards of the leaves flagged in ``split``, and ``comm`` sums
+    their squares for the norm (``global_norm``); the update itself is
+    elementwise on each rank's shards."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, split, comm)
     if cfg.grad_clip:
         scale = torch.minimum(torch.ones_like(gnorm),
                               cfg.grad_clip / torch.clamp_min(gnorm, 1e-12))

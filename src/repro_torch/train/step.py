@@ -31,6 +31,38 @@ Where the reference differs in how, not what:
 tensors (no storage: what ``CheckpointManager.restore`` fills on a
 resume), and ``train_state_logical_specs`` gives each leaf's logical
 axis names, as the reference's do.
+
+**Data-parallel ranks.** With ``rules`` over a mesh of D data ranks
+(``launch.mesh.make_host_mesh(D)``, the step called on every rank), the
+step computes the one-rank step's result on the same global batch, up to
+the order of float sums, as GSPMD does over the reference's table:
+
+* the deal: every rank is handed the global batch; the step splits it
+  into microbatches first and then takes rank d's rows of each,
+  ``[i*B/m + d*B/(m*D), i*B/m + (d+1)*B/(m*D))`` of microbatch i (the
+  reference shards each microbatch's rows over ``data``). When D does not
+  divide a microbatch (``resolve_rules`` drops ``act_batch`` when it does
+  not divide B), every rank computes every row;
+* the router (paper Eq. 1): the forward returns each MoE layer's loads on
+  the rank's rows (``moe_stats["moe_load"]``, [R, n_moe, E]); the step
+  sums them over the data ranks in one all-reduce a microbatch and
+  updates each layer's influence from the global loads against the
+  global target (``moe.update_influence``, the function ``moe_apply``
+  uses: one rank's step gives the forward's influence bit for bit, and
+  every rank the same bits);
+* FSDP: a rank holds every leaf the train rules split over ``data`` (the
+  ``embed`` leaves) as its shard (``shard_state``); the forward gathers
+  it where it is used and its backward sums the gradient over the ranks
+  into the shard (``dist.fsdp``). Leaves held whole (expert weights,
+  norms) get one all-reduce sum of their gradients after the last
+  microbatch. Every gradient is divided once, by ``D * microbatches``;
+* the optimizer runs on the rank's shards; ``global_norm`` sums the
+  squares of the shards over the ranks; ``int8`` compression takes the
+  whole leaf's ``max|x|`` (an all-reduce max) and slices the shard's
+  noise out of the whole leaf's (17, step, leaf) stream, so D ranks
+  give one rank's bits;
+* the loss and ``moe_dropped_frac`` are the global means, the same on
+  every rank.
 """
 from __future__ import annotations
 
@@ -39,6 +71,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.dist import fsdp
+from repro_torch.dist.rules import param_shardings
 from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
@@ -139,9 +173,12 @@ def _noise(shape, step: int, leaf: int, device) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=device)
 
 
-def _compress(g, ef, kind: str, step: int):
+def _compress(g, ef, kind: str, step: int, layout=None):
     """Error-feedback compression of the gradient tree ``g`` with the
-    float32 residual tree ``ef``. Returns (g_compressed_f32, new_ef)."""
+    float32 residual tree ``ef``. Returns (g_compressed_f32, new_ef).
+    ``layout`` (data-parallel ranks: a ``_Layout``): the trees hold the
+    rank's shards of its split leaves, whose int8 scale is the whole
+    leaf's and whose noise is the shard's part of the whole leaf's."""
     if kind == "none":
         return g, ef
     gl, el = tree_leaves(g), tree_leaves(ef)
@@ -151,8 +188,15 @@ def _compress(g, ef, kind: str, step: int):
         if kind == "bf16":
             q = gf.to(torch.bfloat16)
         else:  # int8, stochastic rounding, per-tensor scale
-            scale = torch.clamp_min(torch.max(torch.abs(gf)), 1e-12) / 127.0
-            noise = _noise(gf.shape, step, i, gf.device) - 0.5
+            top = torch.max(torch.abs(gf))
+            if layout is not None and layout.split[i]:   # the whole leaf's
+                top = layout.comm.all_reduce(top, "max")
+                noise = layout.shardings[i].local(_noise(
+                    layout.shapes[i], step, i, gf.device))
+            else:
+                noise = _noise(gf.shape, step, i, gf.device)
+            scale = torch.clamp_min(top, 1e-12) / 127.0
+            noise = noise - 0.5
             qi = torch.clamp(torch.round(gf / scale + noise), -127, 127)
             q = qi.to(torch.int8).to(torch.float32) * scale
         d = q.to(torch.float32)
@@ -161,15 +205,74 @@ def _compress(g, ef, kind: str, step: int):
     return tree_unflatten(g, deq), tree_unflatten(ef, new_ef)
 
 
+class _Layout:
+    """Where a data rank's state is split, leaf by leaf in
+    ``tree_leaves`` order of the parameters: ``split`` flags, the
+    ``NamedSharding`` and whole shape of each leaf, and the data axis's
+    communicator."""
+
+    def __init__(self, cfg, rules, comm):
+        shapes = tree_leaves(M.abstract_params(cfg))
+        self.shardings = tree_leaves(param_shardings(
+            rules, M.param_logical_specs(cfg)))
+        self.shapes = [tuple(x.shape) for x in shapes]
+        self.split = [bool(sh.split_dims(shape)) for sh, shape in
+                      zip(self.shardings, self.shapes)]
+        self.comm = comm
+
+
+def state_shardings(cfg, rules, hp: TrainHParams):
+    """Each train-state leaf's ``NamedSharding`` under ``rules`` (the
+    reference's ``param_shardings`` of ``train_state_logical_specs``)."""
+    return param_shardings(rules, train_state_logical_specs(cfg, hp))
+
+
+def shard_state(state, cfg, rules, hp: TrainHParams):
+    """A whole train state cut to this rank's shards (each split leaf a
+    copy of its part; leaves held whole kept as they are): what a data
+    rank holds. The identity on one rank."""
+    if rules is None or rules.mesh.size == 1:
+        return state
+    return fsdp.local(state, state_shardings(cfg, rules, hp))
+
+
+def _data_comm(rules):
+    """The data axis's communicator of ``rules``' mesh, None on one data
+    rank.
+
+    Raises:
+        ValueError: the mesh splits the model axis (ROADMAP.md queue 1
+            item 4.10).
+    """
+    if rules is None or rules.mesh.size == 1:
+        return None
+    if rules.mesh.shape.get("model", 1) != 1:
+        raise ValueError(
+            f"training on a {rules.mesh.shape} mesh needs tensor "
+            f"parallelism over the model axis, which the port does not "
+            f"have yet (ROADMAP.md queue 1 item 4.10)")
+    return rules.mesh.axis_comm("data")
+
+
+def _influence_from_loads(infl, loads, target, m):
+    """Each MoE layer's ``moe.update_influence`` from its row of
+    ``loads`` [R, n_moe, E]: the per-layer form, layer by layer."""
+    return torch.stack([torch.stack([
+        MOE.update_influence(infl[r][j], loads[r][j], target, m)
+        for j in range(loads.shape[1])]) for r in range(loads.shape[0])])
+
+
 def make_train_step(cfg, rules=None, hp: TrainHParams = TrainHParams()):
     """Returns train_step(state, batch) -> (state, metrics).
 
-    ``batch``: {"tokens": [B, S] (or [B, S, n] codebooks, or
-    "embeddings" [B, S, D]), "labels": [B, S] (or [B, S, n])} on the
-    state's device, with B divisible by ``hp.microbatches``. ``metrics``
-    holds float32 scalar tensors: loss, moe_dropped_frac, grad_norm (pre
-    clip), lr, and the new step (int32). ``rules`` is accepted for the
-    reference's signature and ignored."""
+    ``batch``: the global batch, {"tokens": [B, S] (or [B, S, n]
+    codebooks, or "embeddings" [B, S, D]), "labels": [B, S] (or [B, S,
+    n])}, with B divisible by ``hp.microbatches``; each microbatch goes to
+    the state's device as it is used. ``metrics`` holds float32 scalar
+    tensors: loss, moe_dropped_frac, grad_norm (pre clip), lr, and the new
+    step (int32). ``rules``: None or rules over one rank (the one-rank
+    step), or train rules over a mesh of data ranks, the state then the
+    rank's shards (``shard_state``; the module docstring)."""
     schedule = make_schedule(hp.lr_kind, hp.lr_peak, hp.warmup_steps,
                              hp.total_steps)
     acfg = _adamw_cfg(cfg, hp)
@@ -178,6 +281,9 @@ def make_train_step(cfg, rules=None, hp: TrainHParams = TrainHParams()):
     acc_dt = getattr(torch, hp.grad_acc_dtype)
 
     def train_step(state, batch):
+        comm = _data_comm(rules)
+        D = 1 if comm is None else comm.size
+        layout = None if comm is None else _Layout(cfg, rules, comm)
         params = state["params"]
         leaves = tree_leaves(params)
         for p in leaves:
@@ -186,13 +292,21 @@ def make_train_step(cfg, rules=None, hp: TrainHParams = TrainHParams()):
         infl = state.get("influence")
         mbs = hp.microbatches
         dev = leaves[0].device
+        B = next(iter(batch.values())).shape[0]
+        # the rows of each microbatch are dealt over the data ranks where
+        # the rules split act_batch and D divides a microbatch
+        deal = comm is not None and rules.extent("act_batch") > 1 \
+            and (B // mbs) % D == 0
+        rows = B // mbs // D if deal else B // mbs
+        d = rules.mesh.coordinate("data") if deal else 0
         acc = [None] * len(leaves)      # leaves whose dtype is not acc_dt
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         drop_sum = torch.zeros((), dtype=torch.float32, device=dev)
         with torch.enable_grad():
             for i in range(mbs):
-                mb = {k: v.reshape(mbs, v.shape[0] // mbs, *v.shape[1:])[i]
-                      for k, v in batch.items()}
+                mb = {k: v.reshape(mbs, B // mbs, *v.shape[1:])[i][
+                    d * rows:(d + 1) * rows].to(dev)
+                    for k, v in batch.items()}
                 logits, ninf, st = M.forward(params, mb, cfg, rules,
                                              remat=hp.remat, influence=infl)
                 loss = M.loss_fn(logits, mb["labels"], cfg, z_loss=hp.z_loss)
@@ -203,17 +317,31 @@ def make_train_step(cfg, rules=None, hp: TrainHParams = TrainHParams()):
                         g = p.grad.to(acc_dt)
                         p.grad = None
                         acc[j] = g if acc[j] is None else acc[j].add_(g)
-                if use_infl:
+                if use_infl and comm is None:
                     infl = ninf.detach()
+                elif use_infl:
+                    load = st["moe_load"]
+                    if deal:
+                        load = rules.reduce(load, "act_batch")
+                    m = cfg.moe
+                    S = mb["labels"].shape[1]
+                    infl = _influence_from_loads(
+                        infl, load, m.top_k * (B // mbs) * S / m.n_experts,
+                        m).detach()
                 loss_sum = loss_sum + loss.detach()
                 drop_sum = drop_sum + st["moe_dropped_frac"].detach()
+        if comm is not None:
+            sums = comm.all_reduce(torch.stack([loss_sum, drop_sum])) / D
+            loss_sum, drop_sum = sums[0], sums[1]
         grads = []
-        for p, a in zip(leaves, acc):
+        for j, (p, a) in enumerate(zip(leaves, acc)):
             g = p.grad if a is None else a
             if g is None:       # not reached by the loss: jax.grad's zeros
                 g = torch.zeros(p.shape, dtype=acc_dt, device=p.device)
-            elif mbs > 1:
-                g.div_(mbs)
+            elif comm is not None and not layout.split[j]:
+                g = comm.all_reduce(g)      # a shard's sum came backward
+            if mbs * D > 1:
+                g.div_(mbs * D)
             grads.append(g)
         grads = tree_unflatten(params, grads)
 
@@ -221,10 +349,11 @@ def make_train_step(cfg, rules=None, hp: TrainHParams = TrainHParams()):
         # the noise's seed; a meta state (the dry run) has no step value
         step0 = int(state["opt"]["step"]) if hp.grad_compress == "int8" \
             and dev.type != "meta" else 0
-        grads, new_ef = _compress(grads, ef, hp.grad_compress, step0)
+        grads, new_ef = _compress(grads, ef, hp.grad_compress, step0, layout)
         lr = schedule(state["opt"]["step"])
+        kw = {} if comm is None else {"split": layout.split, "comm": comm}
         _, new_opt, ostats = adamw_update(params, grads, state["opt"], acfg,
-                                          lr)
+                                          lr, **kw)
         for p in leaves:
             p.grad = None
         new_state = dict(state, params=params, opt=new_opt)

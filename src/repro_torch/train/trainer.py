@@ -24,6 +24,17 @@ As in the reference, a resumed run is fed whatever ``data_iter`` the
 caller gives: the checkpoint holds no data position, and
 ``launch/train.py`` replays its stream from batch 0 (ROADMAP.md queue 3
 item 21).
+
+**Data-parallel ranks.** With ``rules`` over a mesh of D data ranks, a
+``Trainer`` runs on each rank (``dist.launch`` or ``torchrun``): it holds
+the rank's shards of the state (a new state is made whole from the seed
+on every rank and cut, ``train.step.shard_state``; a resume reads each
+rank's slices), every rank draws the same batches and the step takes the
+rank's rows of each. Saves are collective: every rank gathers, rank 0
+writes the whole state. Preemption over ranks is not handled: a SIGINT
+seen by one rank saves on that rank alone and leaves the others in a
+collective, until the launcher's stop or timeout ends them (ROADMAP.md
+queue 3 item 24).
 """
 from __future__ import annotations
 
@@ -38,9 +49,10 @@ import torch
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.data.pipeline import Prefetcher
 from repro_torch.device import resolve_device
+from repro_torch.dist import fsdp
 
 from .step import (TrainHParams, abstract_train_state, init_train_state,
-                   make_train_step)
+                   make_train_step, shard_state, state_shardings)
 
 
 @dataclass
@@ -105,7 +117,8 @@ class _SigintDeferral:
 class Trainer:
     """The training loop of ``cfg`` under ``hp`` and ``tc``. The state
     lives on ``rules.mesh.device`` (``dist.rules.resolve_rules`` of a
-    ``launch.mesh.make_host_mesh``), or on the card without rules."""
+    ``launch.mesh.make_host_mesh``), or on the card without rules; over
+    data ranks, as this rank's shards."""
 
     def __init__(self, cfg, rules, hp: TrainHParams, tc: TrainerConfig):
         self.cfg = cfg
@@ -123,12 +136,30 @@ class Trainer:
         """(state, first step): the latest checkpoint restored into the
         abstract state on the device, or a new state from a generator
         seeded with ``tc.seed``."""
+        sharded = self.rules is not None and self.rules.mesh.size > 1
         if self.ckpt and self.tc.resume and self.ckpt.latest_step() is not None:
-            return self.ckpt.restore(abstract_train_state(self.cfg, self.hp),
-                                     device=self.device)
+            return self.ckpt.restore(
+                abstract_train_state(self.cfg, self.hp), device=self.device,
+                shardings=state_shardings(self.cfg, self.rules, self.hp)
+                if sharded else None)
         gen = torch.Generator(device=self.device).manual_seed(self.tc.seed)
-        return init_train_state(self.cfg, gen, self.hp,
-                                device=self.device), 0
+        state = init_train_state(self.cfg, gen, self.hp, device=self.device)
+        return shard_state(state, self.cfg, self.rules, self.hp), 0
+
+    def _save(self, step, state, splits):
+        if splits is None:
+            self.ckpt.save(step, state)
+        else:
+            self.ckpt.save(step, state, splits)
+
+    def _splits(self):
+        """The state's splits over the data ranks (``CheckpointManager.
+        save``'s ``splits``: ``{}`` when no leaf is split, so that rank 0
+        alone writes), None on one rank."""
+        if self.rules is None or self.rules.mesh.size == 1:
+            return None
+        return fsdp.plan(state_shardings(self.cfg, self.rules, self.hp),
+                         abstract_train_state(self.cfg, self.hp)) or {}
 
     def fit(self, data_iter, state=None, start_step: int | None = None):
         """Train until ``tc.steps``; returns (state, history)."""
@@ -137,6 +168,7 @@ class Trainer:
         elif start_step is None:
             start_step = int(state["opt"]["step"])
         data = iter(Prefetcher(data_iter))
+        splits = self._splits()
         step = start_step
         t0 = time.perf_counter()
         with _SigintDeferral() as sigint:
@@ -153,13 +185,13 @@ class Trainer:
                         self.history.append(m)
                     if (self.ckpt and self.tc.ckpt_every
                             and step % self.tc.ckpt_every == 0):
-                        self.ckpt.save(step, state)
+                        self._save(step, state, splits)
             except (KeyboardInterrupt, SystemExit):
                 if self.ckpt:                   # preemption: save, re-raise
-                    self.ckpt.save(step, state)
+                    self._save(step, state, splits)
                     self.ckpt.wait()
                 raise
         if self.ckpt:
-            self.ckpt.save(step, state)
+            self._save(step, state, splits)
             self.ckpt.wait()
         return state, self.history

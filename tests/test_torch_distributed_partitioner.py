@@ -33,7 +33,12 @@ or ``jax.vmap`` with an axis name. Contracts:
   own contract between ``devices=1`` and ``devices=P``: from there on the
   warm-up's clustered per-rank prefix samples let the trajectories drift
   apart (0.985 read on this instance), as the sharded tests of
-  ``test_torch_sharded.py`` allow for.
+  ``test_torch_sharded.py`` allow for;
+- over a (2, 2) ``("data", "model")`` mesh sharded over ``data``: every
+  replica bit-equal to ``devices=2``, and against the reference's
+  partitioner on ``make_compat_mesh((2, 2), ("data", "model"))`` the
+  redistribution bit-equal and the labels agreeing on at least ``AGREE``
+  (``warmup=False``, as above).
 
 The reference's sharded calls run with its ``DeprecationWarning`` of the
 ``shard_map`` import silenced (``reference_calls``; ROADMAP.md, queue 3
@@ -53,10 +58,12 @@ from reference_calls import reference as _reference
 from repro.core import partitioner as ref
 from repro.core.balanced_kmeans import BKMConfig as RefBKMConfig
 from repro.core.sfc import hilbert_index_jnp
+from repro.launch.mesh import make_compat_mesh
 from repro_torch.core import partitioner as port
 from repro_torch.core.balanced_kmeans import BKMConfig
 from repro_torch.dist import launch
 from repro_torch.dist.comm import current
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.partition import PartitionProblem, partition
 
 torch.set_num_threads(1)
@@ -452,8 +459,13 @@ def test_spawned_ranks_from_the_entry_point(monkeypatch):
 
 
 def test_mesh_and_uneven_rows_raise(monkeypatch):
-    with pytest.raises(ValueError, match="queue 1"):
-        port.make_distributed_partitioner((2, 2), BKMConfig(k=4))
+    """A mesh without the axis to shard over raises (a (P1, P2) mesh is
+    taken since the 2-D mesh was ported: its parity tests are below);
+    so do rows that do not split into P shards, and a missing card
+    before any launch."""
+    with pytest.raises(ValueError, match="no axis 'shard'"):
+        port.make_distributed_partitioner((2, 2), BKMConfig(k=4),
+                                          axis_name="shard")
     run = port.make_distributed_partitioner(4, BKMConfig(k=4), device=CPU)
     with pytest.raises(ValueError, match="4 equal shards"):
         run(np.zeros((10, 2), np.float32), np.ones(10, np.float32))
@@ -464,3 +476,94 @@ def test_mesh_and_uneven_rows_raise(monkeypatch):
     run = port.make_distributed_partitioner(2, BKMConfig(k=4))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run(np.zeros((8, 2), np.float32))
+
+
+# ---------------------------------------------------------------------------
+# make_distributed_partitioner over a 2-D mesh
+# ---------------------------------------------------------------------------
+
+MESH_CFG = {"k": 16, "max_iter": 20, "warmup": False}
+
+
+def _port_mesh_run(pts, w, **cfg):
+    """The port on a (2, 2) ``("data", "model")`` mesh sharded over
+    ``data``, inside four thread ranks: rank (d, m) passes the rows of
+    its data coordinate d. Every rank's result, its slots gathered over
+    its data group (the global arrays of its replica)."""
+    out = {}
+
+    def body():
+        mesh = make_mesh((2, 2), ("data", "model"), device=CPU)
+        run = port.make_distributed_partitioner(mesh, BKMConfig(**cfg),
+                                                axis_name="data")
+        d, rows = mesh.coordinate("data"), pts.shape[0] // 2
+        mine = slice(d * rows, (d + 1) * rows)
+        A, rp, rv, centers, infl, imb, dropped = run(pts[mine], w[mine])
+        group = mesh.axis_comm("data")
+        whole = [group.all_gather(torch.from_numpy(x)).flatten(0, 1).numpy()
+                 for x in (A, rp, rv)]
+        out[current().rank] = (*whole, centers, infl, imb, dropped,
+                               (d, mesh.coordinate("model"), group.size))
+
+    _ranks(body, 4)
+    return [out[r] for r in range(4)]
+
+
+def test_mesh_replicas_equal_devices_p_bit_for_bit():
+    """Every replica of the (2, 2) mesh returns the bits of
+    ``devices=2`` (the same solve over the data axis), and the ranks sit
+    at the row-major coordinates."""
+    pts, w = _reference_instance()
+    want = _port_run(pts, w, 2, **MESH_CFG)
+    got = _port_mesh_run(pts, w, **MESH_CFG)
+    assert [g[-1] for g in got] == [(0, 0, 2), (0, 1, 2), (1, 0, 2),
+                                    (1, 1, 2)]
+    for rank in got:
+        for a, b in zip(rank[:7], want[:7]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_mesh_matches_the_reference_2d_mesh():
+    """The reference's partitioner on ``make_compat_mesh((2, 2),
+    ("data", "model"))`` with ``axis_name="data"``: the redistribution
+    bit-equal on every replica (the reference's ``out_specs``: block ids,
+    points and valid flags over 2 * 2 * cap slots), the labels agreeing
+    on at least ``AGREE`` of the valid slots, both balanced to the
+    reference test's 0.05."""
+    pts, w = _reference_instance()
+    run = ref.make_distributed_partitioner(
+        make_compat_mesh((2, 2), ("data", "model")),
+        RefBKMConfig(**MESH_CFG), axis_name="data")
+    want = [np.asarray(x) for x in _reference(run, jnp.asarray(pts),
+                                              jnp.asarray(w))]
+    for A, rp, rv, centers, infl, imb, dropped, _ in _port_mesh_run(
+            pts, w, **MESH_CFG):
+        for a, b in zip((A, rp, rv, centers, infl), want):
+            assert a.shape == b.shape and a.dtype == b.dtype
+        np.testing.assert_array_equal(rp, want[1])
+        np.testing.assert_array_equal(rv, want[2])
+        assert dropped == int(want[6]) == 0
+        assert float(np.mean(A[rv] == want[0][rv])) >= AGREE
+        assert imb <= 0.05 and float(want[5]) <= 0.05
+
+
+def test_mesh_launched_body_returns_the_replicas_global_result():
+    """``run``'s launched body on a (2, 2) mesh (what ``run`` outside a
+    rank starts on four ranks): every rank returns the global arrays of
+    its replica, equal to ``devices=2``'s launched body."""
+    pts, w = _instance(2048, 3, 4, "lognormal")
+    cfg = BKMConfig(k=8, max_iter=4)
+    flat = _ranks(lambda: port._partition_launched(
+        pts, w, cfg, device=CPU, return_stats=False), 2)
+    out = {}
+
+    def body():
+        out[current().rank] = port._partition_launched(
+            pts, w, cfg, device=CPU, return_stats=False,
+            mesh=make_mesh((2, 2), ("data", "model"), device=CPU),
+            axis_name="data")
+
+    _ranks(body, 4)
+    for r in range(4):
+        for a, b in zip(out[r], flat):
+            np.testing.assert_array_equal(a, b)

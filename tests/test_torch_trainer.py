@@ -283,9 +283,31 @@ def test_launch_train_runs_and_resumes_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--data-parallel", "--model-parallel"])
-def test_launch_train_refuses_parallel_training(flag):
-    with pytest.raises(ValueError, match="4.9"):
-        LT.main(["--arch", "gemma3-1b", flag, "2", "--device", "cpu"])
+def test_launch_train_refuses_parallel_training(flag, monkeypatch):
+    """Tensor parallelism (``--model-parallel`` above 1) is ROADMAP.md
+    queue 1 item 4.10 and raises, naming it. ``--data-parallel 2`` called
+    outside a rank now launches two ranks running the same command (here
+    thread ranks, for time; tests/test_torch_train_ranks.py spawns the
+    processes) and returns rank 0's history."""
+    argv = ["--arch", "gemma3-1b", flag, "2", "--device", "cpu"]
+    if flag == "--model-parallel":
+        with pytest.raises(ValueError, match="4.10"):
+            LT.main(argv)
+        return
+    launched = []
+    inner = LT.launch.launch
+
+    def threads(fn, nranks, **kw):
+        launched.append((fn, nranks, kw["args"]))
+        return inner(fn, nranks, args=kw["args"], device=kw["device"],
+                     threads=True, timeout=120)
+
+    monkeypatch.setattr(LT.launch, "launch", threads)
+    argv += ["--steps", "2", "--batch", "2", "--seq", "16",
+             "--log-every", "1"]
+    trainer, hist = LT.main(argv)
+    assert trainer is None and [m["step"] for m in hist] == [1.0, 2.0]
+    assert launched == [(LT._rank_main, 2, (argv,))]
 
 
 def test_the_loop_defaults_to_the_card():
