@@ -46,7 +46,10 @@ and router kernels, SMOKE steps card vs CPU, remat bit-equal), drives
 the training loop (granite and gemma3 SMOKE through
 ``launch.train.main``; granite at full width through ``Trainer``:
 trained, preempted by a SIGINT, its 40.5 GB checkpoint written under
-``build/`` and restored into the abstract state, trained on), times each
+``build/`` and restored into the abstract state, trained on), trains
+granite over two data ranks and serves granite and gemma3 over two
+``model`` ranks (``make_host_mesh(1, 2)``: heads, MLP, experts and
+vocabulary split) sharing the card against one rank, times each
 kernel with CUDA events against its bound, dry-runs on ``meta`` tensors
 (``launch.dryrun``, no model on the card) every cell whose peak memory it
 measured and gates the estimate within 10% of the measured peak, prints
@@ -78,7 +81,8 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("card", "build", "kernels", "lm_kernels", "main", "paths",
           "agreement", "profile", "repartition", "hierarchical", "pserve",
           "refine", "sharded", "experiments", "serve", "prefill", "archs",
-          "train", "trainer", "trainer_dp", "timing", "roofline")
+          "train", "trainer", "trainer_dp", "serve_tp", "timing",
+          "roofline")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_F32_FLOPS = 67e12
@@ -114,6 +118,9 @@ LM_BF16_TOL = 5e-2
 REPART_T = 8
 REPART_BENCH = ("delaunay2d", 30_000, 16, 5, 12)
 HIER = (32, 32)
+# the batched and sequential lanes held bit-identical on the main cell's
+# first 2^20 points (the whole cell until the serve_tp phase, PERF.md §5)
+HIER_TWIN_N = 1 << 20
 HIER_CPU_N, HIER_CPU = 1 << 16, (8, 8)
 # the full configuration of benchmarks/serving.py: (n, k) per tenant on
 # delaunay2d meshes seeded 10 + i, tiers, slots, steps
@@ -121,11 +128,12 @@ PSERVE_TENANTS = ((7000, 16), (8192, 16), (14000, 32), (16000, 32))
 PSERVE_TIERS = (2048, 4096, 8192, 16384)
 PSERVE_SLOTS, PSERVE_T, PSERVE_CACHE = 2, 12, 64
 # refinement: the quality mesh at k = 64 for the agreement; tri at n = 2^22
-# (2048 x 2048) with k = MAIN_K, then T warm steps, for the full size
+# (2048 x 2048) with k = MAIN_K, then T warm steps (2: cut from 3 for
+# time, PERF.md §5), for the full size
 QUALITY_N = 131072
 REFINE_QUALITY_K = 64
 REFINE_N = 1 << 22
-REFINE_T = 3
+REFINE_T = 2
 # the multi-device path: P ranks on the one card (gloo), the 2-D mesh, the
 # agreement cell (the main cell's first 2^16 points at k = 64: at k = 1024
 # such a cut has 64 points a block, where the solver itself does not
@@ -144,20 +152,22 @@ SHARDED_REFINE_N = 1 << 20
 # k = 64 (at k = 1024 its clustered warm-up ends unbalanced, as the
 # reference's does: ROADMAP.md queue 3 item 17)
 REDIST_BALANCE_K = 64
-# the paper's §5 matrix: every method over the mesh zoo at n = 2^14 points
-# a family (refined3d twice that) and k = 128, 128 points a block (cut
-# from 2^17 and 2^16 points at k = 256 for time, PERF.md §5: every rank
-# builds every mesh on the host), over SHARDED_P ranks; the small matrix
-# that goes through run_matrix's own launch
-EXPERIMENTS = {"n": 1 << 14, "k": 128, "seed": 0}
+# the paper's §5 matrix: every method over the mesh zoo at n = 2^13 points
+# a family (refined3d twice that) and k = 64, 128 points a block (cut
+# from 2^17 and 2^16 points at k = 256, and 2^14 at k = 128, for time,
+# PERF.md §5: every rank builds every mesh on the host), over SHARDED_P
+# ranks; the small matrix that goes through run_matrix's own launch
+EXPERIMENTS = {"n": 1 << 13, "k": 64, "seed": 0}
 EXPERIMENTS_SMALL = {"n": 1 << 12, "k": 16, "seed": 0,
                      "families": ["tri", "climate25d"],
                      "methods": ["geographer", "sfc"]}
 
-# granite-moe-3b-a800m serving shapes
-SERVE_BATCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 6, 12, 16
+# granite-moe-3b-a800m serving shapes (4 requests, one round of the batch,
+# and 8 decode steps after a prefill: cut from 6 and 16 for time, PERF.md
+# §5; the archs phase takes the same)
+SERVE_BATCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 4, 12, 16
 SERVE_MAX_SEQ = 64
-PREFILL_S, PREFILL_NEW = 4096, 16
+PREFILL_S, PREFILL_NEW = 4096, 8
 # the cells the roofline phase dry-runs, as launch.shapes.ShapeCell's
 # (name, seq, batch, mode): the engine's serve (a cache of SERVE_MAX_SEQ
 # at batch SERVE_BATCH) and the prefill at B=1
@@ -1323,26 +1333,29 @@ def phase_repartition(torch, ctx):
 
 
 def phase_hierarchical(torch, ctx):
-    """``partition(main problem, hierarchy=(32, 32))`` batched and with
-    the one-lane-a-call refinement: bit-identical; then the card against
-    the port on the CPU at n = 2^16, (8, 8). (No run under the profiler,
-    for time: its device busy share, 3.6-4.2%, is in PERF.md.)"""
+    """``partition(main problem, hierarchy=(32, 32))`` batched; then on
+    the main cell's first HIER_TWIN_N points the batched run and the
+    one-lane-a-call refinement: bit-identical (both at full size until
+    the serve_tp phase, for time: PERF.md §5); then the card against the
+    port on the CPU at n = 2^16, (8, 8). (No run under the profiler, for
+    time: its device busy share, 3.6-4.2%, is in PERF.md.)"""
     import numpy as np
     from repro_torch.partition import PartitionProblem, partition
     pts = np.random.default_rng(0).uniform(0.0, 1.0, (MAIN_N, MAIN_D))
-    prob = PartitionProblem(points=pts, k=HIER[0] * HIER[1], epsilon=EPS,
-                            seed=0)
     runs = {}
     t0 = time.perf_counter()
-    for tag, batched in (("hierarchical", True),
-                         ("hierarchical-sequential", False)):
+    for tag, n, batched in (("hierarchical", MAIN_N, True),
+                            ("hierarchical-twin", HIER_TWIN_N, True),
+                            ("hierarchical-sequential", HIER_TWIN_N, False)):
+        prob = PartitionProblem(points=pts[:n], k=HIER[0] * HIER[1],
+                                epsilon=EPS, seed=0)
         runs[tag], wall, counts = run_counted(
             torch, ctx, tag,
             lambda: partition(prob, hierarchy=HIER, batched=batched))
         res = runs[tag]
         coarse, fine = res.stats["levels"]
         imb = res.imbalance()
-        log(tag, f"n={MAIN_N} k={prob.k} hierarchy={HIER}: wall "
+        log(tag, f"n={n} k={prob.k} hierarchy={HIER}: wall "
             f"{wall:.3f} s = coarse {coarse['seconds']:.3f} s (imbalance "
             f"{coarse['imbalance']:.5f} at eps {coarse['epsilon']}) + "
             f"refine {fine['seconds']:.3f} s (of it the host's batch and "
@@ -1350,14 +1363,14 @@ def phase_hierarchical(torch, ctx):
             f"{fine['iters']}; "
             f"final imbalance {imb:.6f}; launches {counts}  [{ctx['card']}]")
         check(imb <= EPS + 1e-6, f"{tag}: imbalance {imb:.6f}")
-    a, b = runs["hierarchical"], runs["hierarchical-sequential"]
+    a, b = runs["hierarchical-twin"], runs["hierarchical-sequential"]
     check(np.array_equal(a.labels, b.labels) and
           np.array_equal(a.centers, b.centers) and
           np.array_equal(a.influence, b.influence),
           "hierarchical: the sequential run differs from the batched one")
-    log("hierarchical", "the batched run and the sequential one: labels, "
-        "centers and influence bit-identical")
-    t0 = lap("hierarchical: the two runs", t0)
+    log("hierarchical", f"n={HIER_TWIN_N}: the batched run and the "
+        "sequential one: labels, centers and influence bit-identical")
+    t0 = lap("hierarchical: the three runs", t0)
     lane_layout(torch, ctx, "hierarchical", pts[: MAIN_N // HIER[0]])
     hierarchical_agreement(torch, ctx, pts[:HIER_CPU_N])
     lap("hierarchical: lane layout and the CPU agreement", t0)
@@ -3058,8 +3071,9 @@ def keep_peak(torch, ctx, tag, arch, cell, base, cfg_overrides=None,
 
 
 def serve_arch(torch, ctx, cfg, params, origin):
-    """``ServeEngine.run`` at granite's serve shapes (batch 4, 6 requests
-    x 12-token prompts, 16 new tokens; codebook prompts [12, n]). The
+    """``ServeEngine.run`` at granite's serve shapes (batch SERVE_BATCH,
+    SERVE_REQUESTS x 12-token prompts, 16 new tokens; codebook prompts
+    [12, n]). The
     engine takes no embeddings config: that one steps ``make_serve_step``
     through the engine's rounds (two groups of 12 + 16 positions) over
     seeded embeddings, with the engine's one host read a step. The router
@@ -3139,8 +3153,8 @@ def serve_arch(torch, ctx, cfg, params, origin):
 def prefill_arch(torch, ctx, cfg, params, origin):
     """``prefill`` at B=1, S=4096 (tensor-core flash once a full-attention
     layer, the band in sliding-window layers, the router once a MoE
-    layer), then ``extend_cache`` and 16 greedy decode steps (seeded
-    embeddings for the embeddings config)."""
+    layer), then ``extend_cache`` and PREFILL_NEW greedy decode steps
+    (seeded embeddings for the embeddings config)."""
     from repro_torch.kernels.ops import reset_launch_counts
     from repro_torch.models import model as M
     n_full = arch_layers(cfg, "attn", "full")
@@ -3603,7 +3617,8 @@ TRAINER_SMOKE = {"batch": 4, "seq": 32, "micro": 2, "steps": 6,
                  "preempt": 3}
 # granite CONFIG: A trains TRAINER_STEPS steps; B is interrupted in step
 # TRAINER_PREEMPT and saves it; C restores it and trains to TRAINER_STEPS
-TRAINER_STEPS, TRAINER_PREEMPT = 4, 2
+# (3 steps: cut from 4 for time, PERF.md §5)
+TRAINER_STEPS, TRAINER_PREEMPT = 3, 2
 # C's losses against A's (the same steps on the same batches)
 TRAINER_TOL = 1e-5
 # git-ignored, on the checkout's disk (/tmp may be a small tmpfs)
@@ -3992,10 +4007,6 @@ TRAINER_DP_RANKS = 2
 # target (the CPU tests hold float32 parity at 1e-5 / 1e-3 / 1e-6). Read
 # on the H100 (PERF.md): 4.2e-7, 3.7e-6 and 6.8e-5 after 3 steps
 TRAINER_DP_TOL = {"loss": 1e-4, "grad_norm": 1e-2, "influence": 1e-2}
-# the seconds of the phases cut to make room for trainer_dp, before the
-# cuts (this script's last full run without trainer_dp, on an NVIDIA
-# H100 80GB HBM3 at 700 W; PERF.md §5 lists the cuts)
-CUT_BEFORE_S = {"sharded": 162.9, "experiments": 100.2}
 
 
 def trainer_dp_body(data):
@@ -4109,8 +4120,7 @@ def phase_trainer_dp(torch, ctx):
     across ranks, each rank's flash (6a) and router (5) launches = layers
     x 2 (forward, recompute) x microbatches x steps and nothing else.
     Prints the steady step's seconds at both, tokens/s, each rank's
-    peak, the collectives a step, device busy and MFU; then the seconds
-    the cuts made room for against the phase's own."""
+    peak, the collectives a step, device busy and MFU."""
     import gc
     import numpy as np
     from repro_torch.configs import granite_moe_3b_a800m as granite
@@ -4215,6 +4225,369 @@ def phase_trainer_dp(torch, ctx):
     phase_s = time.perf_counter() - t_phase
     ctx["trainer_dp_s"] = phase_s
     log("trainer_dp", f"phase {phase_s:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# serving over the model axis: two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# granite CONFIG at full depth through ServeEngine (batch SERVE_BATCH,
+# SERVE_REQUESTS x SERVE_PROMPT-token prompts, SERVE_TP_NEW new tokens:
+# half the serve phase's 16, for time), then
+# granite and gemma3 CONFIG prefilled at B=1, S=PREFILL_S and
+# SERVE_TP_DECODE decode steps after it, at model=SERVE_TP_RANKS (gloo
+# rank processes sharing the card) against model=1 in this process
+SERVE_TP_RANKS = 2
+SERVE_TP_NEW, SERVE_TP_DECODE = 8, 4
+SERVE_TP_ARCHS = ("granite_moe_3b_a800m", "gemma3_1b")
+# bf16 logits at model=2 against model=1: the largest |difference| of a
+# row over the row's largest |logit| (kernels.ref.row_relative_error).
+# The partial sums of wo, w_down and the experts round to bf16 on each
+# rank before the all-reduce, once a layer, so the residual stream moves
+# by an ulp or two a layer. Read on the H100 (PERF.md): 0.0036-0.0078 for
+# granite and gemma3; the limit 2e-2 leaves 2.5x headroom (LM_BF16_TOL's
+# 5e-2 would exempt most greedy rows below). A greedy token is held
+# equal unless model=1's top-2 gap of its row is under the same share of
+# the row's largest |logit|: that row is exempt from there on.
+SERVE_TP_TOL = 2e-2
+# the seconds of the phases cut to make room for serve_tp, before the cuts
+# (this script's last full run without serve_tp, on an NVIDIA H100 80GB
+# HBM3 at 700 W; PERF.md §5 lists the cuts)
+SERVE_TP_CUT_BEFORE_S = {"hierarchical": 46.8, "refine": 38.1,
+                         "experiments": 69.8, "serve": 11.8,
+                         "prefill": 26.3, "archs": 101.5,
+                         "trainer": 105.8}
+
+
+def _tp_decode_tokens(cfg):
+    import numpy as np
+    return np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, SERVE_TP_DECODE)).astype(np.int32)
+
+
+def serve_tp_arch(torch, arch, mesh, routed, state):
+    """One config of ``serve_tp_body`` on this rank: its parameters (made
+    whole from seed 0, cut to the rank's shards, the whole freed), the
+    engine (granite), the prefill twice (the second timed warm) and the
+    decode steps after it; each path's launch counts from 0, its wall,
+    peak and collectives, its logits on the host."""
+    import gc
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.dist.rules import resolve_rules
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.serve import Request, ServeEngine
+    cfg = configs.get_config(arch)
+    comm = mesh.comm
+    drules = resolve_rules(mesh, cfg, "decode", batch_size=SERVE_BATCH)
+    prules = resolve_rules(mesh, cfg, "prefill", batch_size=1)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    t0 = time.perf_counter()
+    params = M.shard_params(M.init_params(cfg, gen, device=DEVICE), cfg,
+                            drules)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "params_gib": M.param_count(params) * 4 / 2 ** 30, "paths": {}}
+
+    def run(path, fn, steps=1):
+        routed.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        before = comm.counters() if comm is not None else None
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        moved = ({k: (v - before[k]) / steps
+                  for k, v in comm.counters().items()}
+                 if comm is not None else {})
+        state["routed"].extend(x.reshape(-1) for x in routed)
+        out["paths"][path] = {
+            "wall": wall, "counts": {n: c for n, c in launch_counts().items()
+                                     if c},
+            "peak": torch.cuda.max_memory_allocated(), "moved": moved,
+            "steps": steps}
+        return value
+
+    with torch.no_grad():
+        if arch == "granite_moe_3b_a800m":
+            engine = ServeEngine(cfg, drules, params, batch=SERVE_BATCH,
+                                 max_seq=SERVE_MAX_SEQ)
+            inner, seen = engine.step_fn, []
+
+            def recorded(*args):
+                res = inner(*args)
+                seen.append(res[2].float().cpu().numpy())
+                return res
+
+            engine.step_fn = recorded
+            rng = np.random.default_rng(0)
+            reqs = [Request(uid=i, prompt=rng.integers(
+                0, cfg.vocab_size, (SERVE_PROMPT,)).astype(np.int32),
+                max_new=SERVE_TP_NEW) for i in range(SERVE_REQUESTS)]
+            run("engine", lambda: engine.run(reqs))
+            n_steps = len(seen)
+            out["paths"]["engine"]["steps"] = n_steps
+            out["paths"]["engine"]["moved"] = {
+                k: v / n_steps for k, v in
+                out["paths"]["engine"]["moved"].items()}
+            out["engine"] = {"transcripts": [list(r.out) for r in reqs],
+                             "logits": seen}
+            out["busy"] = tp_profile(torch, engine, inner, comm)
+        toks = torch.tensor(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (1, PREFILL_S)), dtype=torch.int32,
+            device=DEVICE)
+        logits, cache = run("prefill", lambda: M.prefill(
+            params, {"tokens": toks}, cfg, prules))
+        out["prefill_logits"] = logits.float().cpu().numpy()
+        cache = M.extend_cache(cache, cfg, PREFILL_S + SERVE_TP_DECODE)
+        dec_toks = torch.tensor(_tp_decode_tokens(cfg), device=DEVICE)
+
+        def decode():
+            lg = []
+            for t in range(SERVE_TP_DECODE):
+                lg.append(M.decode_step(params, cache, {
+                    "tokens": dec_toks[:, t:t + 1]}, PREFILL_S + t, cfg,
+                    drules)[0].float().cpu().numpy())
+            return lg
+
+        out["decode_logits"] = run("decode", decode, SERVE_TP_DECODE)
+        del cache, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("prefill-warm", lambda: M.prefill(params, {"tokens": toks},
+                                              cfg, prules))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_profile(torch, engine, step_fn, comm, steps=4):
+    """Device busy over ``steps`` engine steps at batch SERVE_BATCH on
+    rank 0 (or in this process) under torch.profiler: (device s, wall s)
+    of its own kernels and copies; the other ranks take the same steps
+    unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+    cache = engine._fresh_cache()
+    tok = torch.zeros(engine.B, 1, dtype=torch.int32, device=DEVICE)
+    step_fn(engine.params, cache, tok, 0)
+    torch.cuda.synchronize()
+    if comm is not None and comm.rank:
+        for p in range(1, steps + 1):
+            tok, cache, _ = step_fn(engine.params, cache, tok, p)
+        torch.cuda.synchronize()
+        return None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for p in range(1, steps + 1):
+            tok, cache, _ = step_fn(engine.params, cache, tok, p)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return device_rows(prof)[1] / steps, wall / steps
+
+
+def serve_tp_body(model):
+    """On each of ``model`` ranks of a ``make_host_mesh(1, model)`` mesh
+    (or in this process at model=1): ``serve_tp_arch`` of every config of
+    SERVE_TP_ARCHS, recording the experts of every router call. Returns
+    rank 0's results, with every rank's launch counts, peaks and walls
+    (``table``) and whether every rank routed the same experts, bit for
+    bit, in every call (``same_routing``)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, model, device=DEVICE)
+    comm = mesh.comm
+    routed, state = [], {"routed": []}
+    inner = ops.router_topk_divide
+
+    def recording(x, c, infl, k):
+        idx, eff = inner(x, c, infl, k)
+        routed.append(idx)
+        return idx, eff
+
+    ops.router_topk_divide = recording
+    try:
+        res = {arch: serve_tp_arch(torch, arch, mesh, routed, state)
+               for arch in SERVE_TP_ARCHS}
+    finally:
+        ops.router_topk_divide = inner
+    table = [[arch, path, rec["counts"], rec["peak"], rec["wall"],
+              rec["steps"]]
+             for arch, r in res.items() for path, rec in r["paths"].items()]
+    out = {"res": res}
+    if comm is None:
+        out["table"], out["same_routing"] = [table], None
+        return out
+    import pickle
+    blob = torch.frombuffer(bytearray(pickle.dumps(table)),
+                            dtype=torch.uint8)
+    sizes = comm.all_gather(torch.tensor([blob.numel()]))
+    pad = torch.zeros(int(sizes.max()), dtype=torch.uint8)
+    pad[:blob.numel()] = blob
+    blobs = comm.all_gather(pad)
+    out["table"] = [pickle.loads(bytes(blobs[r, :int(sizes[r])].tolist()))
+                    for r in range(comm.size)]
+    mine = torch.cat(state["routed"]).to(torch.int32)
+    every = comm.all_gather(mine)
+    out["same_routing"] = all(torch.equal(every[0], every[r])
+                              for r in range(comm.size))
+    out["routed_calls"] = len(state["routed"])
+    return out
+
+
+def phase_serve_tp(torch, ctx):
+    """Serving over the ``model`` axis: granite and gemma3 CONFIG at
+    ``model=SERVE_TP_RANKS`` (gloo rank processes sharing the card, one
+    ``dist.launch``) against ``model=1`` in this process, first, the same
+    seed, prompts and tokens. Gates: prefill, decode and the engine's
+    prompt-step logits within SERVE_TP_TOL of model=1 (row-relative);
+    greedy tokens equal up to a near-tie of model=1; the experts of every
+    router call bit-equal across the ranks; each rank's launches: the
+    router once a MoE layer a step, flash once a full-attention layer a
+    prefill, nothing else. Prints the engine's ms a step and tokens/s,
+    the prefill's s, each rank's peak against model=1's, the collectives
+    a step and device busy."""
+    import gc
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.dist import launch
+    from repro_torch.kernels.ref import row_relative_error
+    card = ctx["card"]
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    one = serve_tp_body(1)
+    one_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    two = launch.launch(serve_tp_body, SERVE_TP_RANKS,
+                        args=(SERVE_TP_RANKS,), device="cuda", timeout=600)
+    two_s = time.perf_counter() - t0
+    tol = SERVE_TP_TOL
+
+    def rel(got, want):
+        return row_relative_error(torch.from_numpy(np.asarray(got)),
+                                  torch.from_numpy(np.asarray(want)))
+
+    def near_tie(lg, vocab):
+        row = np.sort(np.asarray(lg, np.float32).reshape(-1)[:vocab])
+        return row[-1] - row[-2] < tol * np.abs(row).max()
+
+    for tag, out in (("model=1", one), (f"model={SERVE_TP_RANKS}", two)):
+        for r, table in enumerate(out["table"]):
+            for arch, path, counts, peak, wall, steps in table:
+                cfg = configs.get_config(arch)
+                moe = sum(s.mlp == "moe" for s in cfg.pattern) * \
+                    cfg.n_repeats
+                full = sum(s.attn == "full" for s in cfg.pattern) * \
+                    cfg.n_repeats
+                prefill = {"router_topk": moe, "flash_attention_tc": full}
+                want = {"engine": {"router_topk": moe * steps},
+                        "prefill": prefill, "prefill-warm": prefill,
+                        "decode": {"router_topk": moe * steps}}[path]
+                want = {k: v for k, v in want.items() if v}
+                ctx["paths"][f"serve_tp {cfg.name} {tag} rank {r} {path}"] \
+                    = counts
+                check(counts == want, f"serve_tp {cfg.name} {tag} rank {r} "
+                      f"{path}: launches {counts}, want {want}")
+                log("serve_tp", f"{cfg.name} {tag} rank {r} {path}: "
+                    f"launches {counts} ({steps} step(s)), peak "
+                    f"{peak / 2 ** 30:.2f} GiB, wall {wall:.3f} s  [{card}]")
+    if two["same_routing"] is not None:
+        log("serve_tp", f"model={SERVE_TP_RANKS}: the experts of "
+            f"{two['routed_calls']} router calls bit-equal on every rank: "
+            f"{two['same_routing']}")
+        check(two["same_routing"], "serve_tp: the ranks routed tokens to "
+              "different experts")
+    for arch in SERVE_TP_ARCHS:
+        cfg = configs.get_config(arch)
+        a, b = one["res"][arch], two["res"][arch]
+        errs = {"prefill": rel(b["prefill_logits"], a["prefill_logits"]),
+                "decode": max(rel(g, w) for g, w in
+                              zip(b["decode_logits"], a["decode_logits"]))}
+        if "engine" in a:
+            errs["engine prompt steps"] = max(
+                rel(g, w) for g, w in zip(b["engine"]["logits"][:SERVE_PROMPT],
+                                          a["engine"]["logits"][:SERVE_PROMPT]))
+        for key, err in errs.items():
+            check(err <= tol, f"serve_tp {cfg.name}: {key} logits differ "
+                  f"from model=1 by {err:.4g} of a row (limit {tol})")
+        exempt = []
+        for g, w in zip(b["decode_logits"], a["decode_logits"]):
+            tie = near_tie(w, cfg.vocab_size)
+            same = int(np.argmax(np.asarray(g).reshape(-1)[:cfg.vocab_size])
+                       ) == int(np.argmax(np.asarray(w).reshape(-1)
+                                          [:cfg.vocab_size]))
+            check(same or tie, f"serve_tp {cfg.name}: a decode step's "
+                  f"greedy token differs from model=1 without a near-tie")
+            exempt.append(tie)
+        if "engine" in a:
+            got, want = b["engine"]["transcripts"], a["engine"]["transcripts"]
+            for i, (g, w) in enumerate(zip(got, want)):
+                upto = len(w)
+                for j in range(len(w)):
+                    if near_tie(a["engine"]["logits"][SERVE_PROMPT - 1 + j][i],
+                                cfg.vocab_size):
+                        upto = j
+                        break
+                check(g[:upto] == w[:upto], f"serve_tp {cfg.name}: request "
+                      f"{i} transcript {g} against model=1's {w} (held up "
+                      f"to token {upto})")
+                exempt.append(upto < len(w))
+            log("serve_tp", f"{cfg.name} transcripts at model=1 {want}, at "
+                f"model={SERVE_TP_RANKS} {got}")
+        log("serve_tp", f"{cfg.name}: model={SERVE_TP_RANKS} against "
+            f"model=1, largest row-relative logit difference "
+            + ", ".join(f"{k} {v:.4g}" for k, v in errs.items())
+            + f" (limit {tol}); rows exempt at a near-tie {sum(exempt)} of "
+            f"{len(exempt)}")
+        for tag, res in (("model=1", a), (f"model={SERVE_TP_RANKS}", b)):
+            p = res["paths"]
+            line = (f"{cfg.name} {tag}: parameters {res['params_gib']:.2f} "
+                    f"GiB a rank, made and cut in {res['init_s']:.1f} s; "
+                    f"prefill B=1 S={PREFILL_S} {p['prefill']['wall']:.3f} s"
+                    f" (warm repeat {p['prefill-warm']['wall']:.3f} s), "
+                    f"peak {p['prefill']['peak'] / 2 ** 30:.2f} GiB; "
+                    f"{SERVE_TP_DECODE} decode steps after it "
+                    f"{p['decode']['wall'] / SERVE_TP_DECODE * 1e3:.2f} ms "
+                    f"a step")
+            if "engine" in p:
+                e = p["engine"]
+                n_tok = SERVE_REQUESTS * SERVE_TP_NEW
+                line += (f"; engine {n_tok} tokens in {e['wall']:.3f} s = "
+                         f"{n_tok / e['wall']:.2f} tokens/s, {e['steps']} "
+                         f"steps at {e['wall'] / e['steps'] * 1e3:.2f} ms a "
+                         f"step, peak {e['peak'] / 2 ** 30:.2f} GiB")
+                busy = res.get("busy")
+                if busy:
+                    line += (f"; device busy {busy[0] * 1e3:.2f} ms of a "
+                             f"{busy[1] * 1e3:.2f} ms profiled step = "
+                             f"{busy[0] / busy[1]:.1%} (rank 0's kernels)")
+            for path in ("engine", "prefill", "decode"):
+                mv = p.get(path, {}).get("moved")
+                if mv:
+                    line += (f"; collectives a step of {path} (rank 0): "
+                             f"all-reduces {mv['all_reduces']:.1f} "
+                             f"({mv['bytes'] / 1e6:.3f} MB, "
+                             f"{mv['seconds'] * 1e3:.2f} ms), all-gathers "
+                             f"{mv['all_gathers']:.1f} "
+                             f"({mv['all_gather_bytes'] / 1e6:.3f} MB, "
+                             f"{mv['all_gather_seconds'] * 1e3:.2f} ms)")
+            log("serve_tp", line + f"  [{card}]")
+    log("serve_tp", f"model=1 in this process {one_s:.1f} s; the launch of "
+        f"{SERVE_TP_RANKS} ranks {two_s:.1f} s with the process starts")
+    phase_s = time.perf_counter() - t_phase
+    ctx["serve_tp_s"] = phase_s
+    log("serve_tp", f"phase {phase_s:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4882,6 +5255,7 @@ def main() -> int:
            "train": lambda: phase_train(torch, ctx),
            "trainer": lambda: phase_trainer(torch, ctx),
            "trainer_dp": lambda: phase_trainer_dp(torch, ctx),
+           "serve_tp": lambda: phase_serve_tp(torch, ctx),
            "timing": lambda: phase_timing(torch, ctx),
            "roofline": lambda: phase_roofline(torch, ctx)}
     t_all = time.perf_counter()
@@ -4892,13 +5266,13 @@ def main() -> int:
             run[name]()
             took[name] = time.perf_counter() - t0
             log("time", f"phase {name}: {took[name]:.1f} s")
-    if "trainer_dp" in took and set(CUT_BEFORE_S) <= set(took):
-        now = sum(took[name] for name in CUT_BEFORE_S)
-        before = sum(CUT_BEFORE_S.values())
-        log("time", f"room for trainer_dp: {' + '.join(CUT_BEFORE_S)} "
-            f"{now:.1f} s in this run against {before:.1f} s before the "
-            f"cuts: {before - now:.1f} s saved; trainer_dp "
-            f"{took['trainer_dp']:.1f} s")
+    if "serve_tp" in took and set(SERVE_TP_CUT_BEFORE_S) <= set(took):
+        now = sum(took[name] for name in SERVE_TP_CUT_BEFORE_S)
+        before = sum(SERVE_TP_CUT_BEFORE_S.values())
+        log("time", f"room for serve_tp: {' + '.join(SERVE_TP_CUT_BEFORE_S)}"
+            f" {now:.1f} s in this run against {before:.1f} s before the "
+            f"cuts: {before - now:.1f} s saved; serve_tp "
+            f"{took['serve_tp']:.1f} s")
     log("time", f"all phases: {time.perf_counter() - t_all:.1f} s")
     print(kernels_json(ctx))
     print(card_line())

@@ -14,8 +14,14 @@ each holding its own rows and shards. ``Rules.shard`` checks the names
 against the tensor's rank and returns it: a rank's activation is already
 its shard, and what GSPMD's constraints would move the port moves
 explicitly, ``Rules.reduce`` summing over the mesh axes of a logical axis
-(``act_batch``: the data ranks) and ``dist.fsdp`` gathering the leaves
-sharded over ``data``. ``Rules.sharding`` / ``param_shardings`` give
+(``act_batch``: the data ranks), ``Rules.gather`` concatenating the
+ranks' shards, and ``dist.fsdp`` gathering the leaves sharded over
+``data``. The layers served over ``model`` take one decision,
+``splits`` (a dimension is held as one shard a rank where the extent
+divides it, whole elsewhere), and with it ``local_range`` (the rank's
+slice), ``reduce_partial`` (one all-reduce of the partial sums of a
+product over a split dimension, none over a whole one) and
+``gather_split``. ``Rules.sharding`` / ``param_shardings`` give
 ``NamedSharding`` objects: the rank's ``device`` (where
 ``CheckpointManager.restore`` places a leaf), the rank's ``shard_shape``
 of a leaf and its slice (``local``), split where the extent divides the
@@ -282,10 +288,57 @@ class Rules:
         """``x`` reduced over the mesh axes of the logical axis
         ``logical``: the sum GSPMD inserts where a value computed from a
         rank's shard of that axis is used whole (``act_batch``: the data
-        ranks' loads, losses and gradients). ``x`` itself when every one
-        of those extents is 1."""
+        ranks' loads, losses and gradients; ``heads``, ``mlp``,
+        ``expert``, ``vocab``: the partial sums of a product over a split
+        dimension, ``reduce_partial``). ``x`` itself when every one of
+        those extents is 1."""
         comm = self.comm(logical)
         return x if comm is None else comm.all_reduce(x, op)
+
+    def gather(self, x, logical: str, dim: int):
+        """The ranks' shards ``x`` of the logical axis ``logical``
+        concatenated along ``dim`` in rank order (the whole tensor, where
+        GSPMD would all-gather); ``x`` itself when its extents are 1."""
+        comm = self.comm(logical)
+        return x if comm is None else comm.gather_along(x, dim)
+
+
+def splits(rules: Rules | None, logical: str, n: int) -> bool:
+    """The one decision of every sharded layer: whether a dimension of
+    size ``n`` named ``logical`` is held as one shard a rank
+    (``NamedSharding.split_dims``' rule: an extent above 1 that divides
+    ``n``), the same on every rank; False without rules (one rank)."""
+    return rules is not None and bool(
+        rules.sharding((logical,)).split_dims((n,)))
+
+
+def local_range(rules: Rules | None, logical: str, n: int):
+    """This rank's index range ``[lo, hi)`` of a dimension of size ``n``
+    named ``logical``: its shard's where the dimension is split
+    (``splits``), ``(0, n)`` where it is held whole or without rules."""
+    if not splits(rules, logical, n):
+        return 0, n
+    (_, axis), = rules.sharding((logical,)).split_dims((n,))
+    part = n // rules.mesh.shape[axis]
+    lo = rules.mesh.coordinate(axis) * part
+    return lo, lo + part
+
+
+def reduce_partial(x, rules: Rules | None, logical: str, n: int):
+    """``x``, a product that contracted a dimension of size ``n`` named
+    ``logical``: where that dimension is split (``splits``), the rank's
+    partial sums, all-reduced once over its mesh axes; where it is held
+    whole, every rank's whole result, returned as it is (a reduction
+    there would multiply it by the extent)."""
+    return rules.reduce(x, logical) if splits(rules, logical, n) else x
+
+
+def gather_split(x, rules: Rules | None, logical: str, n: int, dim: int):
+    """``x`` whole along ``dim``: the ranks' shards of a dimension of size
+    ``n`` named ``logical`` all-gathered where it is split (exact), ``x``
+    itself where it is held whole."""
+    return rules.gather(x, logical, dim) if splits(rules, logical, n) \
+        else x
 
 
 def resolve_rules(mesh, cfg, phase: str, batch_size: int | None = None,

@@ -9,10 +9,11 @@ the rank at ``(d, m)`` of a ``(data, model)`` mesh is ``d * model + m``.
 ``Mesh.axis_comm(name)`` is the communicator along one axis (the ranks
 that share every other coordinate).
 
-``make_host_mesh(data, model)`` is the training mesh: data-parallel over
-any number of ranks. Tensor parallelism (``model`` above 1) needs the
-sharded layers of every layer kind, which the port does not have yet
-(ROADMAP.md queue 1 item 4.10). ``make_mesh`` is the reference's
+``make_host_mesh(data, model)`` is the ``(data, model)`` mesh of any
+shape: serving shards attention, the MLPs, the experts and the
+vocabulary over ``model`` and the batch over ``data``; training runs
+over ``data`` only (``model`` above 1 raises in the train step, ROADMAP.md
+queue 1 item 4.10). ``make_mesh`` is the reference's
 ``make_compat_mesh``: any shape, for callers that shard over one axis
 and replicate over the others (``make_distributed_partitioner``).
 """
@@ -107,19 +108,17 @@ def make_mesh(shape, axis_names, device=None) -> Mesh:
 
 
 def make_host_mesh(data: int = 1, model: int = 1, device=None) -> Mesh:
-    """The ``(data, model)`` training mesh on ``device`` (default
-    ``cuda``): ``data`` data-parallel ranks, the calling rank's
-    communicator bound where the mesh is used (``Mesh.comm``).
+    """The ``(data, model)`` mesh on ``device`` (default ``cuda``):
+    ``data`` data-parallel ranks times ``model`` tensor-parallel ranks,
+    row-major (the rank at ``(d, m)`` is ``d * model + m``), the calling
+    rank's communicator bound where the mesh is used (``Mesh.comm``).
+    Serving runs on any such mesh; training over ``model`` above 1 raises
+    in the train step (ROADMAP.md queue 1 item 4.10).
 
     Raises:
-        ValueError: ``data`` below 1, or ``model`` is not 1 (tensor
-            parallelism is ROADMAP.md queue 1 item 4.10).
+        ValueError: ``data`` or ``model`` below 1.
     """
-    if int(model) != 1:
-        raise ValueError(
-            f"a ({data}, {model}) mesh needs tensor-parallel training over "
-            f"the model axis, which the port does not have yet (ROADMAP.md "
-            f"queue 1 item 4.10); use model=1")
-    if int(data) < 1:
-        raise ValueError(f"data must be >= 1, got {data}")
-    return make_mesh((int(data), 1), ("data", "model"), device)
+    if int(data) < 1 or int(model) < 1:
+        raise ValueError(f"data and model must be >= 1, got ({data}, "
+                         f"{model})")
+    return make_mesh((int(data), int(model)), ("data", "model"), device)

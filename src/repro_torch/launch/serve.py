@@ -7,10 +7,22 @@ decodes them through the batched ``ServeEngine`` (reference:
 ``--device``). Runs on the card unless ``--device cpu``. Codebook archs
 get ``[prompt_len, n_codebooks]`` prompts; an embeddings arch exits, as
 the reference's driver does.
+
+``--data-parallel D --model-parallel M`` serves over a ``(D, M)`` mesh of
+ranks (``launch.mesh.make_host_mesh(D, M)``): each rank holds its shards
+of the parameters (``models.model.shard_params``: heads, ``mlp``,
+experts and vocabulary over ``model``) and its data rows of the batch,
+and every rank prints nothing but rank 0. Called inside a rank of D x M
+(``torchrun --nproc-per-node D*M -m repro_torch.launch.serve ...``, or a
+``dist.launch`` rank) it serves on that rank; called outside one, it
+launches D x M ranks on ``--device`` (processes: ranks sharing one card
+reduce over gloo, ranks with a card each over NCCL), each running the
+same command, and returns rank 0's transcripts.
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import numpy as np
@@ -18,11 +30,16 @@ import torch
 
 from repro_torch import configs
 from repro_torch.device import resolve_device
+from repro_torch.dist import current, launch
+from repro_torch.dist.rules import resolve_rules
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M
 from repro_torch.serve import Request, ServeEngine
 
 
 def main(argv=None):
+    """Parse ``argv`` (default: the command line), serve, print; returns
+    the requests' transcripts (rank 0's when it launched the ranks)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma3_1b")
     ap.add_argument("--requests", type=int, default=6)
@@ -30,18 +47,37 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-seq", type=int, default=64)
+    ap.add_argument("--data-parallel", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    mesh = make_host_mesh(args.data_parallel, args.model_parallel,
+                          device=args.device)
+    if mesh.size > 1 and current() is None:
+        return launch.launch(_rank_main, mesh.size, args=(list(
+            argv if argv is not None else sys.argv[1:]),),
+            device=args.device)
     dev = resolve_device(args.device)
+    comm = mesh.comm
+    if comm is not None:        # a rank (torchrun's too) on its own card
+        dev = launch.rank_device(mesh.device, comm.rank)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        mesh = make_host_mesh(args.data_parallel, args.model_parallel,
+                              device=dev)
     cfg = configs.get_config(args.arch, smoke=True)
     if cfg.input_mode == "embeddings":
         raise SystemExit("VLM stub serves via precomputed embeddings; "
                          "use a token arch for this driver")
+    rules = resolve_rules(mesh, cfg, "decode", batch_size=args.batch,
+                          overrides=configs.sharding_overrides(
+                              args.arch, "decode"))
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = M.init_params(cfg, gen, device=dev)
-    engine = ServeEngine(cfg, None, params, batch=args.batch,
+    params = M.shard_params(M.init_params(cfg, gen, device=dev), cfg,
+                            rules)
+    engine = ServeEngine(cfg, rules, params, batch=args.batch,
                          max_seq=args.max_seq)
     rng = np.random.default_rng(0)
     shape = ((args.prompt_len,) if cfg.input_mode == "tokens"
@@ -54,11 +90,21 @@ def main(argv=None):
     t0 = time.perf_counter()
     engine.run(reqs)
     dt = time.perf_counter() - t0
-    n_tok = sum(len(r.out) for r in reqs)
-    for r in reqs[:3]:
-        print(f"req {r.uid}: {r.out[:10]} ...")
-    print(f"{len(reqs)} requests, {n_tok} tokens in {dt:.2f}s "
-          f"({n_tok / dt:.1f} tok/s host-loop) on {dev}")
+    if comm is None or comm.rank == 0:
+        n_tok = sum(len(r.out) for r in reqs)
+        for r in reqs[:3]:
+            print(f"req {r.uid}: {r.out[:10]} ...")
+        where = dev if comm is None else \
+            f"{mesh.shape} ranks on {dev.type}"
+        print(f"{len(reqs)} requests, {n_tok} tokens in {dt:.2f}s "
+              f"({n_tok / dt:.1f} tok/s host-loop) on {where}", flush=True)
+    return [r.out for r in reqs]
+
+
+def _rank_main(argv):
+    """Body of a rank that ``main`` launched: the same command on the
+    rank; its transcripts."""
+    return main(argv)
 
 
 if __name__ == "__main__":

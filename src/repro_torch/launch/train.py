@@ -57,6 +57,12 @@ def main(argv=None):
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.model_parallel != 1:
+        raise ValueError(
+            f"--model-parallel {args.model_parallel}: training over the "
+            f"model axis needs the backward of its collectives, which the "
+            f"port does not have yet (ROADMAP.md queue 1 item 4.10); serving "
+            f"runs over it (launch.serve --model-parallel)")
 
     mesh = make_host_mesh(args.data_parallel, args.model_parallel,
                           device=args.device)

@@ -7,9 +7,20 @@ and the dense MLP (reference: ``repro/models/layers.py``).
 * ``attention(params, x, cfg, rules, ...)`` is the forward function. It
   covers full causal and sliding-window (``kind="swa"``) attention (train
   / prefill) and single-token decode against a KV cache, the window-sized
-  ring cache included. ``rules`` is the reference's sharding table; this
-  single-device path accepts it and ignores it (sharding belongs to the
-  multi-device slice).
+  ring cache included.
+
+``rules`` (``dist.rules.Rules``) shards both over the ``model`` axis,
+with one decision for every layer (``dist.rules.splits``: a leaf is held
+as its shard where the extent divides the dimension its spec names, and
+whole elsewhere). Attention keeps a rank's query heads of ``wq`` and
+``wo`` and its KV heads of ``wk``/``wv`` and the cache; where the KV
+heads are held whole and the query heads split (MQA at ``model=2``),
+the rank reads the KV heads its query heads map to (``_rank_kv``). The
+MLP keeps its columns of ``w_gate``/``w_up`` and rows of ``w_down``. A
+product over a split dimension (``wo`` over heads, ``w_down`` over
+``mlp``) gives partial sums, all-reduced once over ``model``
+(``dist.rules.reduce_partial``); over a dimension held whole, nothing
+is reduced. Without rules, or on one rank, nothing is split.
 
 Numerics follow the reference where they decide routing and greedy
 tokens: RMSNorm squares in the activation dtype before the float32 mean,
@@ -29,6 +40,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.dist.rules import local_range, reduce_partial, splits
 from repro_torch.kernels import ops
 
 
@@ -76,6 +88,37 @@ def attention_params(cfg, create, kind="full"):
         "wo": create((cfg.n_heads, hd, d), ("heads", "head_dim", "embed"),
                      (cfg.n_heads * hd) ** -0.5),
     }
+
+
+def _rank_kv(cfg, rules):
+    """Which of the KV heads a rank holds its query heads read: None for
+    all of them, in order (the heads held whole, or both split: the
+    rank's KV shard is its heads' groups); else, with the query heads
+    split and the KV heads whole, ``(lo, hi)`` when the rank's heads
+    ``[h0, h1)`` fill whole groups of KV heads ``h // (H / KV)`` evenly
+    (gemma3's 4:1 at ``model=2``: each rank keeps KV head 0), or the index
+    tensor of each query head's KV head (groups straddled unevenly: K/V
+    expanded to the rank's heads)."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if not splits(rules, "heads", H) or splits(rules, "kv_heads", KV):
+        return None
+    h0, h1 = local_range(rules, "heads", H)
+    of = [h // (H // KV) for h in range(h0, h1)]
+    lo, hi = of[0], of[-1] + 1
+    if all(of.count(j) == len(of) // (hi - lo) for j in range(lo, hi)):
+        return lo, hi
+    return torch.tensor(of)
+
+
+def _select_kv(t, sel):
+    """``t`` [B, T, KV, dh] at the KV heads ``_rank_kv`` chose: a view
+    along the head axis (its strides stay the flash kernel's) or a
+    gather."""
+    if sel is None:
+        return t
+    if isinstance(sel, tuple):
+        return t[:, :, sel[0]:sel[1]]
+    return t.index_select(2, sel.to(t.device))
 
 
 def _gqa_scores(q, k, cfg):
@@ -149,9 +192,12 @@ def attention(params, x, cfg, rules=None, kind="full", positions=None,
     writes at ``pos % T`` of a window-sized cache; every other layer at
     ``pos``. The cache tensors are updated in place (the reference returns
     updated copies; the serving loop hands the cache on either way) and
-    returned. ``rules`` and ``unroll_chunks`` are accepted for the
-    reference's signature and ignored."""
-    del rules, unroll_chunks
+    returned. On a mesh that splits ``model`` (``rules``), ``params``
+    are the rank's shards and ``cache`` its own; the output is whole on
+    every rank (the partial sums of ``wo`` all-reduced where the heads
+    are split). ``unroll_chunks`` is accepted for the reference's
+    signature and ignored."""
+    del unroll_chunks
     if kind not in ("full", "swa"):
         raise ValueError(f"attention kind={kind!r}: full or swa")
     B, S, D = x.shape
@@ -162,19 +208,21 @@ def attention(params, x, cfg, rules=None, kind="full", positions=None,
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
+    sel = _rank_kv(cfg, rules)
 
     if cache is None:
         if positions is None:
             positions = torch.arange(S, device=x.device)
         q = rope(q, positions, theta)
         k = rope(k, positions, theta)
+        kq, vq = _select_kv(k, sel), _select_kv(v, sel)
         if S >= FLASH_S_MIN and kind == "swa":
-            out = _local_band(q, k, v, cfg).to(dt)
+            out = _local_band(q, kq, vq, cfg).to(dt)
         elif S >= FLASH_S_MIN:
-            out = ops.flash_attention(q, k, v, bq=_QC, bk=_KVC,
+            out = ops.flash_attention(q, kq, vq, bq=_QC, bk=_KVC,
                                       softcap=cfg.logit_softcap or 0.0)
         else:
-            scores = _gqa_scores(q, k, cfg)
+            scores = _gqa_scores(q, kq, cfg)
             qpos, kpos = positions[:, None], positions[None, :]
             mask = kpos <= qpos
             if kind == "swa":
@@ -184,7 +232,7 @@ def attention(params, x, cfg, rules=None, kind="full", positions=None,
                     cfg.logit_softcap
             scores = torch.where(mask[None, None, None], scores, -1e30)
             probs = torch.softmax(scores, dim=-1).to(dt)
-            out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+            out = torch.einsum("bkgst,btkd->bskgd", probs, vq)
         new_cache = {"k": k, "v": v} if want_cache else None
     else:
         # single-token decode
@@ -201,7 +249,8 @@ def attention(params, x, cfg, rules=None, kind="full", positions=None,
         k = rope(k, pos_s, theta)
         ck[:, wpos:wpos + S] = k.to(ck.dtype)
         cv[:, wpos:wpos + S] = v.to(cv.dtype)
-        scores = _gqa_scores(q, ck.to(dt), cfg)         # [B,KV,G,1,T]
+        scores = _gqa_scores(q, _select_kv(ck, sel).to(dt),
+                             cfg)                       # [B,KV,G,1,T]
         slots = torch.arange(T, device=x.device)
         # ring: slot s holds position pos - ((pos - s) mod T); slots not
         # yet written map to negative positions and are masked
@@ -213,12 +262,13 @@ def attention(params, x, cfg, rules=None, kind="full", positions=None,
             scores = torch.tanh(scores / cfg.logit_softcap) * cfg.logit_softcap
         scores = torch.where(mask, scores, -1e30)
         probs = torch.softmax(scores, dim=-1).to(dt)
-        out = torch.einsum("bkgst,btkd->bskgd", probs, cv.to(dt))
+        out = torch.einsum("bkgst,btkd->bskgd", probs,
+                           _select_kv(cv, sel).to(dt))
         new_cache = {"k": ck, "v": cv}
 
-    out = out.reshape(B, S, cfg.n_heads, cfg.hd)
+    out = out.reshape(B, S, q.shape[2], cfg.hd)     # the rank's heads
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
-    return out, new_cache
+    return reduce_partial(out, rules, "heads", cfg.n_heads), new_cache
 
 
 def mlp_params(cfg, create):
@@ -233,12 +283,14 @@ def mlp_params(cfg, create):
 
 def mlp(params, x, cfg, rules=None):
     """swiglu: ``silu(x w_gate) * (x w_up) w_down``; gelu: ``gelu(x w_up)
-    w_down`` with the tanh approximation. Weights cast to x's dtype."""
-    del rules
+    w_down`` with the tanh approximation. Weights cast to x's dtype. On
+    a mesh that splits ``mlp``, the rank's columns and rows, and one
+    all-reduce of the output."""
     dt = x.dtype
     w_up = params["w_up"].to(dt)
     if cfg.mlp_kind == "swiglu":
         h = torch.nn.functional.silu(x @ params["w_gate"].to(dt)) * (x @ w_up)
     else:
         h = torch.nn.functional.gelu(x @ w_up, approximate="tanh")
-    return h @ params["w_down"].to(dt)
+    return reduce_partial(h @ params["w_down"].to(dt), rules, "mlp",
+                          cfg.d_ff)

@@ -17,8 +17,16 @@ train: a rank then holds each leaf that the rules split over ``data``
 (every ``embed`` leaf) as its shard, and the forward makes it whole
 where it is used (``dist.fsdp.gather``): the embedding table and the
 head at their use, a layer's leaves inside the layer, so that remat's
-recompute gathers them again. Every other sharding constraint is the
-identity on a rank's own rows. ``abstract_params`` gives the tree as
+recompute gathers them again. In serving (``prefill``, ``decode_step``,
+``init_cache``) ``rules`` shard over ``model`` as well: a rank holds the
+shards ``shard_params`` cuts (heads, ``mlp``, experts, vocabulary) and
+its own cache, each layer computes on its shards and all-reduces its
+partial sums once (``layers.py``, ``moe.py``), the embedding looks up
+the rank's vocabulary range, zero elsewhere, and all-reduces (exact: one
+value and zeros), and the head's logits are all-gathered along the
+vocabulary (exact). Over ``data`` a rank holds its own batch rows. Mamba
+and RWKV layers over ``model`` raise (ROADMAP.md queue 1 item 4.10).
+``abstract_params`` gives the tree as
 ``meta`` tensors, and ``param_logical_specs`` and ``cache_logical_specs``
 its logical axis names, as the reference's do. ``remat`` with
 gradients on wraps each layer in ``torch.utils.checkpoint`` (the
@@ -35,7 +43,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.dist import fsdp
-from repro_torch.dist.rules import param_shardings
+from repro_torch.dist.rules import (gather_split, local_range,
+                                    param_shardings, reduce_partial,
+                                    splits)
 
 from . import layers as L
 from . import moe as MOE
@@ -170,6 +180,39 @@ def param_count(params) -> int:
     return sum(int(x.numel()) for x in _leaves(params))
 
 
+def shard_params(params, cfg: ModelConfig, rules):
+    """The rank's shards of the whole parameter tree ``params`` (from
+    ``init_params`` or ``convert.params_from_numpy``) under ``rules``:
+    each leaf split where the extent divides the dimension its logical
+    spec names (``NamedSharding.local``; the reference's
+    ``rules.sharding(spec).shard_shape``), copied into its own storage,
+    and whole elsewhere. ``params`` itself without rules or on one rank.
+    """
+    if rules is None or rules.mesh.size == 1:
+        return params
+    check_served(cfg, rules)
+    return fsdp.local(params, param_shardings(rules,
+                                              param_logical_specs(cfg)))
+
+
+def check_served(cfg: ModelConfig, rules) -> None:
+    """Raise where a config meets serving rules that split ``model``
+    over a layer kind that has no sharded form yet.
+
+    Raises:
+        ValueError: a Mamba or RWKV layer on a mesh whose ``model``
+            extent is above 1 (ROADMAP.md queue 1 item 4.10).
+    """
+    if rules is None or rules.mesh.shape.get("model", 1) == 1:
+        return
+    kinds = sorted({s.attn for s in cfg.pattern} & {"mamba", "rwkv"})
+    if kinds:
+        raise ValueError(
+            f"{cfg.name}: {' and '.join(kinds)} layers over the model axis "
+            f"({rules.mesh.shape}) are not ported yet (ROADMAP.md queue 1 "
+            f"item 4.10); serve it with model=1")
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -199,22 +242,41 @@ def _top_leaf(params, key, plan):
     return fsdp.gather(params[key], split)
 
 
+def _rank_rows(table, tok, cfg, rules):
+    """``table[tok]`` in the activation dtype (gather, then cast: the
+    same bits as the reference's cast-then-gather). On a mesh that splits
+    ``vocab``, ``table`` is the rank's rows ``[v0, v1)`` and a token
+    outside them reads zero: the caller sums the ranks' rows."""
+    if not splits(rules, "vocab", cfg.vocab_padded):
+        return table[tok].to(cfg.act_dtype)
+    v0, v1 = local_range(rules, "vocab", cfg.vocab_padded)
+    ids = tok - v0
+    mine = (ids >= 0) & (ids < v1 - v0)
+    rows = table[torch.where(mine, ids, 0)].to(cfg.act_dtype)
+    return torch.where(mine[..., None], rows, 0)
+
+
 def _embed_input(params, batch, cfg, rules=None, plan=None):
     """tokens: the table's rows times sqrt(d); codebooks ([B, S, n] ids):
     the sum of each codebook's rows, codebook 0 first, in the activation
     dtype and unscaled; embeddings: ``batch["embeddings"]`` [B, S, D] cast
     to the activation dtype. ``plan``: ``fsdp_plan``'s, the table
-    gathered first."""
+    gathered first. Over ``vocab``-split ranks, the ranks' rows
+    (``_rank_rows``) are all-reduced once, before the codebooks' sum and
+    the scale: a sum of one value and zeros, so ``x`` is bit-equal to one
+    rank's."""
     dt = cfg.act_dtype
+    V = cfg.vocab_padded
     if cfg.input_mode == "embeddings":
         return batch["embeddings"].to(dt)
     tok = batch["tokens"].long()
-    # gather, then cast: the same bits as the reference's cast-then-gather
+    emb = _top_leaf(params, "embed", plan)
     if cfg.input_mode == "codebooks":
-        emb = _top_leaf(params, "embed", plan)
-        return sum(emb[i][tok[..., i]].to(dt)
-                   for i in range(cfg.n_codebooks))
-    x = _top_leaf(params, "embed", plan)[tok].to(dt)
+        rows = reduce_partial(torch.stack([
+            _rank_rows(emb[i], tok[..., i], cfg, rules)
+            for i in range(cfg.n_codebooks)]), rules, "vocab", V)
+        return sum(rows[i] for i in range(cfg.n_codebooks))
+    x = reduce_partial(_rank_rows(emb, tok, cfg, rules), rules, "vocab", V)
     # sqrt(d) rounded to the activation dtype first, as the reference
     # does; the product of two such values is exact before its rounding
     scale = float(torch.tensor(cfg.d_model ** 0.5).to(dt))
@@ -270,14 +332,14 @@ def _layer_apply(p, spec: LayerSpec, x, cfg, rules=None, positions=None,
     return x + out2, new_cache, new_infl, stats
 
 
-def _remat_layer(p, spec, x, cfg, positions, influence, gather):
+def _remat_layer(p, spec, x, cfg, rules, positions, influence, gather):
     """The layer ``torch.utils.checkpoint`` recomputes in the backward:
     its leaves made whole by ``gather`` (``dist.fsdp.gather_tree`` of the
     layer's splits: the recompute gathers them again) and
     ``_layer_apply`` at training (no cache). Its recompute routes as the
     first pass did (the router kernel is deterministic); the influence
     and loads it recomputes are dropped, the first pass's are kept."""
-    return _layer_apply(gather(p), spec, x, cfg, None, positions,
+    return _layer_apply(gather(p), spec, x, cfg, rules, positions,
                         influence=influence)
 
 
@@ -305,6 +367,7 @@ def forward(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False,
     ``want_cache``: emit the populated decode cache (prefill).
     ``last_only``: unembed only the final position."""
     del unroll
+    check_served(cfg, rules)
     remat = remat and torch.is_grad_enabled() and not want_cache
     plan = fsdp_plan(cfg, rules)
     x = _embed_input(params, batch, cfg, rules, plan)
@@ -330,8 +393,8 @@ def forward(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False,
                 else None
             if remat:
                 x, nc, ni, st = checkpoint(
-                    _remat_layer, p_r[f"pos{i}"], spec, x, cfg, positions,
-                    inf_i, gathers[i], use_reentrant=False)
+                    _remat_layer, p_r[f"pos{i}"], spec, x, cfg, rules,
+                    positions, inf_i, gathers[i], use_reentrant=False)
             else:
                 x, nc, ni, st = _layer_apply(gathers[i](p_r[f"pos{i}"]),
                                              spec, x, cfg, rules, positions,
@@ -370,7 +433,10 @@ def forward(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False,
 def prefill(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False):
     """Serving prefill: full-sequence forward that returns the last-position
     logits and the populated decode cache (the layout of
-    ``init_cache``/``decode_step``)."""
+    ``init_cache``/``decode_step``). Over ranks (``rules``): ``params``
+    are the rank's shards (``shard_params``) and ``batch`` the rank's
+    rows; the logits come back whole along the vocabulary, the cache is
+    the rank's."""
     logits, _, _, cache = forward(params, batch, cfg, rules, unroll=unroll,
                                   remat=False, want_cache=True,
                                   last_only=True)
@@ -379,15 +445,19 @@ def prefill(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False):
 
 def _unembed(params, x, cfg, rules=None, plan=None):
     """Logits [B, S, V], or [B, S, n_codebooks, V] with one head a
-    codebook. ``plan``: ``fsdp_plan``'s, the head gathered first."""
+    codebook. ``plan``: ``fsdp_plan``'s, the head gathered first. Over
+    ``vocab``-split ranks, each rank's logits of its vocabulary range are
+    all-gathered along the last dim (exact)."""
     dt = x.dtype
     if cfg.tie_embeddings:
         w = _top_leaf(params, "embed", plan).to(dt).T
     else:
         w = _top_leaf(params, "lm_head", plan).to(dt)
     if cfg.input_mode == "codebooks":
-        return torch.einsum("bsd,ndv->bsnv", x, w)
-    return x @ w
+        logits = torch.einsum("bsd,ndv->bsnv", x, w)
+    else:
+        logits = x @ w
+    return gather_split(logits, rules, "vocab", cfg.vocab_padded, -1)
 
 
 def loss_fn(logits, labels, cfg, z_loss: float = 1e-4):
@@ -418,10 +488,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, rules=None,
     in the activation dtype, SSM states as ``ssm.mamba_state_init`` /
     ``ssm.rwkv_state_init`` make them. A ``swa`` layer of a config with
     ``swa_ring_cache`` gets a ring of ``min(max_seq, window)`` slots.
-    ``device`` defaults to ``cuda``."""
+    ``device`` defaults to ``cuda``. With ``rules``, the rank's cache of
+    a ``batch`` of global rows: its rows where ``act_batch`` divides
+    ``batch``, its KV heads where ``cache_kv`` divides them (whole where
+    not: gemma3's one KV head at ``model=2``)."""
+    check_served(cfg, rules)
     dev = resolve_device(device)
     dt = cfg.act_dtype
     R = cfg.n_repeats
+    b0, b1 = local_range(rules, "act_batch", batch)
+    batch = b1 - b0
+    k0, k1 = local_range(rules, "cache_kv", cfg.n_kv_heads)
     cache = {}
     for i, spec in enumerate(cfg.pattern):
         if spec.attn in ("mamba", "rwkv"):
@@ -434,7 +511,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, rules=None,
         seq = max_seq
         if spec.attn == "swa" and cfg.swa_ring_cache:
             seq = min(max_seq, cfg.window)
-        shape = (R, batch, seq, cfg.n_kv_heads, cfg.hd)
+        shape = (R, batch, seq, k1 - k0, cfg.hd)
         cache[f"pos{i}"] = {"k": torch.zeros(shape, dtype=dt, device=dev),
                             "v": torch.zeros(shape, dtype=dt, device=dev)}
     return cache
@@ -483,8 +560,11 @@ def decode_step(params, cache, batch, pos, cfg: ModelConfig, rules=None,
     """One-token decode. batch: {"tokens": [B,1]} ({"tokens": [B,1,n]}
     for codebooks, {"embeddings": [B,1,D]} for embeddings); pos: int.
     Returns (logits [B,1,V] or [B,1,n,V], cache), the cache updated in
-    place."""
+    place. Over ranks (``rules``): ``params`` and ``cache`` are the
+    rank's, ``batch`` its rows; the logits come back whole along the
+    vocabulary."""
     del unroll
+    check_served(cfg, rules)
     x = _embed_input(params, batch, cfg, rules)
     for r in range(cfg.n_repeats):
         p_r = _index(params["layers"], r)

@@ -25,8 +25,19 @@ product for every config.
 
 Dispatch is the reference's gather-based scheme, integer for integer: the
 capacity ``C``, the stable argsort of expert ids, ``starts``, ``valid``
-and ``slot``. ``rules`` is accepted and ignored on this single-device
-path.
+and ``slot``.
+
+On a mesh that splits ``expert`` over ``model`` (``rules``), a rank holds
+its experts ``[e0, e1)`` of every expert leaf (``centroids`` and the
+linear ``router`` included). It all-gathers the router's leaf once a
+layer and routes every token on the whole, so the experts chosen, the
+dispatch and the loads are the same bits on every rank (the layer's
+input is, since the all-reduce before it gives every rank the same
+bits). It computes its own experts' slots only, zero for the others',
+adds the shared expert's partial sum (``mlp``-split), and makes one
+all-reduce of the summed output. Where E (or the shared expert's width)
+is not divided, that part is held whole and not reduced
+(``dist.rules.splits``).
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ import torch
 
 from repro_torch.core.balanced_kmeans import adapt_influence
 from repro_torch.device import resolve_device
+from repro_torch.dist.rules import gather_split, local_range, splits
 from repro_torch.kernels import ops
 
 
@@ -101,25 +113,30 @@ def moe_apply(params, x, cfg, rules=None, influence=None):
     realized tokens an expert) of these rows.
 
     Dispatch groups are per batch row: capacity is ``top_k * S / E * cf``
-    per group."""
-    del rules
+    per group. With ``rules`` splitting ``expert``, ``params`` are the
+    rank's experts and the output is whole on every rank."""
     m = cfg.moe
     B, S, D = x.shape
     E, K = m.n_experts, m.top_k
     dt = x.dtype
     dev = x.device
+    e0, e1 = local_range(rules, "expert", E)
+    # the router's own leaf, whole: centroids [E, D] or weights [D, E]
+    key = "centroids" if m.router == "balanced_kmeans" else "router"
+    router = {key: gather_split(params[key], rules, "expert", E,
+                                0 if key == "centroids" else 1)}
 
     if m.router == "balanced_kmeans":
         xt = x.reshape(B * S, D)
-        eidx, eff = ops.router_topk_divide(xt, params["centroids"],
+        eidx, eff = ops.router_topk_divide(xt, router["centroids"],
                                            influence, K)
         if torch.is_grad_enabled() and (xt.requires_grad or
                                         params["centroids"].requires_grad):
-            gates = router_gates(params, xt, m, influence, eidx)
+            gates = router_gates(router, xt, m, influence, eidx)
         else:
             gates = -eff                  # top-k logits, descending
     else:
-        logits = router_logits(params, x.reshape(B * S, D), m, influence)
+        logits = router_logits(router, x.reshape(B * S, D), m, influence)
         # stable descending sort: ties keep the lower expert first, as
         # jax.lax.top_k orders them
         gates, eidx = torch.sort(logits, dim=-1, descending=True,
@@ -142,32 +159,46 @@ def moe_apply(params, x, cfg, rules=None, influence=None):
     counts = torch.sum(onehot, dim=1)                    # [B, E]
     starts = torch.cumsum(counts, dim=1) - counts        # exclusive
     c_idx = torch.arange(C, device=dev)[None, None]
-    src_pos = torch.clamp(starts[:, :, None] + c_idx, 0, T - 1)
-    valid = c_idx < torch.clamp(counts, max=C)[:, :, None]   # [B, E, C]
-    tok_idx = torch.gather(order, 1, src_pos.reshape(B, E * C))
+    # the rank's experts' slots only (all of them where E is held whole)
+    El = e1 - e0
+    src_pos = torch.clamp(starts[:, e0:e1, None] + c_idx, 0, T - 1)
+    valid = c_idx < torch.clamp(counts[:, e0:e1], max=C)[:, :, None]
+    tok_idx = torch.gather(order, 1, src_pos.reshape(B, El * C))
     if m.dispatch_no_repeat:
         hidden = _gather_rows(x, tok_idx // K)
     else:
         src = torch.repeat_interleave(x, K, dim=1) if K > 1 else x
         hidden = _gather_rows(src, tok_idx)
-    hidden = hidden * valid.reshape(B, E * C, 1).to(dt)
-    hidden = hidden.reshape(B, E, C, D)
+    hidden = hidden * valid.reshape(B, El * C, 1).to(dt)
+    hidden = hidden.reshape(B, El, C, D)
 
     g = torch.nn.functional.silu(torch.einsum(
         "becd,edf->becf", hidden, params["w_gate"].to(dt)))
     u = torch.einsum("becd,edf->becf", hidden, params["w_up"].to(dt))
     eo = torch.einsum("becf,efd->becd", g * u, params["w_down"].to(dt))
-    eo = torch.cat([eo.reshape(B, E * C, D),
-                    torch.zeros(B, 1, D, dtype=dt, device=dev)], dim=1)
+    # the other ranks' slots and the overflow sentinel read zero
+    eo = torch.nn.functional.pad(eo.reshape(B, El * C, D),
+                                 (0, 0, e0 * C, (E - e1) * C + 1))
     gathered = _gather_rows(eo, slot)                    # [B,S*K,D]
     w = (gates.reshape(B, S * K) * ok.to(dt))[..., None]
     out = torch.sum((gathered * w).reshape(B, S, K, D), dim=2)
 
+    split = splits(rules, "expert", E)
     if m.n_shared_experts:
         sp = params["shared"]
         h = torch.nn.functional.silu(x @ sp["w_gate"].to(dt)) * \
             (x @ sp["w_up"].to(dt))
-        out = out + h @ sp["w_down"].to(dt)
+        shared = h @ sp["w_down"].to(dt)
+        fs = m.d_ff * m.n_shared_experts
+        if splits(rules, "mlp", fs) == split:
+            out = out + shared          # both partial, or both whole
+        elif split:                     # experts partial, shared whole
+            out = rules.reduce(out, "expert") + shared
+            split = False
+        else:                           # experts whole, shared partial
+            out = out + rules.reduce(shared, "mlp")
+    if split:
+        out = rules.reduce(out, "expert")
 
     # --- paper Eq. (1): influence update from realized loads -------------
     load = torch.sum(onehot.float(), dim=(0, 1))                 # [E]

@@ -12,6 +12,13 @@ a transcript holds codebook 0, as the reference's does. An
 ``embeddings``-mode config has no token table to feed its outputs back
 through: it is served by ``make_serve_step`` with embedding inputs, and
 ``ServeEngine.run`` raises for it (the reference's engine fails on it too).
+
+Over a ``(data, model)`` mesh of ranks (``rules``; every rank runs the
+same host loop over all B slots): a rank holds ``models.model.
+shard_params``' shards and its own cache, and decodes its data rows
+``[d*B/D, (d+1)*B/D)`` (all of them where ``act_batch`` does not divide
+B); the next tokens and the logits are all-gathered over ``data``, so
+every request's transcript is the same on every rank.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.dist.rules import gather_split, local_range
 from repro_torch.models import model as M
 
 
@@ -28,7 +36,9 @@ def make_serve_step(cfg, rules=None, sample: str = "greedy",
     """Returns serve_step(params, cache, tokens, pos) ->
     (next_tokens [B,1] (or [B,1,n_codebooks]) int32, cache, logits);
     ``tokens`` is the [B,1,D] embeddings batch of an ``embeddings``-mode
-    config.
+    config. ``tokens`` holds all B rows; ``params`` and ``cache`` are the
+    rank's (``M.shard_params``, ``M.init_cache`` with ``rules``); the
+    next tokens and the logits come back whole on every rank.
 
     Only greedy decoding exists. The reference accepts any ``sample`` and
     decodes greedily all the same; the port raises ``ValueError`` for
@@ -40,8 +50,12 @@ def make_serve_step(cfg, rules=None, sample: str = "greedy",
     key = "embeddings" if cfg.input_mode == "embeddings" else "tokens"
 
     def serve_step(params, cache, tokens, pos):
-        logits, new_cache = M.decode_step(params, cache, {key: tokens},
-                                          pos, cfg, rules, unroll=unroll)
+        B = tokens.shape[0]
+        b0, b1 = local_range(rules, "act_batch", B)
+        logits, new_cache = M.decode_step(params, cache,
+                                          {key: tokens[b0:b1]}, pos, cfg,
+                                          rules, unroll=unroll)
+        logits = gather_split(logits, rules, "act_batch", B, 0)
         lf = logits.float()
         if cfg.vocab_size < cfg.vocab_padded:
             pad = torch.arange(cfg.vocab_padded,

@@ -248,9 +248,9 @@ def _data_comm(rules):
         return None
     if rules.mesh.shape.get("model", 1) != 1:
         raise ValueError(
-            f"training on a {rules.mesh.shape} mesh needs tensor "
-            f"parallelism over the model axis, which the port does not "
-            f"have yet (ROADMAP.md queue 1 item 4.10)")
+            f"training on a {rules.mesh.shape} mesh needs the backward of "
+            f"the model axis' collectives, which the port does not have "
+            f"yet (ROADMAP.md queue 1 item 4.10); serving runs over it")
     return rules.mesh.axis_comm("data")
 
 

@@ -197,23 +197,22 @@ def test_rules_on_one_rank():
 
 @pytest.mark.parametrize("data,model", [(2, 1), (1, 2), (4, 4)])
 def test_make_host_mesh_is_one_rank(data, model):
-    """The default mesh is one rank. Data parallelism over ranks is
-    ported (ROADMAP.md queue 1 item 4.9): ``(data, 1)`` is a mesh of that
-    shape, its communicator bound only inside a rank. Tensor parallelism
-    is queue 1 item 4.10: a model extent above 1 raises and names it."""
+    """The default mesh is one rank. Any ``(data, model)`` mesh is a mesh
+    of that shape (data ranks since ROADMAP.md queue 1 item 4.9, the
+    model axis for serving since the serving half of item 4.10), its
+    communicator bound only inside a rank: outside one it raises."""
     mesh = make_host_mesh(device="cpu")
     assert mesh.axis_names == ("data", "model")
     assert mesh.shape == {"data": 1, "model": 1}
     assert mesh.comm is None
-    if model == 1:
-        mesh = make_host_mesh(data, model, device="cpu")
-        assert mesh.axis_names == ("data", "model")
-        assert mesh.shape == {"data": data, "model": 1}
-        with pytest.raises(RuntimeError, match="outside a rank"):
-            mesh.comm
-        return
-    with pytest.raises(ValueError, match="4.10"):
-        make_host_mesh(data, model, device="cpu")
+    mesh = make_host_mesh(data, model, device="cpu")
+    assert mesh.axis_names == ("data", "model")
+    assert mesh.shape == {"data": data, "model": model}
+    assert mesh.size == data * model
+    with pytest.raises(RuntimeError, match="outside a rank"):
+        mesh.comm
+    with pytest.raises(ValueError, match=">= 1"):
+        make_host_mesh(data, 0, device="cpu")
 
 
 def test_make_host_mesh_defaults_to_the_card():
