@@ -814,15 +814,38 @@ def compare_flash(torch, B, S, H, KV, dh, dtype, softcap=0.0, bq=512,
 
 def arch_flash_shapes():
     """(B, S, H, KV, dh) of a 4096-token prefill of each config of the
-    archs phase that has full-attention layers, once each: the flash
-    kernel's shapes on those paths."""
+    archs phase that has full-attention layers, and of rank 0's part of
+    each serve_tp config's at model=SERVE_TP_RANKS (its query heads and
+    the KV heads they read, as layers._rank_kv chooses them), once each:
+    the flash kernel's shapes on those paths."""
     from repro_torch import configs
+    from repro_torch.dist.rules import local_range, resolve_rules
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    from repro_torch.models.layers import _rank_kv
+
+    class Rank0(Mesh):
+        """serve_tp's mesh as its rank 0 sees it, outside a rank."""
+
+        def coordinate(self, name):
+            return 0
+
+    base = make_host_mesh(1, SERVE_TP_RANKS, device="cpu")
+    mesh = Rank0(base.axis_names, base.extents, base.device)
     shapes = []
-    for arch, _, _ in ARCH_CELLS:
-        c = configs.get_config(arch)
-        if not any(s.attn == "full" for s in c.pattern):
+    for cfg, ranks in ([(configs.get_config(a), False)
+                        for a, _, _ in ARCH_CELLS] +
+                       [(serve_tp_config(a), True) for a in SERVE_TP_ARCHS]):
+        if not any(s.attn == "full" for s in cfg.pattern):
             continue
-        shape = (1, PREFILL_S, c.n_heads, c.n_kv_heads, c.hd)
+        H, KV = cfg.n_heads, cfg.n_kv_heads
+        if ranks:
+            rules = resolve_rules(mesh, cfg, "prefill", batch_size=1)
+            h0, h1 = local_range(rules, "heads", H)
+            sel = _rank_kv(cfg, rules)
+            k0, k1 = (local_range(rules, "kv_heads", KV) if sel is None
+                      else sel if isinstance(sel, tuple) else (0, len(sel)))
+            H, KV = h1 - h0, k1 - k0
+        shape = (1, PREFILL_S, H, KV, cfg.hd)
         if shape not in shapes:
             shapes.append(shape)
     return shapes
@@ -865,11 +888,11 @@ def phase_lm_kernels(torch):
                                        mode))
     # llama4's MoE layer (E = 128, top-1, D = 5120) at its serve, decode
     # and prefill token counts; jamba's (E = 16, top-2, D = 8192) at its
-    # serve and decode (T = 4) and prefill ones
+    # serve_tp decode (T = 1), serve (T = 4) and prefill ones
     from repro_torch.configs import jamba_1p5_large_398b as jamba
     from repro_torch.configs import llama4_maverick_400b_a17b as llama4
     for mod, tokens in ((llama4, (1, SERVE_BATCH, PREFILL_S)),
-                        (jamba, (SERVE_BATCH, PREFILL_S))):
+                        (jamba, (1, SERVE_BATCH, PREFILL_S))):
         m = mod.CONFIG.moe
         for T in tokens:
             for mode in ROUTER_MODES:
@@ -3273,6 +3296,17 @@ def ssm_layer_profile(torch, ctx, cfg, params, prefill_s):
         f"{n_layers * rms / (prefill_s * 1e3):.1%}  [{ctx['card']}]")
 
 
+def cut_config(cfg, depth):
+    """(``cfg`` cut to its first ``depth`` layers, the cut as
+    ``dataclasses.replace`` arguments); ``(cfg, None)`` for None. A cut
+    below one pattern period keeps the period's first positions."""
+    import dataclasses
+    if depth is None:
+        return cfg, None
+    cut = {"n_layers": depth, "pattern": cfg.pattern[:min(depth, cfg.period)]}
+    return dataclasses.replace(cfg, **cut), cut
+
+
 def phase_archs(torch, ctx):
     """The dense-family and SSM configs at their published widths, one
     after another (ARCH_CELLS; a cut below one pattern period keeps the
@@ -3282,17 +3316,11 @@ def phase_archs(torch, ctx):
     time beside the prefill's, the prefill-vs-stepwise agreements of
     ARCH_AGREEMENTS, and the card against the CPU on the config's
     SMOKE."""
-    import dataclasses
     from repro_torch import configs
     from repro_torch.models import model as M
     for arch, depth, why in ARCH_CELLS:
         t0 = time.perf_counter()
-        cfg = configs.get_config(arch)
-        cut = None
-        if depth is not None:
-            cut = {"n_layers": depth,
-                   "pattern": cfg.pattern[:min(depth, cfg.period)]}
-            cfg = dataclasses.replace(cfg, **cut)
+        cfg, cut = cut_config(configs.get_config(arch), depth)
         origin = (arch, cut, torch.cuda.memory_allocated())
         gen = torch.Generator(device=DEVICE).manual_seed(0)
         params = M.init_params(cfg, gen, device=DEVICE)
@@ -4234,18 +4262,26 @@ def phase_trainer_dp(torch, ctx):
 # granite CONFIG at full depth through ServeEngine (batch SERVE_BATCH,
 # SERVE_REQUESTS x SERVE_PROMPT-token prompts, SERVE_TP_NEW new tokens:
 # half the serve phase's 16, for time), then
-# granite and gemma3 CONFIG prefilled at B=1, S=PREFILL_S and
-# SERVE_TP_DECODE decode steps after it, at model=SERVE_TP_RANKS (gloo
-# rank processes sharing the card) against model=1 in this process
+# granite, gemma3, jamba (the archs phase's cut: pattern positions 0-4,
+# bf16 weights) and rwkv6 (32 layers, float32 weights) CONFIG prefilled
+# at B=1, S=PREFILL_S and SERVE_TP_DECODE decode steps after it, then
+# SERVE_TP_BUSY more under the profiler on rank 0 (but granite's, whose
+# engine steps are profiled), at model=SERVE_TP_RANKS (gloo rank
+# processes sharing the card, each making only its shards, one after
+# another) against model=1 in this process
 SERVE_TP_RANKS = 2
-SERVE_TP_NEW, SERVE_TP_DECODE = 8, 4
-SERVE_TP_ARCHS = ("granite_moe_3b_a800m", "gemma3_1b")
+SERVE_TP_NEW, SERVE_TP_DECODE, SERVE_TP_BUSY = 8, 4, 2
+SERVE_TP_ARCHS = ("granite_moe_3b_a800m", "gemma3_1b",
+                  "jamba_1p5_large_398b", "rwkv6_3b")
 # bf16 logits at model=2 against model=1: the largest |difference| of a
 # row over the row's largest |logit| (kernels.ref.row_relative_error).
 # The partial sums of wo, w_down and the experts round to bf16 on each
 # rank before the all-reduce, once a layer, so the residual stream moves
 # by an ulp or two a layer. Read on the H100 (PERF.md): 0.0036-0.0078 for
-# granite and gemma3; the limit 2e-2 leaves 2.5x headroom (LM_BF16_TOL's
+# granite and gemma3, 0.0034-0.0074 for jamba and rwkv6, whose SSM states
+# after the prefill (Mamba's h, RWKV's s; gated by the same limit over
+# their largest value) read 0.0056-0.0137; the limit 2e-2 leaves 1.5x
+# headroom or more (LM_BF16_TOL's
 # 5e-2 would exempt most greedy rows below). A greedy token is held
 # equal unless model=1's top-2 gap of its row is under the same share of
 # the row's largest |logit|: that row is exempt from there on.
@@ -4265,32 +4301,80 @@ def _tp_decode_tokens(cfg):
         0, cfg.vocab_size, (1, SERVE_TP_DECODE)).astype(np.int32)
 
 
+def serve_tp_config(arch):
+    """``arch``'s CONFIG as serve_tp serves it: the archs phase's cut
+    (ARCH_CELLS: jamba at pattern positions 0-4), whole elsewhere."""
+    from repro_torch import configs
+    depth = dict((a, d) for a, d, _ in ARCH_CELLS).get(arch)
+    return cut_config(configs.get_config(arch), depth)[0]
+
+
+def tp_states(cache, cfg, rules):
+    """The SSM states of a prefill's cache on the host, each whole: Mamba's
+    ``h`` gathered over its ``mlp`` channels and RWKV's ``s`` over its
+    heads from the model ranks (ROADMAP.md queue 3 item 27), by pattern
+    position."""
+    from repro_torch.dist.rules import gather_split
+    di, heads = cfg.mamba_expand * cfg.d_model, \
+        cfg.d_model // cfg.rwkv_head_dim
+    out = {}
+    for pos, c in cache.items():
+        if "h" in c:
+            x = gather_split(c["h"], rules, "mlp", di, 2)
+        elif "s" in c:
+            x = gather_split(c["s"], rules, "heads_joined", heads, 2)
+        else:
+            continue
+        # a copy: the decode steps after the prefill update the cache in
+        # place
+        out[f"{pos} {'h' if 'h' in c else 's'}"] = \
+            x.float().cpu().numpy().copy()
+    return out
+
+
 def serve_tp_arch(torch, arch, mesh, routed, state):
-    """One config of ``serve_tp_body`` on this rank: its parameters (made
-    whole from seed 0, cut to the rank's shards, the whole freed), the
-    engine (granite), the prefill twice (the second timed warm) and the
-    decode steps after it; each path's launch counts from 0, its wall,
-    peak and collectives, its logits on the host."""
+    """One config of ``serve_tp_body`` on this rank: its parameters (the
+    rank's shards made from seed 0 by ``init_params(rules=)``, the ranks
+    one after another), the engine (granite), the prefill twice (the
+    second timed warm), its SSM states whole, the decode steps after it
+    and (but granite) SERVE_TP_BUSY more profiled on rank 0; each path's
+    launch counts from 0, its wall, peak and collectives, its logits on
+    the host."""
     import gc
     import numpy as np
-    from repro_torch import configs
     from repro_torch.dist.rules import resolve_rules
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
     from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_leaves
     from repro_torch.serve import Request, ServeEngine
-    cfg = configs.get_config(arch)
+    cfg = serve_tp_config(arch)
     comm = mesh.comm
     drules = resolve_rules(mesh, cfg, "decode", batch_size=SERVE_BATCH)
     prules = resolve_rules(mesh, cfg, "prefill", batch_size=1)
-    gen = torch.Generator(device=DEVICE).manual_seed(0)
-    t0 = time.perf_counter()
-    params = M.shard_params(M.init_params(cfg, gen, device=DEVICE), cfg,
-                            drules)
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    out = {"init_s": time.perf_counter() - t0,
-           "params_gib": M.param_count(params) * 4 / 2 ** 30, "paths": {}}
+    out = {"paths": {}}
+    # each rank draws every leaf whole and keeps its shard: the ranks take
+    # turns, so that two whole leaves (jamba's expert stacks: 12.9 GB in
+    # float32) are never drawn at once beside two ranks' shards
+    for turn in range(1 if comm is None else comm.size):
+        if comm is None or comm.rank == turn:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            gen = torch.Generator(device=DEVICE).manual_seed(0)
+            params = M.init_params(cfg, gen, device=DEVICE, rules=drules)
+            torch.cuda.synchronize()
+            out["paths"]["init"] = {
+                "wall": time.perf_counter() - t0, "steps": 1, "moved": {},
+                "counts": {n: c for n, c in launch_counts().items() if c},
+                "peak": torch.cuda.max_memory_allocated(),
+                "after": torch.cuda.memory_allocated()}
+            gc.collect()
+            torch.cuda.empty_cache()
+        if comm is not None:
+            comm.all_reduce(torch.zeros(1))
+    out["params_gib"] = sum(x.numel() * x.element_size() for x in
+                            tree_leaves(params)) / 2 ** 30
 
     def run(path, fn, steps=1):
         routed.clear()
@@ -4344,18 +4428,24 @@ def serve_tp_arch(torch, arch, mesh, routed, state):
         logits, cache = run("prefill", lambda: M.prefill(
             params, {"tokens": toks}, cfg, prules))
         out["prefill_logits"] = logits.float().cpu().numpy()
-        cache = M.extend_cache(cache, cfg, PREFILL_S + SERVE_TP_DECODE)
+        out["states"] = tp_states(cache, cfg, drules)
+        busy = 0 if "busy" in out else SERVE_TP_BUSY
+        cache = M.extend_cache(cache, cfg, PREFILL_S + SERVE_TP_DECODE +
+                               busy)
         dec_toks = torch.tensor(_tp_decode_tokens(cfg), device=DEVICE)
 
-        def decode():
+        def decode(first=0, steps=SERVE_TP_DECODE):
             lg = []
-            for t in range(SERVE_TP_DECODE):
+            for t in range(first, first + steps):
                 lg.append(M.decode_step(params, cache, {
-                    "tokens": dec_toks[:, t:t + 1]}, PREFILL_S + t, cfg,
-                    drules)[0].float().cpu().numpy())
+                    "tokens": dec_toks[:, t % SERVE_TP_DECODE:][:, :1]},
+                    PREFILL_S + t, cfg, drules)[0].float().cpu().numpy())
             return lg
 
         out["decode_logits"] = run("decode", decode, SERVE_TP_DECODE)
+        if busy:
+            out["busy"] = tp_busy(torch, lambda: decode(SERVE_TP_DECODE,
+                                                        busy), comm, busy)
         del cache, logits
         gc.collect()
         torch.cuda.empty_cache()
@@ -4367,29 +4457,38 @@ def serve_tp_arch(torch, arch, mesh, routed, state):
     return out
 
 
-def tp_profile(torch, engine, step_fn, comm, steps=4):
-    """Device busy over ``steps`` engine steps at batch SERVE_BATCH on
-    rank 0 (or in this process) under torch.profiler: (device s, wall s)
-    of its own kernels and copies; the other ranks take the same steps
-    unprofiled."""
+def tp_busy(torch, fn, comm, steps):
+    """Device busy of ``fn`` (``steps`` decode steps) on rank 0 (or in this
+    process) under torch.profiler: (device s, wall s) a step of its own
+    kernels and copies; the other ranks run it unprofiled."""
     from torch.profiler import ProfilerActivity, profile
-    cache = engine._fresh_cache()
-    tok = torch.zeros(engine.B, 1, dtype=torch.int32, device=DEVICE)
-    step_fn(engine.params, cache, tok, 0)
     torch.cuda.synchronize()
     if comm is not None and comm.rank:
-        for p in range(1, steps + 1):
-            tok, cache, _ = step_fn(engine.params, cache, tok, p)
+        fn()
         torch.cuda.synchronize()
         return None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for p in range(1, steps + 1):
-            tok, cache, _ = step_fn(engine.params, cache, tok, p)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     return device_rows(prof)[1] / steps, wall / steps
+
+
+def tp_profile(torch, engine, step_fn, comm, steps=4):
+    """``tp_busy`` of ``steps`` engine steps at batch SERVE_BATCH, after
+    one warm step."""
+    cache = engine._fresh_cache()
+    tok = torch.zeros(engine.B, 1, dtype=torch.int32, device=DEVICE)
+    step_fn(engine.params, cache, tok, 0)
+
+    def steps_from_1():
+        t, c = tok, cache
+        for p in range(1, steps + 1):
+            t, c, _ = step_fn(engine.params, c, t, p)
+
+    return tp_busy(torch, steps_from_1, comm, steps)
 
 
 def serve_tp_body(model):
@@ -4419,7 +4518,7 @@ def serve_tp_body(model):
     finally:
         ops.router_topk_divide = inner
     table = [[arch, path, rec["counts"], rec["peak"], rec["wall"],
-              rec["steps"]]
+              rec["steps"], rec.get("after")]
              for arch, r in res.items() for path, rec in r["paths"].items()]
     out = {"res": res}
     if comm is None:
@@ -4443,20 +4542,24 @@ def serve_tp_body(model):
 
 
 def phase_serve_tp(torch, ctx):
-    """Serving over the ``model`` axis: granite and gemma3 CONFIG at
-    ``model=SERVE_TP_RANKS`` (gloo rank processes sharing the card, one
-    ``dist.launch``) against ``model=1`` in this process, first, the same
-    seed, prompts and tokens. Gates: prefill, decode and the engine's
+    """Serving over the ``model`` axis: granite, gemma3, jamba (pattern
+    positions 0-4) and rwkv6 CONFIG at ``model=SERVE_TP_RANKS`` (gloo rank
+    processes sharing the card, one ``dist.launch``, each rank making only
+    its shards) against ``model=1`` in this process, first, the same seed,
+    prompts and tokens. Gates: prefill, decode and the engine's
     prompt-step logits within SERVE_TP_TOL of model=1 (row-relative);
-    greedy tokens equal up to a near-tie of model=1; the experts of every
-    router call bit-equal across the ranks; each rank's launches: the
-    router once a MoE layer a step, flash once a full-attention layer a
-    prefill, nothing else. Prints the engine's ms a step and tokens/s,
-    the prefill's s, each rank's peak against model=1's, the collectives
-    a step and device busy."""
+    jamba's Mamba ``h`` and
+    rwkv6's RWKV ``s`` after the prefill, the ranks' concatenated, within
+    the same share of model=1's largest value; greedy tokens equal up to
+    a near-tie of model=1; the experts of every router call bit-equal
+    across the ranks; each rank's launches: none while it makes its
+    shards, the router once a MoE layer a step, flash once a
+    full-attention layer a prefill, nothing else. Prints the engine's ms
+    a step and tokens/s, the prefill's s, a decode step's ms, each rank's
+    peak (while making its shards, after it, in each path) against
+    model=1's, the collectives a step and rank 0's device busy."""
     import gc
     import numpy as np
-    from repro_torch import configs
     from repro_torch.dist import launch
     from repro_torch.kernels.ref import row_relative_error
     card = ctx["card"]
@@ -4484,14 +4587,12 @@ def phase_serve_tp(torch, ctx):
 
     for tag, out in (("model=1", one), (f"model={SERVE_TP_RANKS}", two)):
         for r, table in enumerate(out["table"]):
-            for arch, path, counts, peak, wall, steps in table:
-                cfg = configs.get_config(arch)
-                moe = sum(s.mlp == "moe" for s in cfg.pattern) * \
-                    cfg.n_repeats
-                full = sum(s.attn == "full" for s in cfg.pattern) * \
-                    cfg.n_repeats
+            for arch, path, counts, peak, wall, steps, after in table:
+                cfg = serve_tp_config(arch)
+                moe = arch_layers(cfg, "mlp", "moe")
+                full = arch_layers(cfg, "attn", "full")
                 prefill = {"router_topk": moe, "flash_attention_tc": full}
-                want = {"engine": {"router_topk": moe * steps},
+                want = {"init": {}, "engine": {"router_topk": moe * steps},
                         "prefill": prefill, "prefill-warm": prefill,
                         "decode": {"router_topk": moe * steps}}[path]
                 want = {k: v for k, v in want.items() if v}
@@ -4499,9 +4600,12 @@ def phase_serve_tp(torch, ctx):
                     = counts
                 check(counts == want, f"serve_tp {cfg.name} {tag} rank {r} "
                       f"{path}: launches {counts}, want {want}")
+                held = "" if after is None else \
+                    f", {after / 2 ** 30:.2f} GiB held after it"
                 log("serve_tp", f"{cfg.name} {tag} rank {r} {path}: "
                     f"launches {counts} ({steps} step(s)), peak "
-                    f"{peak / 2 ** 30:.2f} GiB, wall {wall:.3f} s  [{card}]")
+                    f"{peak / 2 ** 30:.2f} GiB{held}, wall {wall:.3f} s  "
+                    f"[{card}]")
     if two["same_routing"] is not None:
         log("serve_tp", f"model={SERVE_TP_RANKS}: the experts of "
             f"{two['routed_calls']} router calls bit-equal on every rank: "
@@ -4509,7 +4613,7 @@ def phase_serve_tp(torch, ctx):
         check(two["same_routing"], "serve_tp: the ranks routed tokens to "
               "different experts")
     for arch in SERVE_TP_ARCHS:
-        cfg = configs.get_config(arch)
+        cfg = serve_tp_config(arch)
         a, b = one["res"][arch], two["res"][arch]
         errs = {"prefill": rel(b["prefill_logits"], a["prefill_logits"]),
                 "decode": max(rel(g, w) for g, w in
@@ -4521,6 +4625,17 @@ def phase_serve_tp(torch, ctx):
         for key, err in errs.items():
             check(err <= tol, f"serve_tp {cfg.name}: {key} logits differ "
                   f"from model=1 by {err:.4g} of a row (limit {tol})")
+        # the SSM states after the prefill, the model ranks' concatenated:
+        # the largest |difference| over the largest |value| of a layer's
+        for key, want in a["states"].items():
+            got = b["states"][key]
+            check(got.shape == want.shape, f"serve_tp {cfg.name}: state "
+                  f"{key} of shape {got.shape}, model=1's {want.shape}")
+            err = float(np.abs(got - want).max() / np.abs(want).max())
+            errs[f"state {key}"] = err
+            check(err <= tol, f"serve_tp {cfg.name}: the state {key} after "
+                  f"the prefill differs from model=1's by {err:.4g} of its "
+                  f"largest value (limit {tol})")
         exempt = []
         for g, w in zip(b["decode_logits"], a["decode_logits"]):
             tie = near_tie(w, cfg.vocab_size)
@@ -4546,14 +4661,17 @@ def phase_serve_tp(torch, ctx):
             log("serve_tp", f"{cfg.name} transcripts at model=1 {want}, at "
                 f"model={SERVE_TP_RANKS} {got}")
         log("serve_tp", f"{cfg.name}: model={SERVE_TP_RANKS} against "
-            f"model=1, largest row-relative logit difference "
+            f"model=1, largest relative difference (logits of a row, "
+            f"states of their largest value) "
             + ", ".join(f"{k} {v:.4g}" for k, v in errs.items())
             + f" (limit {tol}); rows exempt at a near-tie {sum(exempt)} of "
             f"{len(exempt)}")
         for tag, res in (("model=1", a), (f"model={SERVE_TP_RANKS}", b)):
             p = res["paths"]
             line = (f"{cfg.name} {tag}: parameters {res['params_gib']:.2f} "
-                    f"GiB a rank, made and cut in {res['init_s']:.1f} s; "
+                    f"GiB a rank ({cfg.param_dtype}), made in "
+                    f"{p['init']['wall']:.1f} s at a peak of "
+                    f"{p['init']['peak'] / 2 ** 30:.2f} GiB (rank 0); "
                     f"prefill B=1 S={PREFILL_S} {p['prefill']['wall']:.3f} s"
                     f" (warm repeat {p['prefill-warm']['wall']:.3f} s), "
                     f"peak {p['prefill']['peak'] / 2 ** 30:.2f} GiB; "
@@ -4567,11 +4685,12 @@ def phase_serve_tp(torch, ctx):
                          f"{n_tok / e['wall']:.2f} tokens/s, {e['steps']} "
                          f"steps at {e['wall'] / e['steps'] * 1e3:.2f} ms a "
                          f"step, peak {e['peak'] / 2 ** 30:.2f} GiB")
-                busy = res.get("busy")
-                if busy:
-                    line += (f"; device busy {busy[0] * 1e3:.2f} ms of a "
-                             f"{busy[1] * 1e3:.2f} ms profiled step = "
-                             f"{busy[0] / busy[1]:.1%} (rank 0's kernels)")
+            busy = res.get("busy")
+            if busy:
+                line += (f"; device busy {busy[0] * 1e3:.2f} ms of a "
+                         f"{busy[1] * 1e3:.2f} ms profiled "
+                         f"{'engine' if 'engine' in p else 'decode'} step "
+                         f"= {busy[0] / busy[1]:.1%} (rank 0's kernels)")
             for path in ("engine", "prefill", "decode"):
                 mv = p.get(path, {}).get("moved")
                 if mv:

@@ -9,10 +9,11 @@ get ``[prompt_len, n_codebooks]`` prompts; an embeddings arch exits, as
 the reference's driver does.
 
 ``--data-parallel D --model-parallel M`` serves over a ``(D, M)`` mesh of
-ranks (``launch.mesh.make_host_mesh(D, M)``): each rank holds its shards
-of the parameters (``models.model.shard_params``: heads, ``mlp``,
-experts and vocabulary over ``model``) and its data rows of the batch,
-and every rank prints nothing but rank 0. Called inside a rank of D x M
+ranks (``launch.mesh.make_host_mesh(D, M)``): each rank makes only its
+shards of the parameters (``models.model.init_params(..., rules=)``,
+bit-equal to ``shard_params`` of the whole: heads, ``mlp``, experts and
+vocabulary over ``model``, Mamba's channels and RWKV's heads) and holds
+its data rows of the batch, and every rank prints nothing but rank 0. Called inside a rank of D x M
 (``torchrun --nproc-per-node D*M -m repro_torch.launch.serve ...``, or a
 ``dist.launch`` rank) it serves on that rank; called outside one, it
 launches D x M ranks on ``--device`` (processes: ranks sharing one card
@@ -75,8 +76,7 @@ def main(argv=None):
                           overrides=configs.sharding_overrides(
                               args.arch, "decode"))
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = M.shard_params(M.init_params(cfg, gen, device=dev), cfg,
-                            rules)
+    params = M.init_params(cfg, gen, device=dev, rules=rules)
     engine = ServeEngine(cfg, rules, params, batch=args.batch,
                          max_seq=args.max_seq)
     rng = np.random.default_rng(0)

@@ -24,9 +24,11 @@ its own cache, each layer computes on its shards and all-reduces its
 partial sums once (``layers.py``, ``moe.py``), the embedding looks up
 the rank's vocabulary range, zero elsewhere, and all-reduces (exact: one
 value and zeros), and the head's logits are all-gathered along the
-vocabulary (exact). Over ``data`` a rank holds its own batch rows. Mamba
-and RWKV layers over ``model`` raise (ROADMAP.md queue 1 item 4.10).
-``abstract_params`` gives the tree as
+vocabulary (exact). Over ``data`` a rank holds its own batch rows.
+Mamba layers are split by ``mlp`` channels and RWKV layers by heads
+(``ssm.py``). ``init_params(..., rules=)`` makes only the rank's shards,
+bit-equal to ``shard_params`` of the whole tree. ``abstract_params``
+gives the tree as
 ``meta`` tensors, and ``param_logical_specs`` and ``cache_logical_specs``
 its logical axis names, as the reference's do. ``remat`` with
 gradients on wraps each layer in ``torch.utils.checkpoint`` (the
@@ -36,6 +38,7 @@ the layer's forward, kernels included, from its input.
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import Any
 
 import torch
@@ -100,7 +103,8 @@ def _param_tree(cfg: ModelConfig, create):
     return p
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
+                rules=None):
     """Random parameters in ``cfg.param_dtype``: normal draws of
     ``generator`` (made on the generator's device) times each leaf's
     scale; norms at one and the reference's constant inits for the SSM
@@ -108,25 +112,51 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     ``dt_bias`` at -4.6, RWKV's ``w0`` at -0.7). ``device`` defaults to
     ``cuda``. The draws are not the reference's ``jax.random`` bits: tests
     carry the reference's parameters over with
-    ``convert.params_from_numpy``."""
+    ``convert.params_from_numpy``.
+
+    ``rules`` (a rank of several): only the rank's shards, bit-equal to
+    ``shard_params(init_params(cfg, generator), cfg, rules)``. Each leaf
+    is drawn whole, in the same order from the same generator, and cut at
+    once (before its cast), so a rank holds its shards and one whole leaf
+    in float32 at most, never the whole tree."""
     dev = resolve_device(device)
     pdt = getattr(torch, cfg.param_dtype)
     fills = {"ones": 1.0, "zeros": 0.0, "half": 0.5,
              "ssm_dt": -4.6,       # softplus^-1(0.01)
              "ssm_w0": -0.7}       # decay ~ exp(-exp(w0)) ~ 0.6 a step
 
-    def create(shape, axes, scale, init="normal"):
+    def create(shape, axes, scale, init="normal", cut=None):
         if init in fills:
-            return torch.full(shape, fills[init], dtype=pdt, device=dev)
-        if init == "ssm_a":        # A_log: log(1..d_state) per state dim
-            a = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32,
-                                       device=dev))
-            return a.expand(shape).to(pdt).contiguous()
-        w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=generator.device)
-        return w.mul_(scale if scale else 0.02).to(device=dev, dtype=pdt)
+            w = torch.full(shape, fills[init], dtype=pdt, device=dev)
+        elif init == "ssm_a":      # A_log: log(1..d_state) per state dim
+            w = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                                       device=dev)).expand(shape)
+        else:
+            w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=generator.device)
+            w.mul_(scale if scale else 0.02)
+        part = w if cut is None else cut(w)
+        if part.shape == w.shape:
+            return w.to(device=dev, dtype=pdt).contiguous()
+        return _own(part.to(device=dev, dtype=pdt).contiguous(), w)
 
-    return _param_tree(cfg, create)
+    if rules is None or rules.mesh.size == 1:
+        return _param_tree(cfg, create)
+    # a first pass numbers the leaves in the order _param_tree creates
+    # them; the second creates them in that order again, each cut to the
+    # rank's shard by its path
+    count = itertools.count()
+    paths = {n: path for path, n in _items(_param_tree(
+        cfg, lambda *args, **kwargs: next(count)))}
+    shardings = _served_shardings(cfg, rules)
+    made = itertools.count()
+
+    def create_cut(shape, axes, scale, init="normal"):
+        path = paths[next(made)]
+        return create(shape, axes, scale, init, cut=functools.partial(
+            _rank_leaf, path[-1], sharding=_at(shardings, path)))
+
+    return _param_tree(cfg, create_cut)
 
 
 def abstract_params(cfg: ModelConfig):
@@ -176,6 +206,30 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
+def _items(tree, path=()):
+    """(path, leaf) of every leaf of a tree of dicts, in its order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _items(v, (*path, k))
+    else:
+        yield path, tree
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _own(part, whole):
+    """``part`` in storage of its own: copied where it is a view of
+    ``whole``'s (a cut, or a cast that changed nothing)."""
+    if part.untyped_storage().data_ptr() == \
+            whole.untyped_storage().data_ptr():
+        return part.clone()
+    return part
+
+
 def param_count(params) -> int:
     return sum(int(x.numel()) for x in _leaves(params))
 
@@ -186,31 +240,48 @@ def shard_params(params, cfg: ModelConfig, rules):
     each leaf split where the extent divides the dimension its logical
     spec names (``NamedSharding.local``; the reference's
     ``rules.sharding(spec).shard_shape``), copied into its own storage,
-    and whole elsewhere. ``params`` itself without rules or on one rank.
-    """
+    and whole elsewhere; Mamba's ``in_proj`` by ``ssm.in_proj_local``,
+    RWKV's heads never cut (``_served_shardings``). ``params`` itself
+    without rules or on one rank."""
     if rules is None or rules.mesh.size == 1:
         return params
-    check_served(cfg, rules)
-    return fsdp.local(params, param_shardings(rules,
-                                              param_logical_specs(cfg)))
+    shardings = _served_shardings(cfg, rules)
+
+    def cut(tree, path):
+        if isinstance(tree, dict):
+            return {k: cut(v, (*path, k)) for k, v in tree.items()}
+        part = _rank_leaf(path[-1], tree, _at(shardings, path))
+        return tree if part.shape == tree.shape else _own(part, tree)
+
+    return cut(params, ())
 
 
-def check_served(cfg: ModelConfig, rules) -> None:
-    """Raise where a config meets serving rules that split ``model``
-    over a layer kind that has no sharded form yet.
+def _served_shardings(cfg: ModelConfig, rules):
+    """Each leaf's ``NamedSharding`` on a rank: its logical spec's, with
+    RWKV's ``heads_joined`` held whole where the extent does not divide
+    the heads (``splits`` on the head count, not on the ``H * dh``
+    columns: rwkv6's 40 heads at ``model=16`` would be cut at 2.5 a
+    rank); the layers take the same decision (``ssm.rwkv_time_mix``)."""
+    specs = param_logical_specs(cfg)
+    if not splits(rules, "heads_joined", cfg.d_model // cfg.rwkv_head_dim):
+        specs = _map_specs(specs, lambda spec: tuple(
+            None if a == "heads_joined" else a for a in spec))
+    return param_shardings(rules, specs)
 
-    Raises:
-        ValueError: a Mamba or RWKV layer on a mesh whose ``model``
-            extent is above 1 (ROADMAP.md queue 1 item 4.10).
-    """
-    if rules is None or rules.mesh.shape.get("model", 1) == 1:
-        return
-    kinds = sorted({s.attn for s in cfg.pattern} & {"mamba", "rwkv"})
-    if kinds:
-        raise ValueError(
-            f"{cfg.name}: {' and '.join(kinds)} layers over the model axis "
-            f"({rules.mesh.shape}) are not ported yet (ROADMAP.md queue 1 "
-            f"item 4.10); serve it with model=1")
+
+def _map_specs(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_specs(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _rank_leaf(key, whole, sharding):
+    """The rank's part of the ``whole`` leaf named ``key``: Mamba's
+    ``in_proj`` through ``ssm.in_proj_local``, every other leaf by its
+    ``sharding`` (a view where cut)."""
+    if key == "in_proj":
+        return SSM.in_proj_local(whole, sharding)
+    return sharding.local(whole)
 
 
 # ---------------------------------------------------------------------------
@@ -367,7 +438,6 @@ def forward(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False,
     ``want_cache``: emit the populated decode cache (prefill).
     ``last_only``: unembed only the final position."""
     del unroll
-    check_served(cfg, rules)
     remat = remat and torch.is_grad_enabled() and not want_cache
     plan = fsdp_plan(cfg, rules)
     x = _embed_input(params, batch, cfg, rules, plan)
@@ -491,20 +561,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, rules=None,
     ``device`` defaults to ``cuda``. With ``rules``, the rank's cache of
     a ``batch`` of global rows: its rows where ``act_batch`` divides
     ``batch``, its KV heads where ``cache_kv`` divides them (whole where
-    not: gemma3's one KV head at ``model=2``)."""
-    check_served(cfg, rules)
+    not: gemma3's one KV head at ``model=2``), its Mamba channels and its
+    RWKV heads as the layers hold them (``mlp``; ``heads_joined`` by
+    whole heads). RWKV's ``s`` is the rank's heads where the reference's
+    spec holds it whole (ROADMAP.md queue 3 item 27): whole, it would
+    cost an all-gather a layer a step."""
     dev = resolve_device(device)
     dt = cfg.act_dtype
     R = cfg.n_repeats
     b0, b1 = local_range(rules, "act_batch", batch)
     batch = b1 - b0
     k0, k1 = local_range(rules, "cache_kv", cfg.n_kv_heads)
+    c0, c1 = local_range(rules, "mlp", cfg.mamba_expand * cfg.d_model)
+    h0, h1 = local_range(rules, "heads_joined",
+                         cfg.d_model // cfg.rwkv_head_dim)
     cache = {}
     for i, spec in enumerate(cfg.pattern):
         if spec.attn in ("mamba", "rwkv"):
-            st = (SSM.mamba_state_init(cfg, batch, dt, dev)
+            st = (SSM.mamba_state_init(cfg, batch, dt, dev, di=c1 - c0)
                   if spec.attn == "mamba" else
-                  SSM.rwkv_state_init(cfg, batch, dev))
+                  SSM.rwkv_state_init(cfg, batch, dev,
+                                      heads=h1 - h0))
             cache[f"pos{i}"] = {k: v.expand(R, *v.shape).contiguous()
                                 for k, v in st.items()}
             continue
@@ -564,7 +641,6 @@ def decode_step(params, cache, batch, pos, cfg: ModelConfig, rules=None,
     rank's, ``batch`` its rows; the logits come back whole along the
     vocabulary."""
     del unroll
-    check_served(cfg, rules)
     x = _embed_input(params, batch, cfg, rules)
     for r in range(cfg.n_repeats):
         p_r = _index(params["layers"], r)

@@ -6,7 +6,7 @@ Both blocks are chunked recurrences, as in the reference, computed from
 the zero state at prefill by ``_ssm_scan`` and ``_rwkv_scan``. The
 reference's ``lax.scan`` over chunks is a Python ``for`` loop here
 (``unroll_chunks`` only shapes the reference's compiled program and is
-accepted and ignored, as ``rules`` is). Mamba's loop runs a whole chunk
+accepted and ignored). Mamba's loop runs a whole chunk
 at a time (its ``da``/``db`` are built per chunk); inside a chunk the
 reference's ``associative_scan`` is a doubling (Hillis-Steele) scan:
 ``ceil(log2 C)`` steps of elementwise products over ``[B, C, di, ds]``,
@@ -22,6 +22,25 @@ it divides S, else one chunk of S. RWKV's intra-chunk factors
 past about 176 (``k * exp(-cum)`` overflows once ``|cum|`` passes ~88)
 the time mix returns non-finite values, in the reference as here.
 
+Over ``model`` ranks (``rules`` that split ``mlp`` / ``heads_joined``,
+serving) a rank holds its shards (``models.model.shard_params``) and
+computes its own channels or heads, as GSPMD does with the reference's
+specs; what contracts a split dimension is all-reduced once
+(``dist.rules.reduce_partial``). Mamba by ``mlp`` channels: the rank's
+``di/P`` channels of every channel leaf, and of both halves of
+``in_proj`` (``in_proj_local``); ``x_proj``'s product (``dt_in``, B, C)
+and ``out_proj``'s are the layer's two all-reduces, the convolution, the
+scan, ``d_skip`` and the gate stay local. RWKV6 by heads: the rank's
+heads of ``wr``/``wk``/``wv``/``wg``/``wo``, its heads' columns of the
+decay (made whole, then sliced) and rows of ``u`` and ``ln_w`` (held
+whole), one all-reduce of ``wo``'s product; heads are never cut (the
+split is decided on the head count, ``D // rwkv_head_dim``: held whole
+where the extent does not divide it). The channel mix by ``mlp``: one
+all-reduce of ``wv``'s product, before the gate. A rank's decode state is its
+channels (Mamba's ``h`` and ``conv``) or heads (RWKV's ``s``; the
+shifts whole). With one rank, or rules that split nothing, every
+reduction is the identity and the path is the one-rank path bit for bit.
+
 ``jax.nn.softplus`` has no threshold; ``torch.nn.functional.softplus``
 returns x above 20, where the two differ by less than float32's ulp.
 """
@@ -31,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.rules import local_range, reduce_partial
 
 
 # ===========================================================================
@@ -53,6 +73,25 @@ def mamba_params(cfg, create):
         "d_skip": create((di,), ("mlp",), 0.0, init="ones"),
         "out_proj": create((di, d), ("mlp", "embed"), di ** -0.5),
     }
+
+
+def in_proj_local(w, sharding):
+    """The rank's shard of Mamba's ``in_proj`` ``w`` ``[..., d, 2*di]``
+    (one leaf, or stacked over repeats) under its ``NamedSharding``: each
+    half (``x``, then ``z``) cut as a leaf of its own, side by side, so
+    that ``torch.chunk`` of the rank's product gives the rank's channels
+    ``[r*di/P, (r+1)*di/P)`` of both and no collective is needed. The
+    reference's shard has this shape but holds contiguous columns (rank 0
+    the ``x`` half, rank 1 the ``z`` half at ``P=2``), which GSPMD then
+    re-lays (ROADMAP.md queue 3 item 26). The only code that cuts
+    ``in_proj``: ``shard_params``, ``init_params(rules=)`` and anything
+    that restores a sharded tree go through it. ``w`` itself where no
+    dimension is cut; a new tensor where one is."""
+    x, z = torch.chunk(w, 2, dim=-1)
+    xl, zl = sharding.local(x), sharding.local(z)
+    if xl.shape == x.shape:
+        return w
+    return torch.cat([xl, zl], dim=-1)
 
 
 def _causal_conv(x, w, state=None):
@@ -132,19 +171,21 @@ def _ssm_scan(dtf, bf, xf, cf, a, chunk=128):
 def mamba_apply(params, x, cfg, rules=None, state=None, chunk=128,
                 unroll_chunks=False, want_state=False):
     """x: [B,S,D]. state (decode, S == 1): {"h": [B,di,ds], "conv":
-    [B,dk-1,di]}. ``want_state`` (prefill): return the end-of-sequence
-    recurrent state. Returns (out, new_state)."""
-    del rules, unroll_chunks
+    [B,dk-1,di]}, ``di`` the rank's channels over ``model``.
+    ``want_state`` (prefill): return the end-of-sequence recurrent state.
+    Returns (out, new_state)."""
+    del unroll_chunks
     D = x.shape[-1]
     dt = x.dtype
     ds = cfg.mamba_d_state
+    di = cfg.mamba_expand * D
     dt_rank = max(D // 16, 1)
     xz = x @ params["in_proj"].to(dt)
-    xs, z = torch.chunk(xz, 2, dim=-1)
+    xs, z = torch.chunk(xz, 2, dim=-1)             # the rank's channels
     conv_state = None if state is None else state["conv"]
     xs, new_conv = _causal_conv(xs, params["conv_w"].to(dt), conv_state)
     xs = F.silu(xs)
-    dbc = xs @ params["x_proj"].to(dt)
+    dbc = reduce_partial(xs @ params["x_proj"].to(dt), rules, "mlp", di)
     dt_in, bmat, cmat = torch.split(dbc, [dt_rank, ds, ds], dim=-1)
     delta = F.softplus(dt_in @ params["dt_proj"].to(dt)
                        + params["dt_bias"].to(dt))
@@ -162,14 +203,17 @@ def mamba_apply(params, x, cfg, rules=None, state=None, chunk=128,
         new_state = {"h": h, "conv": new_conv} if want_state else None
     y = y.to(dt) + xs * params["d_skip"].to(dt)
     out = (y * F.silu(z)) @ params["out_proj"].to(dt)
-    return out, new_state
+    return reduce_partial(out, rules, "mlp", di), new_state
 
 
-def mamba_state_init(cfg, batch, dtype=torch.float32, device=None):
+def mamba_state_init(cfg, batch, dtype=torch.float32, device=None,
+                     di=None):
     """Zero decode state on ``device`` (default ``cuda``): ``h`` in
-    float32, ``conv`` in ``dtype`` (the activation dtype)."""
+    float32, ``conv`` in ``dtype`` (the activation dtype), of ``di``
+    channels (default all; a rank's over ``model``)."""
     dev = resolve_device(device)
-    di = cfg.mamba_expand * cfg.d_model
+    if di is None:
+        di = cfg.mamba_expand * cfg.d_model
     return {"h": torch.zeros((batch, di, cfg.mamba_d_state),
                              dtype=torch.float32, device=dev),
             "conv": torch.zeros((batch, cfg.mamba_d_conv - 1, di),
@@ -258,13 +302,15 @@ def _rwkv_scan(r, k, v, wlog, u):
 def rwkv_time_mix(params, x, cfg, rules=None, state=None, unroll_chunks=False,
                   want_state=False):
     """x: [B,S,D]. state (decode, S == 1): {"s": [B,H,dk,dv], "shift":
-    [B,D]}. ``want_state`` (prefill): return the end-of-sequence WKV state.
-    Returns (out, new_state)."""
-    del rules, unroll_chunks
+    [B,D]}, ``H`` the rank's heads over ``model``. ``want_state``
+    (prefill): return the end-of-sequence WKV state. Returns (out,
+    new_state)."""
+    del unroll_chunks
     B, S, D = x.shape
     dt = x.dtype
     dh = cfg.rwkv_head_dim
-    H = D // dh
+    h0, h1 = local_range(rules, "heads_joined", D // dh)  # the rank's heads
+    H, c0, c1 = h1 - h0, h0 * dh, h1 * dh
     if state is None:
         xprev = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
     else:
@@ -277,9 +323,12 @@ def rwkv_time_mix(params, x, cfg, rules=None, state=None, unroll_chunks=False,
     g = xg @ params["wg"].to(dt)
     lora = torch.tanh(xw @ params["w_lora_a"].to(dt)) @ \
         params["w_lora_b"].to(dt)
-    wlog = -torch.exp(params["w0"].float() + lora.float())
+    # the LoRA product is whole; the rank's heads' columns are taken
+    # before the elementwise rest, so their bits are the one-rank path's
+    wlog = -torch.exp(params["w0"].float()[c0:c1] +
+                      lora.float()[..., c0:c1])
     wlog = torch.clamp(wlog, min=W_LOG_MIN).reshape(B, S, H, dh)
-    u = params["u"].float()
+    u = params["u"].float()[h0:h1]
 
     if state is not None:                               # decode
         s0 = state["s"]
@@ -297,9 +346,11 @@ def rwkv_time_mix(params, x, cfg, rules=None, state=None, unroll_chunks=False,
     # per-head group norm (population variance, as jnp.var), gate, output
     mean = torch.mean(out, dim=-1, keepdim=True)
     var = torch.var(out, dim=-1, keepdim=True, correction=0)
-    out = (out - mean) * torch.rsqrt(var + 64e-5) * params["ln_w"].float()
+    out = (out - mean) * torch.rsqrt(var + 64e-5) * \
+        params["ln_w"].float()[h0:h1]
     out = out.reshape(*out.shape[:-2], H * dh).to(dt) * F.silu(g)
-    return out @ params["wo"].to(dt), new_state
+    return reduce_partial(out @ params["wo"].to(dt), rules, "heads_joined",
+                          D // dh), new_state
 
 
 def rwkv_channel_params(cfg, create):
@@ -315,8 +366,10 @@ def rwkv_channel_params(cfg, create):
 def rwkv_channel_mix(params, x, cfg, rules=None, state=None,
                      want_state=False):
     """Squared-ReLU channel mix with a one-token shift. state (decode):
-    the previous token's input [B,D]. Returns (out, new_state)."""
-    del rules
+    the previous token's input [B,D]. Over ``model`` ranks the rank's
+    ``d_ff`` columns of ``wk`` and rows of ``wv``, whose product is
+    all-reduced before the gate (where GSPMD reduces it). Returns (out,
+    new_state)."""
     dt = x.dtype
     if state is None:
         xprev = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
@@ -328,17 +381,19 @@ def rwkv_channel_mix(params, x, cfg, rules=None, state=None,
     xk = x + (xprev - x) * mu[0]
     xr = x + (xprev - x) * mu[1]
     h = torch.square(torch.relu(xk @ params["wk"].to(dt)))
-    out = torch.sigmoid(xr @ params["wr"].to(dt)) * (h @ params["wv"].to(dt))
+    kv = reduce_partial(h @ params["wv"].to(dt), rules, "mlp", cfg.d_ff)
+    out = torch.sigmoid(xr @ params["wr"].to(dt)) * kv
     return out, new_state
 
 
-def rwkv_state_init(cfg, batch, device=None):
+def rwkv_state_init(cfg, batch, device=None, heads=None):
     """Zero decode state on ``device`` (default ``cuda``): the WKV state
-    ``s`` in float32, the time-mix and channel-mix shifts in the
+    ``s`` of ``heads`` heads (default all; a rank's over ``model``) in
+    float32, the time-mix and channel-mix shifts (whole) in the
     activation dtype."""
     dev = resolve_device(device)
     dh = cfg.rwkv_head_dim
-    H = cfg.d_model // dh
+    H = cfg.d_model // dh if heads is None else heads
     return {"s": torch.zeros((batch, H, dh, dh), dtype=torch.float32,
                              device=dev),
             "shift_t": torch.zeros((batch, cfg.d_model), dtype=cfg.act_dtype,

@@ -63,7 +63,12 @@ ARCHS = [GRANITE, GEMMA, "starcoder2_7b", "phi3_mini_3p8b",
 CASES = ([(a, "float32", False) for a in ARCHS] +
          [(GEMMA, "float32", True), (GRANITE, "bfloat16", False),
           (GEMMA, "bfloat16", False)])
-MOE = {GRANITE, "llama4_maverick_400b_a17b"}
+# jamba (Mamba by mlp channels, attention, MoE) and rwkv6 (RWKV by heads):
+# tests/test_torch_serve_model_ssm.py
+JAMBA, RWKV = "jamba_1p5_large_398b", "rwkv6_3b"
+SSM_CASES = [(JAMBA, "float32", False), (RWKV, "float32", False),
+             (JAMBA, "bfloat16", False)]
+MOE = {GRANITE, "llama4_maverick_400b_a17b", JAMBA}
 _PARAMS: dict = {}
 _REF: dict = {}
 _PORT: dict = {}
@@ -232,6 +237,10 @@ def port(case, mesh):
             res = {"coord": (hm.coordinate("data"), hm.coordinate("model")),
                    "rows": (b0, b1),
                    "kv": local_range(drules, "cache_kv", pcfg.n_kv_heads),
+                   "mlp": local_range(drules, "mlp",
+                                      pcfg.mamba_expand * pcfg.d_model),
+                   "heads": local_range(drules, "heads_joined",
+                                        pcfg.d_model // pcfg.rwkv_head_dim),
                    "prefill": (f32(logits), _tree_np(cache)),
                    "decode": dec, "decode_cache": _tree_np(c),
                    "emb_same": emb_same, "param_shapes": _shapes(p),
@@ -260,11 +269,30 @@ def _tree_np(tree):
     return f32(tree)
 
 
-def cache_slice(tree, rows, kv):
-    """The reference's whole cache at a rank's rows and KV heads (the
-    ``[R, B, T, KV, dh]`` leaves of attention layers)."""
-    return {pos: {k: v[:, rows[0]:rows[1], :, kv[0]:kv[1]]
-                  for k, v in c.items()} for pos, c in tree.items()}
+# the dim of each cache leaf a rank holds a part of, and the key of the
+# rank's range in ``port``'s results: attention's KV heads of k/v [R, B,
+# T, KV, dh], Mamba's channels of h [R, B, di, ds] and conv [R, B, dk-1,
+# di], RWKV's heads of s [R, B, H, dk, dv] (whole in the reference's
+# spec: ROADMAP.md queue 3 item 27); RWKV's shifts whole
+CACHE_PARTS = {"k": (3, "kv"), "v": (3, "kv"), "h": (2, "mlp"),
+               "conv": (3, "mlp"), "s": (2, "heads")}
+
+
+def cache_slice(tree, res):
+    """The reference's whole cache at a rank's rows and parts
+    (``CACHE_PARTS``) of ``port``'s rank result ``res``."""
+    b0, b1 = res["rows"]
+    out = {}
+    for pos, c in tree.items():
+        out[pos] = {}
+        for k, v in c.items():
+            v = v[:, b0:b1]
+            if k in CACHE_PARTS:
+                dim, key = CACHE_PARTS[k]
+                lo, hi = res[key]
+                v = v[(slice(None),) * dim + (slice(lo, hi),)]
+            out[pos][k] = v
+    return out
 
 
 def assert_caches(got, want, tol, what):
@@ -349,8 +377,7 @@ def check_prefill(case, mesh):
             np.testing.assert_array_equal(
                 greedy(logits, pcfg.vocab_size),
                 greedy(want[0][b0:b1], pcfg.vocab_size))
-        assert_caches(cache, cache_slice(want[1], res["rows"],
-                                             res["kv"]), tol, "prefill")
+        assert_caches(cache, cache_slice(want[1], res), tol, "prefill")
 
 
 def check_decode(case, mesh):
@@ -366,8 +393,7 @@ def check_decode(case, mesh):
                     greedy(got, pcfg.vocab_size),
                     greedy(w, pcfg.vocab_size), err_msg=f"step {t}")
         assert_caches(res["decode_cache"],
-                        cache_slice(want["decode_cache"], res["rows"],
-                                      res["kv"]), tol, "decode")
+                      cache_slice(want["decode_cache"], res), tol, "decode")
 
 
 def check_engine(case, mesh):
@@ -401,17 +427,24 @@ def check_routing(case, mesh):
 def check_embedding_and_shapes(case, mesh):
     """The embedding of a rank's rows bit-equal to one rank's (a sum of
     one value and zeros), and each rank's parameter and cache shards of
-    the reference's ``shard_shape``."""
+    the reference's ``shard_shape``, but RWKV's ``s``: the rank's heads
+    where the reference's spec holds it whole (ROADMAP.md queue 3 item
+    27)."""
     rcfg, pcfg = cfgs(case)
     ref_p, _ = params(case[0])
     want_p = expected_shard_shapes(rcfg, mesh, ref_p,
                                      RM.param_logical_specs(rcfg))
     rules = ref_resolve_rules(ref_host_mesh(*mesh), rcfg, "decode",
                                 batch_size=B)
-    want_c = expected_shard_shapes(
-        rcfg, mesh, RM.init_cache(rcfg, B, MAX_SEQ, rules),
-        RM.cache_logical_specs(rcfg))
+    ref_cache = RM.init_cache(rcfg, B, MAX_SEQ, rules)
+    want_c = expected_shard_shapes(rcfg, mesh, ref_cache,
+                                   RM.cache_logical_specs(rcfg))
+    keys = [path[-1].key for path, _ in
+            jax.tree_util.tree_flatten_with_path(ref_cache)[0]]
     for res in port(case, mesh):
+        h0, h1 = res["heads"]
+        want = [(*w[:2], h1 - h0, *w[3:]) if k == "s" else w
+                for k, w in zip(keys, want_c)]
         assert res["emb_same"]
         assert res["param_shapes"] == want_p
-        assert res["cache_shapes"] == want_c
+        assert res["cache_shapes"] == want

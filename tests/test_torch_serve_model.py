@@ -9,19 +9,15 @@ split), phi3 (MHA), llama4 (experts split, 5 heads whole, the shared
 expert), musicgen (codebooks) and internvl2 (embedding inputs, through
 ``make_serve_step``), float32, and granite and gemma3 in bfloat16 too.
 Also: the routing bit-equal across the model ranks, the embedding
-bit-equal to one rank's, the shard shapes the reference's, and the
-layer kinds with no sharded form (jamba's Mamba, rwkv6's RWKV) raising.
+bit-equal to one rank's and the shard shapes the reference's.
 Set-up and tolerances: tests/serve_model_cases.py; the ``(2, 2)`` mesh:
-tests/test_torch_serve_model_data.py.
+tests/test_torch_serve_model_data.py; jamba and rwkv6:
+tests/test_torch_serve_model_ssm.py.
 """
 import pytest
 import torch
 
 import serve_model_cases as C
-from repro_torch import configs
-from repro_torch.dist.rules import resolve_rules
-from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models import model as M
 
 torch.set_num_threads(1)
 
@@ -60,25 +56,3 @@ def test_routing_is_bit_equal_across_model_ranks(case):
 @pytest.mark.parametrize("case", C.CASES, ids=C.case_id)
 def test_embedding_and_shard_shapes(case):
     C.check_embedding_and_shapes(case, MESH)
-
-
-@pytest.mark.parametrize("arch", ["jamba_1p5_large_398b", "rwkv6_3b"])
-def test_ssm_configs_over_model_raise_naming_the_item(arch):
-    """Mamba and RWKV over ``model`` are not ported: shard_params,
-    init_cache, prefill and decode_step raise where the rules and the
-    config first meet, naming ROADMAP.md queue 1 item 4.10, before any
-    rank is needed; over ``data`` alone they serve."""
-    cfg = configs.get_config(arch, smoke=True)
-    rules = resolve_rules(make_host_mesh(1, 2, device=C.CPU), cfg,
-                          "decode", batch_size=2)
-    params = M.init_params(cfg, torch.Generator().manual_seed(0), C.CPU)
-    tok = {"tokens": torch.zeros(2, 4, dtype=torch.int32)}
-    for call in (lambda: M.shard_params(params, cfg, rules),
-                 lambda: M.init_cache(cfg, 2, 8, rules, device=C.CPU),
-                 lambda: M.prefill(params, tok, cfg, rules),
-                 lambda: M.decode_step(params, {}, tok, 0, cfg, rules)):
-        with pytest.raises(ValueError, match="queue 1 item 4.10"):
-            call()
-    data = resolve_rules(make_host_mesh(2, 1, device=C.CPU), cfg, "decode",
-                         batch_size=2)
-    M.check_served(cfg, data)
