@@ -867,7 +867,9 @@ def phase_lm_kernels(torch):
                 router_planted(torch, T, k, x_dtype)
             router_exact_ties(torch, T, x_dtype)
     errs = []
-    for T in (1, SERVE_BATCH, 31, 33, 48, PREFILL_S, PREFILL_S + 4):
+    # a trainer_dp microbatch's tokens (data=1 and model=2: 2 x 4096)
+    T_MB = TRAINER_DP_B // TRAIN_MICRO * TRAIN_S
+    for T in (1, SERVE_BATCH, 31, 33, 48, PREFILL_S, PREFILL_S + 4, T_MB):
         for x_dtype in (torch.bfloat16, torch.float32):
             for mode in ROUTER_MODES:
                 errs.append(compare_router(torch, T, E, D, K, T, x_dtype,
@@ -907,8 +909,12 @@ def phase_lm_kernels(torch):
     # B = 2
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     kern, yard = [], []
+    MB = TRAINER_DP_B // TRAIN_MICRO
     for B, S, h, kv, dh, cap in (
             (1, PREFILL_S, H, KV, hd, 0.0),        # the path, GQA 3:1
+            (MB, TRAIN_S, H, KV, hd, 0.0),         # trainer_dp's data=1
+            (MB, TRAIN_S, H // TRAINER_DP_RANKS,   # a model=2 rank's
+             KV // TRAINER_DP_RANKS, hd, 0.0),
             (1, PREFILL_S + 4, H, KV, hd, 0.0),    # ragged S = 4100
             (2, 256, 4, 4, 32, 0.0),
             (1, 256, 2, 2, 64, 0.0),
@@ -4026,25 +4032,44 @@ def phase_trainer(torch, ctx):
 # TRAIN_S in TRAIN_MICRO microbatches (a rank's microbatch at data=2 is
 # 1 x 4096: flash runs), TRAINER_DP_STEPS steps with the launcher's
 # TrainHParams, remat; TRAINER_DP_RANKS gloo ranks sharing the card
-# against data=1 in this process on the same seed and batches
+# against data=1 in this process on the same seed and batches; then the
+# same at model=TRAINER_DP_RANKS (make_host_mesh(1, 2): heads, experts
+# and vocabulary split, each rank making only its shards, a whole
+# microbatch of 2 x 4096 on each) against the same data=1 run
 TRAINER_DP_LAYERS, TRAINER_DP_B, TRAINER_DP_STEPS = 8, 4, 3
 TRAINER_DP_RANKS = 2
 # data=2 against data=1 on the card: the batch's rows reach the bf16
 # matmuls and the float32 sums in other groupings, and a router near-tie
 # that flips moves a token's expert, a layer's load by 1 of its ~3,277
 # target (the CPU tests hold float32 parity at 1e-5 / 1e-3 / 1e-6). Read
-# on the H100 (PERF.md): 4.2e-7, 3.7e-6 and 6.8e-5 after 3 steps
+# on the H100 (PERF.md): 4.2e-7, 3.7e-6 and 6.8e-5 after 3 steps. The
+# model=2 run is held to the same limits for the losses and grad_norm
+# (read: 1.04e-5 and 6.45e-6): each rank's partial sums of wo and the
+# experts round to bf16 before their all-reduce, once a layer, which
+# moves 6-24 of a layer's 65,536 routed tokens in the first microbatch.
+# Its influence is held to the limit where it first differs, in the
+# first microbatch's update from the state as made (read: 3.83e-4). From
+# there the routing depends on the influence itself, and eff = sq /
+# infl^2 with sq ~ |x|^2 ~ D = 1536 for every expert turns a relative
+# influence difference d into ~2 D d of effective distance against gaps
+# of O(1) between the experts: 3.8e-4 reroutes tokens by the hundred,
+# and the steps' influences part by 0.036-0.096 (read; printed, not
+# gated), as two data=1 runs whose first microbatches rounded apart
+# would
 TRAINER_DP_TOL = {"loss": 1e-4, "grad_norm": 1e-2, "influence": 1e-2}
 
 
-def trainer_dp_body(data):
-    """On each of ``data`` ranks (or in this process at data=1): granite
-    at the phase's shapes through ``Trainer.fit`` over a
-    ``make_host_mesh(data)`` mesh, the launch counts set to 0 just before
-    the fit and read just after, this rank's collectives over the fit,
-    its peak memory, and its last step under the profiler on rank 0 (the
-    device time of its own kernels over the step's wall). Returns rank
-    0's summary with every rank's table."""
+def trainer_dp_body(data, model=1):
+    """On each of the ``data`` x ``model`` ranks (or in this process on
+    one): granite at the phase's shapes through ``Trainer.fit`` over a
+    ``make_host_mesh(data, model)`` mesh. The launch counts are set to 0
+    just before the state is made (each rank making only its shards)
+    and read after it, and again around the fit; this rank's collectives
+    over the fit, its peak memory while it makes its state and while it
+    trains, its last step under the profiler on rank 0 (the device time
+    of its own kernels over the step's wall), and whether its leaves held
+    whole are the same bits as every other rank's after the last step.
+    Returns rank 0's summary with every rank's table."""
     import dataclasses
     import numpy as np
     import torch
@@ -4054,6 +4079,7 @@ def trainer_dp_body(data):
     from repro_torch.dist.rules import resolve_rules
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train import Trainer, TrainerConfig, TrainHParams
     from torch.profiler import ProfilerActivity, profile
@@ -4061,25 +4087,48 @@ def trainer_dp_body(data):
     hp = TrainHParams(microbatches=TRAIN_MICRO, lr_peak=3e-4,
                       warmup_steps=max(TRAINER_DP_STEPS // 10, 1),
                       total_steps=TRAINER_DP_STEPS, grad_compress="none")
-    mesh = make_host_mesh(data, device=DEVICE)
+    mesh = make_host_mesh(data, model, device=DEVICE)
     rules = resolve_rules(mesh, cfg, "train", batch_size=TRAINER_DP_B,
                           overrides=configs.sharding_overrides(
                               "granite-moe-3b-a800m", "train"))
-    comm = mesh.axis_comm("data")
+    comm = mesh.comm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
     t0 = time.perf_counter()
     trainer = Trainer(cfg, rules, hp, TrainerConfig(
         steps=TRAINER_DP_STEPS, log_every=1))
     state, _ = trainer.init_or_resume()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_launches = sum(launch_counts().values())
+    init_peak = torch.cuda.max_memory_allocated()
     stream = SyntheticLM(cfg, TRAINER_DP_B, TRAIN_S)
+    first = None
+    if data == 1:
+        # the first microbatch's forward from the state as made (the
+        # influence at 1): its loads and its update of the influence,
+        # before any routing depends on an influence of its own
+        batch = next(iter(stream))
+        with torch.no_grad():
+            _, ninf, st = M.forward(
+                state["params"], {k: torch.as_tensor(
+                    v[:TRAINER_DP_B // TRAIN_MICRO], device=DEVICE)
+                    for k, v in batch.items()},
+                cfg, rules, remat=False, influence=state["influence"])
+        first = (ninf.cpu().numpy(), st["moe_load"].cpu().numpy())
+        del ninf, st
     # the last step of the fit runs under the profiler on rank 0 (its
     # device time: its own kernels), the others unprofiled
     inner, busy = trainer.step_fn, ["profiled on rank 0 only"]
+    infl_steps = []
 
     def step_fn(state, batch):
+        out = profiled_step(state, batch)
+        infl_steps.append(out[0]["influence"].detach().cpu().numpy())
+        return out
+
+    def profiled_step(state, batch):
         if int(state["opt"]["step"]) + 1 < TRAINER_DP_STEPS or (
                 comm is not None and comm.rank):
             return inner(state, batch)
@@ -4100,6 +4149,7 @@ def trainer_dp_body(data):
         return out
 
     trainer.step_fn = step_fn
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     before = comm.counters() if comm is not None else None
     t0 = time.perf_counter()
@@ -4114,7 +4164,8 @@ def trainer_dp_body(data):
     busy = busy[0]
     infl = state["influence"].detach()
     out = {"hist": [{k: v for k, v in m.items()} for m in hist],
-           "influence": infl.cpu().numpy(), "counts": counts,
+           "influence": infl.cpu().numpy(), "infl_steps": infl_steps,
+           "first": first, "counts": counts,
            "moved": moved, "init_s": init_s, "fit_s": fit_s,
            "n_params": sum(int(np.prod(x.shape))
                            for x in tree_leaves(state["params"]))}
@@ -4123,11 +4174,12 @@ def trainer_dp_body(data):
            moved.get("all_reduces", 0), moved.get("all_gathers", 0),
            busy[0] if isinstance(busy, tuple) else -1.0,
            busy[1] if isinstance(busy, tuple) else -1.0,
-           out["n_params"]]
+           out["n_params"], init_peak, init_launches,
+           moved.get("reduce_scatters", 0)]
+    out["busy_error"] = None if isinstance(busy, tuple) else busy
     if comm is None:
         out["table"] = [row]
-        out["same_influence"] = True
-        out["busy_error"] = None if isinstance(busy, tuple) else busy
+        out["same_influence"] = out["same_whole"] = True
         return out
     rows = comm.all_gather(torch.tensor(row, dtype=torch.float64,
                                         device=DEVICE)).tolist()
@@ -4135,121 +4187,207 @@ def trainer_dp_body(data):
     out["table"] = rows
     out["same_influence"] = all(torch.equal(every[0], every[r])
                                 for r in range(comm.size))
-    out["busy_error"] = None if isinstance(busy, tuple) else busy
+    out["same_whole"] = True
+    if model == 1:
+        return out
+    # over model ranks, the leaves held whole on every rank (parameters
+    # and moments): the same bits everywhere, with no gradient reduced
+    # over model
+    shardings = tree_leaves(M.rank_shardings(cfg, rules))
+    shapes = [x.shape for x in tree_leaves(M.abstract_params(cfg))]
+    whole = [i for i, (sh, shape) in enumerate(zip(shardings, shapes))
+             if not sh.split_dims(shape)]
+    flat = torch.cat([tree_leaves(tree)[i].detach().reshape(-1).float()
+                      for tree in (state["params"], state["opt"]["mu"],
+                                   state["opt"]["nu"]) for i in whole])
+    every = comm.all_gather(flat)
+    out["same_whole"] = all(torch.equal(every[0], every[r])
+                            for r in range(comm.size))
+    out["n_whole"] = (len(whole), int(flat.numel()))
     return out
 
 
-def phase_trainer_dp(torch, ctx):
-    """Training over data ranks: granite at full width and cut depth,
-    ``data=TRAINER_DP_RANKS`` (gloo ranks sharing the card, one
-    ``dist.launch``) against ``data=1`` in this process, the same seed
-    and batches. Gates: losses and grad_norm within TRAINER_DP_TOL of
-    data=1, the influence within its tolerance of data=1 and bit-equal
-    across ranks, each rank's flash (6a) and router (5) launches = layers
-    x 2 (forward, recompute) x microbatches x steps and nothing else.
-    Prints the steady step's seconds at both, tokens/s, each rank's
-    peak, the collectives a step, device busy and MFU."""
+def trainer_dp_ranks():
+    """On each of TRAINER_DP_RANKS ranks: ``trainer_dp_body`` over
+    ``data`` and then over ``model``, in one launch (the process starts
+    and each process's first use of the card paid once); both results,
+    rank 0's with every rank's table."""
     import gc
+    import torch
+    out = []
+    for data, model in ((TRAINER_DP_RANKS, 1), (1, TRAINER_DP_RANKS)):
+        out.append(trainer_dp_body(data, model))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _trainer_steady(hist):
+    """Each step's wall s and the steady step's: the mean of the steps
+    between the first (warm-up) and the last (profiled), or of every
+    step but the first when there are two."""
+    walls = [m["wall_s"] for m in hist]
+    walls = [walls[0]] + [b - a for a, b in zip(walls, walls[1:])]
+    rest = walls[1:-1] or walls[1:]
+    return walls, sum(rest) / len(rest)
+
+
+def _log_trainer_run(ctx, cfg, tag, res, n):
+    """The per-rank table and the run's line of one trainer_dp run, its
+    launch gates and its steady step (into ``ctx["trainer_dp"]``)."""
+    from repro_torch.launch import roofline as RL
+    card = ctx["card"]
+    want = {"flash_attention_tc": n, "router_topk": n}
+    walls, s_step = _trainer_steady(res["hist"])
+    ctx.setdefault("trainer_dp", {})[tag] = s_step
+    for r, row in enumerate(res["table"]):
+        (peak, router, flash, total, ars, ags, dev_s, wall, _, init_peak,
+         init_launches, rss) = row
+        path = f"trainer_dp {tag} rank {r}"
+        ctx["paths"][path] = {"router_topk": int(router),
+                              "flash_attention_tc": int(flash)}
+        check(int(router) == n and int(flash) == n and int(total) == 2 * n,
+              f"trainer_dp {tag} rank {r}: router {router}, flash {flash}, "
+              f"all launches {total}; want {want}")
+        check(int(init_launches) == 0, f"trainer_dp {tag} rank {r}: "
+              f"{init_launches} kernel launches while making the state")
+        if wall > 0:
+            busy = (f"device busy {dev_s:.3f} s of a {wall:.3f} s "
+                    f"profiled step = {dev_s / wall:.1%} (this rank's "
+                    f"kernels)")
+        elif r:
+            busy = "profiled on rank 0 only"
+        else:
+            busy = f"device busy not measured ({res['busy_error']})"
+        log("trainer_dp", f"{tag} rank {r}: peak {init_peak / 2 ** 30:.2f} "
+            f"GiB making its state (no launches), {peak / 2 ** 30:.2f} GiB "
+            f"training; router {int(router)} and flash {int(flash)} "
+            f"launches = {TRAINER_DP_LAYERS} layers x 2 (forward, "
+            f"recompute) x {TRAIN_MICRO} microbatches x {TRAINER_DP_STEPS} "
+            f"steps; collectives a step: all-reduces {ars:.0f}, all-gathers "
+            f"{ags:.0f}, reduce-scatters {rss:.0f}; {busy}  [{card}]")
+    rows = res["table"]
+    check(all(row[4:6] + row[11:12] == rows[0][4:6] + rows[0][11:12]
+              for row in rows), f"trainer_dp {tag}: the ranks' collectives "
+          f"a step differ: {[row[4:6] + row[11:12] for row in rows]}")
+    mfu = RL.mfu(cfg, "train", TRAINER_DP_B, TRAIN_S, s_step)
+    moved = res["moved"]
+    col = ("" if not moved else
+           f"; collectives a step (rank 0): all-reduces "
+           f"{moved['all_reduces']:.0f} ({moved['bytes'] / 1e6:.1f} MB, "
+           f"{moved['seconds']:.3f} s), all-gathers "
+           f"{moved['all_gathers']:.0f} ({moved['all_gather_bytes'] / 1e6:.1f}"
+           f" MB, {moved['all_gather_seconds']:.3f} s), reduce-scatters "
+           f"{moved['reduce_scatters']:.0f} "
+           f"({moved['reduce_scatter_bytes'] / 1e6:.1f} MB, "
+           f"{moved['reduce_scatter_seconds']:.3f} s)")
+    tokens = TRAINER_DP_B * TRAIN_S
+    log("trainer_dp", f"{tag}: {cfg.name} at {TRAINER_DP_LAYERS} of 32 "
+        f"layers, {res['n_params']:,} parameters a rank, batch "
+        f"{TRAINER_DP_B} x {TRAIN_S} in {TRAIN_MICRO} microbatches: "
+        f"state made in {res['init_s']:.1f} s; steps "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s (steady "
+        f"{s_step:.3f} s = {tokens / s_step:.1f} tokens/s, MFU "
+        f"{mfu:.6f}); losses "
+        f"{', '.join(f'{m['loss']:.6f}' for m in res['hist'])}, "
+        f"grad_norm "
+        f"{', '.join(f'{m['grad_norm']:.6f}' for m in res['hist'])}"
+        f"{col}  [{card}]")
+
+
+def _gate_against_one(tag, res, one, launch_s, one_s):
+    """``res`` (a run over ranks) against the data=1 run ``one``: losses
+    and grad_norm within TRAINER_DP_TOL, the influence within its limit
+    (over data ranks after the last step; over model ranks in the first
+    microbatch's update, TRAINER_DP_TOL's comment), the influence (and,
+    over model ranks, every leaf held whole) bit-equal across ranks."""
     import numpy as np
+    tol = TRAINER_DP_TOL
+    rel = {key: max(abs(a[key] - b[key]) / abs(b[key]) for a, b in
+                    zip(res["hist"], one["hist"]))
+           for key in ("loss", "grad_norm")}
+    steps = [float(np.max(np.abs(a - b) / b)) for a, b in
+             zip(res["infl_steps"], one["infl_steps"])]
+    moved_infl = float(np.max(np.abs(np.log(one["influence"]))))
+    if res["first"] is None:
+        rel["influence"] = steps[-1]
+        which = "after the last step"
+    else:
+        (fi, fl), (oi, ol) = res["first"], one["first"]
+        rel["influence"] = float(np.max(np.abs(fi - oi) / oi))
+        which = "in the first microbatch's update"
+        tgt = float(np.sum(ol[0, 0])) / ol.shape[-1]    # top_k x T / E
+        rows = np.abs(fl - ol).reshape(-1, fl.shape[-1])
+        log("trainer_dp", f"{tag} against data=1, the first microbatch's "
+            f"forward from the state as made: each layer's largest |load "
+            f"difference| {', '.join(f'{int(x)}' for x in rows.max(axis=1))}"
+            f" of a {tgt:.0f}-token target, tokens moved "
+            f"{', '.join(f'{int(x) // 2}' for x in rows.sum(axis=1))}")
+    whole = ("" if "n_whole" not in res else
+             f"; the {res['n_whole'][0]} leaves held whole (with their "
+             f"moments, {res['n_whole'][1]:,} values) bit-equal across "
+             f"ranks {res['same_whole']}")
+    log("trainer_dp", f"{tag} against data=1: largest relative difference "
+        f"of the losses {rel['loss']:.3g} (limit {tol['loss']}), grad_norm "
+        f"{rel['grad_norm']:.3g} (limit {tol['grad_norm']}), influence "
+        f"{which} {rel['influence']:.3g} (limit {tol['influence']}; after "
+        f"each step {', '.join(f'{x:.3g}' for x in steps)}; |log "
+        f"influence| max {moved_infl:.4f} at data=1); influence bit-equal "
+        f"across ranks {res['same_influence']}{whole}; one launch of "
+        f"{TRAINER_DP_RANKS} ranks for data={TRAINER_DP_RANKS} and "
+        f"model={TRAINER_DP_RANKS} {launch_s:.1f} s with the process "
+        f"starts, data=1 {one_s:.1f} s")
+    check(res["same_influence"], f"trainer_dp {tag}: the ranks' "
+          f"influences differ")
+    check(res["same_whole"], f"trainer_dp {tag}: the ranks' leaves held "
+          f"whole differ")
+    check(moved_infl > 0, "trainer_dp: the influence did not move")
+    for key, lim in tol.items():
+        check(rel[key] <= lim, f"trainer_dp {tag}: {key} differs from "
+              f"data=1 by {rel[key]:.3g} (limit {lim})")
+
+
+def phase_trainer_dp(torch, ctx):
+    """Training over ranks: granite at full width and cut depth,
+    ``data=TRAINER_DP_RANKS`` and then ``model=TRAINER_DP_RANKS`` (gloo
+    ranks sharing the card, both runs in one launch, ``trainer_dp_ranks``)
+    against ``data=1`` in this process, the same seed and batches.
+    Gates: losses and grad_norm within TRAINER_DP_TOL of data=1, the
+    influence within its tolerance of data=1 (``_gate_against_one``) and
+    bit-equal across ranks, at model=2 every leaf held whole bit-equal
+    across ranks, each rank's flash (6a) and router
+    (5) launches = layers x 2 (forward, recompute) x microbatches x
+    steps and nothing else, none while the state is made, the same
+    collectives a step on every rank. Prints the steady step's seconds
+    at each, tokens/s, each rank's peaks, the collectives a step, device
+    busy and MFU."""
+    import gc
     from repro_torch.configs import granite_moe_3b_a800m as granite
     from repro_torch.dist import launch
-    from repro_torch.launch import roofline as RL
     import dataclasses
-    card = ctx["card"]
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     cfg = dataclasses.replace(granite.CONFIG, n_layers=TRAINER_DP_LAYERS)
     n = TRAINER_DP_LAYERS * 2 * TRAIN_MICRO * TRAINER_DP_STEPS
-    want = {"flash_attention_tc": n, "router_topk": n}
     t0 = time.perf_counter()
     one = trainer_dp_body(1)
     one_s = time.perf_counter() - t0
+    _log_trainer_run(ctx, cfg, "data=1", one, n)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    two = launch.launch(trainer_dp_body, TRAINER_DP_RANKS,
-                        args=(TRAINER_DP_RANKS,), device="cuda",
-                        timeout=900)
-    two_s = time.perf_counter() - t0
-    tokens = TRAINER_DP_B * TRAIN_S
-
-    def steady(hist):
-        # the steps between the first (warm-up) and the last (profiled)
-        walls = [m["wall_s"] for m in hist]
-        walls = [walls[0]] + [b - a for a, b in zip(walls, walls[1:])]
-        rest = walls[1:-1]
-        return walls, sum(rest) / len(rest)
-
-    for tag, res in (("data=1", one), (f"data={TRAINER_DP_RANKS}", two)):
-        walls, s_step = steady(res["hist"])
-        ctx.setdefault("trainer_dp", {})[tag] = s_step
-        for r, row in enumerate(res["table"]):
-            peak, router, flash, total, ars, ags, dev_s, wall, _ = row
-            path = f"trainer_dp {tag} rank {r}"
-            ctx["paths"][path] = {"router_topk": int(router),
-                                  "flash_attention_tc": int(flash)}
-            check(int(router) == n and int(flash) == n and
-                  int(total) == 2 * n,
-                  f"trainer_dp {tag} rank {r}: router {router}, flash "
-                  f"{flash}, all launches {total}; want {want}")
-            if wall > 0:
-                busy = (f"device busy {dev_s:.3f} s of a {wall:.3f} s "
-                        f"profiled step = {dev_s / wall:.1%} (this rank's "
-                        f"kernels)")
-            elif r:
-                busy = "profiled on rank 0 only"
-            else:
-                busy = f"device busy not measured ({res['busy_error']})"
-            log("trainer_dp", f"{tag} rank {r}: peak "
-                f"{peak / 2 ** 30:.2f} GiB, router {int(router)} and flash "
-                f"{int(flash)} launches = {TRAINER_DP_LAYERS} layers x 2 "
-                f"(forward, recompute) x {TRAIN_MICRO} microbatches x "
-                f"{TRAINER_DP_STEPS} steps; {busy}  [{card}]")
-        mfu = RL.mfu(cfg, "train", TRAINER_DP_B, TRAIN_S, s_step)
-        moved = res["moved"]
-        col = ("" if not moved else
-               f"; collectives a step (rank 0): all-reduces "
-               f"{moved['all_reduces']:.0f} ({moved['bytes'] / 1e9:.3f} GB, "
-               f"{moved['seconds']:.3f} s), all-gathers "
-               f"{moved['all_gathers']:.0f} ({moved['all_gather_bytes'] / 1e9:.3f}"
-               f" GB, {moved['all_gather_seconds']:.3f} s), reduce-scatters "
-               f"{moved['reduce_scatters']:.0f} "
-               f"({moved['reduce_scatter_bytes'] / 1e9:.3f} GB, "
-               f"{moved['reduce_scatter_seconds']:.3f} s)")
-        log("trainer_dp", f"{tag}: {cfg.name} at {TRAINER_DP_LAYERS} of 32 "
-            f"layers, {res['n_params']:,} parameters a rank, batch "
-            f"{TRAINER_DP_B} x {TRAIN_S} in {TRAIN_MICRO} microbatches: "
-            f"state made in {res['init_s']:.1f} s; steps "
-            f"{', '.join(f'{w:.3f}' for w in walls)} s (steady "
-            f"{s_step:.3f} s = {tokens / s_step:.1f} tokens/s, MFU "
-            f"{mfu:.6f}); losses "
-            f"{', '.join(f'{m['loss']:.6f}' for m in res['hist'])}, "
-            f"grad_norm "
-            f"{', '.join(f'{m['grad_norm']:.6f}' for m in res['hist'])}"
-            f"{col}  [{card}]")
-    tol = TRAINER_DP_TOL
-    rel = {key: max(abs(a[key] - b[key]) / abs(b[key]) for a, b in
-                    zip(two["hist"], one["hist"]))
-           for key in ("loss", "grad_norm")}
-    rel["influence"] = float(np.max(np.abs(two["influence"] -
-                                           one["influence"]) /
-                                    one["influence"]))
-    moved_infl = float(np.max(np.abs(np.log(one["influence"]))))
-    log("trainer_dp", f"data={TRAINER_DP_RANKS} against data=1: largest "
-        f"relative difference of the losses {rel['loss']:.3g} (limit "
-        f"{tol['loss']}), grad_norm {rel['grad_norm']:.3g} (limit "
-        f"{tol['grad_norm']}), influence {rel['influence']:.3g} (limit "
-        f"{tol['influence']}; |log influence| max {moved_infl:.4f} at "
-        f"data=1); influence bit-equal across ranks "
-        f"{two['same_influence']}; launch of {TRAINER_DP_RANKS} ranks "
-        f"{two_s:.1f} s with the process starts, data=1 {one_s:.1f} s")
-    check(two["same_influence"], "trainer_dp: the ranks' influences "
-          "differ")
-    check(moved_infl > 0, "trainer_dp: the influence did not move")
-    for key, lim in tol.items():
-        check(rel[key] <= lim, f"trainer_dp: {key} differs from data=1 by "
-              f"{rel[key]:.3g} (limit {lim})")
+    runs = launch.launch(trainer_dp_ranks, TRAINER_DP_RANKS, device="cuda",
+                         timeout=900)
+    launch_s = time.perf_counter() - t0
+    for tag, res in zip((f"data={TRAINER_DP_RANKS}",
+                         f"model={TRAINER_DP_RANKS}"), runs):
+        _log_trainer_run(ctx, cfg, tag, res, n)
+        _gate_against_one(tag, res, one, launch_s, one_s)
+    steady = ctx["trainer_dp"]
+    log("trainer_dp", "steady s a step: " + ", ".join(
+        f"{tag} {s:.3f} ({s / steady['data=1']:.2f}x data=1)"
+        for tag, s in steady.items()))
     phase_s = time.perf_counter() - t_phase
     ctx["trainer_dp_s"] = phase_s
     log("trainer_dp", f"phase {phase_s:.1f} s")

@@ -31,14 +31,16 @@ place, and makes a new tensor for a leaf on the ``meta`` device
 on ``device``, or on the card: a state restores without a second copy of
 itself on the device.
 
-Over data-parallel ranks, every rank calls ``save`` at the same point
-with ``splits`` (a tree like the state's of ``dist.fsdp.plan``'s
-``(dim, communicator)`` or None): each split leaf is gathered whole over
-its ranks, and rank 0 of the caller's group writes the one-rank format
-of the whole state, so a checkpoint does not depend on the number of
-ranks that wrote it. ``restore`` with ``shardings`` over those ranks
-(``train.step.state_shardings``) reads every leaf on every rank and keeps
-the rank's slice (``NamedSharding.local``).
+Over the ranks of a ``(data, model)`` mesh, every rank calls ``save``
+at the same point with ``shardings`` (a tree like the state's,
+``train.step.state_shardings``) and ``like`` (the whole shapes,
+``train.step.abstract_train_state``): each split leaf is joined whole
+over the mesh axes it is split over (its sharding's ``whole``: Mamba's
+``in_proj`` by halves, put back in their place), and rank 0 of the
+caller's group writes the one-rank format of the whole state, so a
+checkpoint does not depend on the mesh that wrote it. ``restore`` with
+``shardings`` reads every leaf on every rank and keeps the rank's cut of
+it (the sharding's ``local``, the cut that made the shards).
 
 ``stats`` holds the last save's and restore's seconds and bytes: on a
 save the device-to-host copies (``snapshot_s``) and the file writes with
@@ -50,6 +52,7 @@ the device (``load_s``); and the whole call (``call_s``).
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import threading
@@ -61,7 +64,6 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.dist import fsdp
 from repro_torch.dist.comm import current
 from repro_torch.optim.adamw import tree_leaves, tree_unflatten
 
@@ -100,17 +102,6 @@ def _to_host(x: torch.Tensor, staging: torch.Tensor | None = None
             .view(t.shape)
     host.copy_(t)
     return host.numpy()
-
-
-def _split_leaves(splits, state) -> list:
-    """``splits`` (a tree like ``state``'s, None where a subtree splits
-    nothing) as a list in ``tree_leaves(state)`` order."""
-    def walk(sp, st):
-        if isinstance(st, dict):
-            return [x for k in sorted(st)
-                    for x in walk(None if sp is None else sp.get(k), st[k])]
-        return [sp]
-    return walk(splits, state)
 
 
 def _staging(leaves, scale=None) -> torch.Tensor | None:
@@ -168,28 +159,38 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------- save
-    def save(self, step: int, state, splits=None) -> None:
+    def save(self, step: int, state, shardings=None, like=None) -> None:
         """Write ``state`` (a tree of dicts of tensors) as step ``step``.
-        ``splits``: the state is a data rank's shards, split as the tree
-        says (``dist.fsdp.plan``); every rank calls this, and rank 0 of
-        the caller's group (``dist.current()``) writes the whole state."""
+        ``shardings``: the state is a rank's shards, cut as that tree says
+        (``train.step.state_shardings``), of the whole shapes of ``like``
+        (a tree like the state's, of ``meta`` tensors or tensors); every
+        rank calls this, and rank 0 of the caller's group
+        (``dist.current()``) writes the whole state."""
         leaves = tree_leaves(state)
         treedef = treedef_str(state)
-        shards = (_split_leaves(splits, state) if splits is not None
-                  else [None] * len(leaves))
+        cuts = ([None] * len(leaves) if shardings is None else
+                [(sh, tuple(w.shape)) for sh, w in
+                 zip(tree_leaves(shardings), tree_leaves(like))])
+        # each leaf's whole size over its shard's
+        scale = [1 if c is None else math.prod(c[1]) // max(1, x.numel())
+                 for x, c in zip(leaves, cuts)]
         self.wait()                      # one in-flight save at a time
         self.stats["save"] = stats = {"step": step, "snapshot_s": 0.0,
                                       "bytes": 0}
         t0 = time.perf_counter()
         comm = current()
-        if splits is not None and comm is not None and comm.rank != 0:
-            for x, sh in zip(leaves, shards):       # the gathers alone
-                fsdp.whole(x, sh)
+
+        def whole(x, cut):
+            return x if cut is None else cut[0].whole(x, cut[1])
+
+        if shardings is not None and comm is not None and comm.rank != 0:
+            for x, c in zip(leaves, cuts):         # the gathers alone
+                whole(x, c)
             stats["call_s"] = time.perf_counter() - t0
             return
         if self.async_save:
-            host = [(_to_host(fsdp.whole(x, sh)), _dtype_name(x))
-                    for x, sh in zip(leaves, shards)]
+            host = [(_to_host(whole(x, c)), _dtype_name(x))
+                    for x, c in zip(leaves, cuts)]
             stats["snapshot_s"] = time.perf_counter() - t0
             self._worker = threading.Thread(
                 target=self._write, args=(step, iter(host), treedef, stats),
@@ -199,11 +200,10 @@ class CheckpointManager:
             def stream():
                 # each array is written before the next copy reuses the
                 # buffer: _write consumes one leaf at a time
-                staging = _staging(leaves, [1 if sh is None else
-                                            sh[1].size for sh in shards])
-                for x, sh in zip(leaves, shards):
+                staging = _staging(leaves, scale)
+                for x, c in zip(leaves, cuts):
                     t = time.perf_counter()
-                    x = fsdp.whole(x, sh)
+                    x = whole(x, c)
                     arr = _to_host(x, staging if x.device.type == "cuda"
                                    else None)
                     stats["snapshot_s"] += time.perf_counter() - t
@@ -272,10 +272,10 @@ class CheckpointManager:
         device (``shardings``: a tree like the state's of
         ``dist.rules.param_shardings``), else on ``device`` (default
         ``cuda``). A checkpoint written on one device restores onto
-        another (elastic restore). With ``shardings`` over data ranks,
-        each rank keeps its slice of every leaf (``state_like`` holds the
-        whole shapes, or the rank's shards to fill); a checkpoint of any
-        number of ranks restores on any other.
+        another (elastic restore). With ``shardings`` over the ranks of a
+        mesh, each rank keeps its cut of every leaf (the sharding's
+        ``local``; ``state_like`` holds the whole shapes, or the rank's
+        shards to fill); a checkpoint of any mesh restores on any other.
 
         Raises:
             FileNotFoundError: no checkpoint in the directory.

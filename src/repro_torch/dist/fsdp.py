@@ -80,20 +80,8 @@ def plan(shardings, shapes, *, drop_leading: bool = False):
     return walk(shardings, shapes)
 
 
-def whole(tree, plan):
-    """Every leaf of ``tree`` whole, its shards gathered by ``plan``
-    (``plan``'s splits; no gradient): the inverse of ``local``. Every
-    rank of the split axes calls it."""
-    if plan is None:
-        return tree
-    if isinstance(tree, dict):
-        return {k: whole(v, plan.get(k)) for k, v in tree.items()}
-    dim, comm = plan
-    return comm.gather_along(tree.detach(), dim)
-
-
 def local(tree, shardings):
-    """Each leaf's shard on this rank (``NamedSharding.local``), copied
+    """Each leaf's shard on this rank (its sharding's ``local``), copied
     into its own storage; leaves held whole are returned as they are."""
     if isinstance(tree, dict):
         return {k: local(v, shardings[k]) for k, v in tree.items()}

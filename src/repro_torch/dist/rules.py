@@ -14,18 +14,37 @@ each holding its own rows and shards. ``Rules.shard`` checks the names
 against the tensor's rank and returns it: a rank's activation is already
 its shard, and what GSPMD's constraints would move the port moves
 explicitly, ``Rules.reduce`` summing over the mesh axes of a logical axis
-(``act_batch``: the data ranks), ``Rules.gather`` concatenating the
-ranks' shards, and ``dist.fsdp`` gathering the leaves sharded over
-``data``. The layers served over ``model`` take one decision,
+(``act_batch``: the data ranks), and ``dist.fsdp`` gathering the leaves
+sharded over ``data``. The layers sharded over ``model`` take one decision,
 ``splits`` (a dimension is held as one shard a rank where the extent
 divides it, whole elsewhere), and with it ``local_range`` (the rank's
-slice), ``reduce_partial`` (one all-reduce of the partial sums of a
-product over a split dimension, none over a whole one) and
-``gather_split``. ``Rules.sharding`` / ``param_shardings`` give
-``NamedSharding`` objects: the rank's ``device`` (where
-``CheckpointManager.restore`` places a leaf), the rank's ``shard_shape``
-of a leaf and its slice (``local``), split where the extent divides the
-dimension and whole elsewhere (``Rules.shard``'s rule in the reference).
+slice) and three differentiable moves between the three kinds of
+tensor a model rank holds (whole and the same on every rank; the
+rank's own part; a partial sum), each the identity where the dimension
+is held whole:
+
+* ``reduce_partial``: a product that contracted a split dimension, its
+  partial sums all-reduced; the backward is the identity (the gradient
+  of the whole value is every rank's, whole);
+* ``enter_split``: a whole value about to feed the rank's part of a
+  split computation, as it is; the backward all-reduces its gradient,
+  which each rank's part gives only a share of (Megatron's "copy to the
+  tensor-parallel region"). It goes on each such edge, after any
+  computation shared by whole and split branches, never on a block's
+  input where a whole branch also reads it;
+* ``gather_split``: the ranks' parts all-gathered; the backward keeps
+  the rank's slice of the gradient (whole on every rank, since every
+  value computed from the gathered one is whole or entered).
+
+With every such edge entered, the gradient of every whole value is the
+same bits on every model rank and each split leaf's is its own shard's:
+training needs no reduction of gradients over ``model``.
+``Rules.sharding`` / ``param_shardings`` give ``NamedSharding``
+objects: the rank's ``device`` (where ``CheckpointManager.restore``
+places a leaf), the rank's ``shard_shape`` of a leaf, its slice
+(``local``) and, from every rank's slice, the whole leaf (``whole``),
+split where the extent divides the dimension and whole elsewhere
+(``Rules.shard``'s rule in the reference).
 
 **Partitioner.** The reference lays its shards on a 1-D device mesh
 with axis ``"shard"`` or a 2-D ``("coarse", "refine")`` mesh. The port
@@ -40,6 +59,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Any, Mapping
+
+import torch
 
 from .comm import Communicator, current
 
@@ -240,6 +261,15 @@ class NamedSharding:
             x = x.narrow(dim, self.mesh.coordinate(axis) * part, part)
         return x
 
+    def whole(self, x, shape):
+        """The whole leaf of ``shape`` from this rank's shard ``x``: each
+        split dimension all-gathered over its mesh axis, in dimension
+        order (no gradient; every rank of those axes calls it)."""
+        x = x.detach()
+        for dim, axis in self.split_dims(shape):
+            x = self.mesh.axis_comm(axis).gather_along(x, dim)
+        return x
+
 
 @dataclasses.dataclass(frozen=True)
 class Rules:
@@ -295,13 +325,6 @@ class Rules:
         comm = self.comm(logical)
         return x if comm is None else comm.all_reduce(x, op)
 
-    def gather(self, x, logical: str, dim: int):
-        """The ranks' shards ``x`` of the logical axis ``logical``
-        concatenated along ``dim`` in rank order (the whole tensor, where
-        GSPMD would all-gather); ``x`` itself when its extents are 1."""
-        comm = self.comm(logical)
-        return x if comm is None else comm.gather_along(x, dim)
-
 
 def splits(rules: Rules | None, logical: str, n: int) -> bool:
     """The one decision of every sharded layer: whether a dimension of
@@ -324,21 +347,80 @@ def local_range(rules: Rules | None, logical: str, n: int):
     return lo, lo + part
 
 
+class _ReducePartial(torch.autograd.Function):
+    """The sum of every rank's partial sums ``x``; the gradient of the
+    whole sum, whole on every rank, is each partial sum's."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        return comm.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _EnterSplit(torch.autograd.Function):
+    """``x`` as it is; its gradient, of which each rank's part of the
+    computation gives a share, summed over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.comm.all_reduce(grad), None
+
+
+class _GatherSplit(torch.autograd.Function):
+    """Every rank's part ``x`` concatenated along ``dim``; the gradient,
+    whole on every rank, sliced to the rank's part."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim, ctx.n = comm, dim, x.shape[dim]
+        return comm.gather_along(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.comm.rank * ctx.n, ctx.n), None, \
+            None
+
+
 def reduce_partial(x, rules: Rules | None, logical: str, n: int):
     """``x``, a product that contracted a dimension of size ``n`` named
     ``logical``: where that dimension is split (``splits``), the rank's
-    partial sums, all-reduced once over its mesh axes; where it is held
-    whole, every rank's whole result, returned as it is (a reduction
-    there would multiply it by the extent)."""
-    return rules.reduce(x, logical) if splits(rules, logical, n) else x
+    partial sums, all-reduced once over its mesh axes (``Rules.reduce``'s
+    collective; the backward is the identity); where it is held whole,
+    every rank's whole result, returned as it is (a reduction there would
+    multiply it by the extent)."""
+    if not splits(rules, logical, n):
+        return x
+    return _ReducePartial.apply(x, rules.comm(logical))
+
+
+def enter_split(x, rules: Rules | None, logical: str, n: int):
+    """``x``, whole and the same on every rank, where it feeds the rank's
+    part of a computation split over a dimension of size ``n`` named
+    ``logical``: ``x`` itself, whose gradient is all-reduced over the
+    split mesh axes in the backward. ``x`` itself, with no autograd node,
+    where the dimension is held whole or no gradient flows (serving)."""
+    if not (splits(rules, logical, n) and torch.is_grad_enabled()
+            and x.requires_grad):
+        return x
+    return _EnterSplit.apply(x, rules.comm(logical))
 
 
 def gather_split(x, rules: Rules | None, logical: str, n: int, dim: int):
     """``x`` whole along ``dim``: the ranks' shards of a dimension of size
-    ``n`` named ``logical`` all-gathered where it is split (exact), ``x``
+    ``n`` named ``logical`` all-gathered where it is split (exact, in rank
+    order; the backward keeps the rank's slice of the gradient), ``x``
     itself where it is held whole."""
-    return rules.gather(x, logical, dim) if splits(rules, logical, n) \
-        else x
+    if not splits(rules, logical, n):
+        return x
+    return _GatherSplit.apply(x, rules.comm(logical), dim)
 
 
 def resolve_rules(mesh, cfg, phase: str, batch_size: int | None = None,

@@ -26,8 +26,8 @@ cells: ``chip_smoke.py`` dry-runs the cells whose peaks it measures).
 ``--mesh single`` is one rank on one card, a deliberate departure from the
 reference, whose single mesh is a 256-chip pod (ROADMAP.md queue 3).
 ``--mesh multi`` raises: the production mesh over ranks, the pod's
-``(data, model)`` = 16 x 16, needs tensor parallelism over the model axis
-(ROADMAP.md queue 1 item 4.10).
+``(data, model)`` = 16 x 16, and a per-rank dry run of it are still to
+come (ROADMAP.md queue 1 item 4.10 step 3).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch starcoder2-7b \
@@ -65,9 +65,9 @@ from repro_torch.train.step import (TrainHParams, abstract_train_state,
 HBM_PER_CARD = 80 * 10 ** 9
 
 MULTI_POD = ("--mesh multi needs the production mesh over ranks, "
-             "launch/mesh.py::make_production_mesh, whose model axis the "
-             "port does not have yet (ROADMAP.md queue 1 item 4.10); use "
-             "--mesh single")
+             "launch/mesh.py::make_production_mesh, and a per-rank dry run "
+             "of it, which the port does not have yet (ROADMAP.md queue 1 "
+             "item 4.10 step 3); use --mesh single")
 
 # the reference's decode step takes its position as an int32 scalar
 # argument; the port's takes a Python int

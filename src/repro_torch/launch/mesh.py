@@ -10,10 +10,10 @@ the rank at ``(d, m)`` of a ``(data, model)`` mesh is ``d * model + m``.
 that share every other coordinate).
 
 ``make_host_mesh(data, model)`` is the ``(data, model)`` mesh of any
-shape: serving shards attention, the MLPs, the experts and the
-vocabulary over ``model`` and the batch over ``data``; training runs
-over ``data`` only (``model`` above 1 raises in the train step, ROADMAP.md
-queue 1 item 4.10). ``make_mesh`` is the reference's
+shape: serving and training shard attention, the MLPs, the experts, the
+SSM layers and the vocabulary over ``model`` and the batch over ``data``
+(training also FSDP of the ``embed`` leaves over ``data``).
+``make_mesh`` is the reference's
 ``make_compat_mesh``: any shape, for callers that shard over one axis
 and replicate over the others (``make_distributed_partitioner``).
 """
@@ -112,8 +112,7 @@ def make_host_mesh(data: int = 1, model: int = 1, device=None) -> Mesh:
     ``data`` data-parallel ranks times ``model`` tensor-parallel ranks,
     row-major (the rank at ``(d, m)`` is ``d * model + m``), the calling
     rank's communicator bound where the mesh is used (``Mesh.comm``).
-    Serving runs on any such mesh; training over ``model`` above 1 raises
-    in the train step (ROADMAP.md queue 1 item 4.10).
+    Serving and training run on any such mesh.
 
     Raises:
         ValueError: ``data`` or ``model`` below 1.

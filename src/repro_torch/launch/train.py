@@ -8,15 +8,16 @@ card unless ``--device cpu``, with checkpoints and resume under
 ``--ckpt-dir``. As in the reference, a resumed run replays the data
 stream from batch 0 (ROADMAP.md queue 3 item 21).
 
-``--data-parallel D`` trains over D data ranks (``launch.mesh.
-make_host_mesh(D)``): called inside a rank of D (``torchrun
---nproc-per-node D -m repro_torch.launch.train ...``, or a
+``--data-parallel D --model-parallel M`` trains over a ``(data,
+model)`` mesh of D x M ranks (``launch.mesh.make_host_mesh(D, M)``: the
+batch's rows over ``data``, heads, channels, experts and the vocabulary
+over ``model``): called inside a rank of D x M (``torchrun
+--nproc-per-node D*M -m repro_torch.launch.train ...``, or a
 ``dist.launch`` rank), it trains on that rank; called outside one, it
-launches D ranks on ``--device`` (``dist.launch``: processes; ranks
+launches D x M ranks on ``--device`` (``dist.launch``: processes; ranks
 sharing one card reduce over gloo, ranks with a card each over NCCL) and
-each runs the same command. Rank 0 prints what a one-rank run
-prints. ``--model-parallel`` above 1 raises (ROADMAP.md queue 1 item
-4.10).
+each runs the same command. Rank 0 prints what a one-rank run prints,
+with the mesh's shape.
 """
 from __future__ import annotations
 
@@ -36,9 +37,10 @@ from repro_torch.train import Trainer, TrainerConfig, TrainHParams
 
 def main(argv=None):
     """Parse ``argv`` (default: the command line), train, print the last
-    metrics; returns (trainer, history). With ``--data-parallel`` above 1
-    called outside a rank, the ranks' trainers stay in their processes:
-    returns (None, rank 0's history)."""
+    metrics; returns (trainer, history). With a mesh of several ranks
+    (``--data-parallel``, ``--model-parallel``) called outside a rank,
+    the ranks' trainers stay in their processes: returns (None, rank 0's
+    history)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--full", action="store_true",
@@ -57,12 +59,6 @@ def main(argv=None):
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise ValueError(
-            f"--model-parallel {args.model_parallel}: training over the "
-            f"model axis needs the backward of its collectives, which the "
-            f"port does not have yet (ROADMAP.md queue 1 item 4.10); serving "
-            f"runs over it (launch.serve --model-parallel)")
 
     mesh = make_host_mesh(args.data_parallel, args.model_parallel,
                           device=args.device)
@@ -75,7 +71,8 @@ def main(argv=None):
         dev = launch.rank_device(mesh.device, mesh.comm.rank)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        mesh = make_host_mesh(args.data_parallel, device=dev)
+        mesh = make_host_mesh(args.data_parallel, args.model_parallel,
+                              device=dev)
     cfg = configs.get_config(args.arch, smoke=not args.full)
     rules = resolve_rules(mesh, cfg, "train", batch_size=args.batch,
                           overrides=configs.sharding_overrides(
@@ -92,8 +89,9 @@ def main(argv=None):
     comm = mesh.comm
     if comm is None or comm.rank == 0:
         print(json.dumps(history[-3:], indent=1))
-        where = trainer.device if comm is None else \
-            f"{comm.size} data ranks on {trainer.device}"
+        where = trainer.device if comm is None else (
+            f"{args.data_parallel} data ranks x {args.model_parallel} model "
+            f"ranks (mesh {mesh.shape}) on {trainer.device}")
         print(f"final loss: {history[-1]['loss']:.4f} on {where}",
               flush=True)
     return trainer, history

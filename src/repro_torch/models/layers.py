@@ -20,7 +20,13 @@ MLP keeps its columns of ``w_gate``/``w_up`` and rows of ``w_down``. A
 product over a split dimension (``wo`` over heads, ``w_down`` over
 ``mlp``) gives partial sums, all-reduced once over ``model``
 (``dist.rules.reduce_partial``); over a dimension held whole, nothing
-is reduced. Without rules, or on one rank, nothing is split.
+is reduced. In training, the whole input of the rank's heads or columns
+is entered (``dist.rules.enter_split``: its gradient all-reduced in the
+backward): ``x`` where it feeds ``wq`` (and ``wk``/``wv`` where the KV
+heads are split too), or, where the KV heads are held whole, ``x`` for
+``wq`` alone and the whole ``k`` and ``v`` before the rank's KV heads
+are read from them; ``x`` where it feeds the MLP's columns. Without
+rules, or on one rank, nothing is split.
 
 Numerics follow the reference where they decide routing and greedy
 tokens: RMSNorm squares in the activation dtype before the float32 mean,
@@ -40,7 +46,8 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.dist.rules import local_range, reduce_partial, splits
+from repro_torch.dist.rules import (enter_split, local_range,
+                                    reduce_partial, splits)
 from repro_torch.kernels import ops
 
 
@@ -205,10 +212,15 @@ def attention(params, x, cfg, rules=None, kind="full", positions=None,
     theta = cfg.rope_theta
     if kind == "full" and cfg.rope_theta_global is not None:
         theta = cfg.rope_theta_global
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
     sel = _rank_kv(cfg, rules)
+    xq = enter_split(x, rules, "heads", cfg.n_heads)
+    xkv = xq if sel is None else x          # the KV heads: split or whole
+    q = torch.einsum("bsd,dhk->bshk", xq, params["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", xkv, params["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", xkv, params["wv"].to(dt))
+    if sel is not None:     # whole K/V, of which the rank reads its heads'
+        k = enter_split(k, rules, "heads", cfg.n_heads)
+        v = enter_split(v, rules, "heads", cfg.n_heads)
 
     if cache is None:
         if positions is None:
@@ -285,8 +297,9 @@ def mlp(params, x, cfg, rules=None):
     """swiglu: ``silu(x w_gate) * (x w_up) w_down``; gelu: ``gelu(x w_up)
     w_down`` with the tanh approximation. Weights cast to x's dtype. On
     a mesh that splits ``mlp``, the rank's columns and rows, and one
-    all-reduce of the output."""
+    all-reduce of the output (``x`` entered for the backward)."""
     dt = x.dtype
+    x = enter_split(x, rules, "mlp", cfg.d_ff)
     w_up = params["w_up"].to(dt)
     if cfg.mlp_kind == "swiglu":
         h = torch.nn.functional.silu(x @ params["w_gate"].to(dt)) * (x @ w_up)

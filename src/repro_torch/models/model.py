@@ -37,6 +37,7 @@ the layer's forward, kernels included, from its input.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 from typing import Any
@@ -46,7 +47,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.dist import fsdp
-from repro_torch.dist.rules import (gather_split, local_range,
+from repro_torch.dist.comm import current, using
+from repro_torch.dist.rules import (enter_split, gather_split, local_range,
                                     param_shardings, reduce_partial,
                                     splits)
 
@@ -148,13 +150,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     count = itertools.count()
     paths = {n: path for path, n in _items(_param_tree(
         cfg, lambda *args, **kwargs: next(count)))}
-    shardings = _served_shardings(cfg, rules)
+    shardings = rank_shardings(cfg, rules)
     made = itertools.count()
 
     def create_cut(shape, axes, scale, init="normal"):
-        path = paths[next(made)]
-        return create(shape, axes, scale, init, cut=functools.partial(
-            _rank_leaf, path[-1], sharding=_at(shardings, path)))
+        return create(shape, axes, scale, init,
+                      cut=_at(shardings, paths[next(made)]).local)
 
     return _param_tree(cfg, create_cut)
 
@@ -241,47 +242,49 @@ def shard_params(params, cfg: ModelConfig, rules):
     spec names (``NamedSharding.local``; the reference's
     ``rules.sharding(spec).shard_shape``), copied into its own storage,
     and whole elsewhere; Mamba's ``in_proj`` by ``ssm.in_proj_local``,
-    RWKV's heads never cut (``_served_shardings``). ``params`` itself
+    RWKV's heads never cut (``rank_shardings``). ``params`` itself
     without rules or on one rank."""
     if rules is None or rules.mesh.size == 1:
         return params
-    shardings = _served_shardings(cfg, rules)
+    shardings = rank_shardings(cfg, rules)
 
-    def cut(tree, path):
+    def cut(tree, sh):
         if isinstance(tree, dict):
-            return {k: cut(v, (*path, k)) for k, v in tree.items()}
-        part = _rank_leaf(path[-1], tree, _at(shardings, path))
+            return {k: cut(v, sh[k]) for k, v in tree.items()}
+        part = sh.local(tree)
         return tree if part.shape == tree.shape else _own(part, tree)
 
-    return cut(params, ())
+    return cut(params, shardings)
 
 
-def _served_shardings(cfg: ModelConfig, rules):
-    """Each leaf's ``NamedSharding`` on a rank: its logical spec's, with
-    RWKV's ``heads_joined`` held whole where the extent does not divide
-    the heads (``splits`` on the head count, not on the ``H * dh``
-    columns: rwkv6's 40 heads at ``model=16`` would be cut at 2.5 a
-    rank); the layers take the same decision (``ssm.rwkv_time_mix``)."""
+def rank_shardings(cfg: ModelConfig, rules):
+    """Each leaf's sharding on a rank, as the port cuts it: its logical
+    spec's ``NamedSharding``, with RWKV's ``heads_joined`` held whole
+    where the extent does not divide the heads (``splits`` on the head
+    count, not on the ``H * dh`` columns: rwkv6's 40 heads at
+    ``model=16`` would be cut at 2.5 a rank; the layers take the same
+    decision, ``ssm.rwkv_time_mix``), and Mamba's ``in_proj`` cut by
+    halves (``ssm.InProjSharding``: ``ssm.in_proj_local``). What cuts or
+    joins a leaf goes through it: ``shard_params``, ``init_params(...,
+    rules=)``, the train state's shards (``train.step.state_shardings``)
+    and the checkpoints' save and restore."""
     specs = param_logical_specs(cfg)
     if not splits(rules, "heads_joined", cfg.d_model // cfg.rwkv_head_dim):
         specs = _map_specs(specs, lambda spec: tuple(
             None if a == "heads_joined" else a for a in spec))
-    return param_shardings(rules, specs)
+
+    def cut(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: cut(v, k) for k, v in tree.items()}
+        return SSM.InProjSharding(tree) if key == "in_proj" else tree
+
+    return cut(param_shardings(rules, specs))
 
 
 def _map_specs(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_specs(v, fn) for k, v in tree.items()}
     return fn(tree)
-
-
-def _rank_leaf(key, whole, sharding):
-    """The rank's part of the ``whole`` leaf named ``key``: Mamba's
-    ``in_proj`` through ``ssm.in_proj_local``, every other leaf by its
-    ``sharding`` (a view where cut)."""
-    if key == "in_proj":
-        return SSM.in_proj_local(whole, sharding)
-    return sharding.local(whole)
 
 
 # ---------------------------------------------------------------------------
@@ -403,15 +406,21 @@ def _layer_apply(p, spec: LayerSpec, x, cfg, rules=None, positions=None,
     return x + out2, new_cache, new_infl, stats
 
 
-def _remat_layer(p, spec, x, cfg, rules, positions, influence, gather):
+def _remat_layer(p, spec, x, cfg, rules, positions, influence, gather,
+                 comm):
     """The layer ``torch.utils.checkpoint`` recomputes in the backward:
     its leaves made whole by ``gather`` (``dist.fsdp.gather_tree`` of the
     layer's splits: the recompute gathers them again) and
-    ``_layer_apply`` at training (no cache). Its recompute routes as the
-    first pass did (the router kernel is deterministic); the influence
-    and loads it recomputes are dropped, the first pass's are kept."""
-    return _layer_apply(gather(p), spec, x, cfg, rules, positions,
-                        influence=influence)
+    ``_layer_apply`` at training (no cache), with ``comm`` (the rank's
+    communicator when the forward ran, or None) the calling thread's:
+    the recompute may run on the autograd engine's device thread (CUDA),
+    where the rank's own is not set, and its collectives must go through
+    the forward's. Its recompute routes as the first pass did (the
+    router kernel is deterministic); the influence and loads it
+    recomputes are dropped, the first pass's are kept."""
+    with contextlib.nullcontext() if comm is None else using(comm):
+        return _layer_apply(gather(p), spec, x, cfg, rules, positions,
+                            influence=influence)
 
 
 def _store(cache, built, state):
@@ -439,6 +448,7 @@ def forward(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False,
     ``last_only``: unembed only the final position."""
     del unroll
     remat = remat and torch.is_grad_enabled() and not want_cache
+    comm = current() if remat else None
     plan = fsdp_plan(cfg, rules)
     x = _embed_input(params, batch, cfg, rules, plan)
     S = x.shape[1]
@@ -464,7 +474,7 @@ def forward(params, batch, cfg: ModelConfig, rules=None, unroll: bool = False,
             if remat:
                 x, nc, ni, st = checkpoint(
                     _remat_layer, p_r[f"pos{i}"], spec, x, cfg, rules,
-                    positions, inf_i, gathers[i], use_reentrant=False)
+                    positions, inf_i, gathers[i], comm, use_reentrant=False)
             else:
                 x, nc, ni, st = _layer_apply(gathers[i](p_r[f"pos{i}"]),
                                              spec, x, cfg, rules, positions,
@@ -517,8 +527,12 @@ def _unembed(params, x, cfg, rules=None, plan=None):
     """Logits [B, S, V], or [B, S, n_codebooks, V] with one head a
     codebook. ``plan``: ``fsdp_plan``'s, the head gathered first. Over
     ``vocab``-split ranks, each rank's logits of its vocabulary range are
-    all-gathered along the last dim (exact)."""
+    all-gathered along the last dim (exact; the backward keeps the rank's
+    range of the whole gradient), and ``x`` is entered
+    (``dist.rules.enter_split``)."""
     dt = x.dtype
+    # whole, feeding the rank's vocabulary range: entered for the backward
+    x = enter_split(x, rules, "vocab", cfg.vocab_padded)
     if cfg.tie_embeddings:
         w = _top_leaf(params, "embed", plan).to(dt).T
     else:

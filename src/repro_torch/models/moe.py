@@ -37,7 +37,13 @@ bits). It computes its own experts' slots only, zero for the others',
 adds the shared expert's partial sum (``mlp``-split), and makes one
 all-reduce of the summed output. Where E (or the shared expert's width)
 is not divided, that part is held whole and not reduced
-(``dist.rules.splits``).
+(``dist.rules.splits``). In training (``dist.rules.enter_split``: the
+gradient all-reduced in the backward), ``x`` is entered where it is
+dispatched to the rank's experts, the gates where they weight the
+rank's experts' outputs (the routing itself is whole: its gradient is
+then whole, and the router leaf's gather keeps the rank's slice of it),
+and the shared expert's input where the shared expert is split over
+``mlp``; each only where its part is split.
 """
 from __future__ import annotations
 
@@ -45,7 +51,8 @@ import torch
 
 from repro_torch.core.balanced_kmeans import adapt_influence
 from repro_torch.device import resolve_device
-from repro_torch.dist.rules import gather_split, local_range, splits
+from repro_torch.dist.rules import (enter_split, gather_split, local_range,
+                                    reduce_partial, splits)
 from repro_torch.kernels import ops
 
 
@@ -143,6 +150,9 @@ def moe_apply(params, x, cfg, rules=None, influence=None):
                                  stable=True)
         gates, eidx = gates[:, :K], eidx[:, :K]
     gates = torch.softmax(gates.reshape(B, S, K), dim=-1).to(dt)
+    # the gates weight the rank's experts' outputs only
+    gates = enter_split(gates, rules, "expert", E)
+    xe = enter_split(x, rules, "expert", E)     # dispatched to them
 
     C = int(max(1, round(K * S / E * m.capacity_factor)))
     T = S * K
@@ -165,9 +175,9 @@ def moe_apply(params, x, cfg, rules=None, influence=None):
     valid = c_idx < torch.clamp(counts[:, e0:e1], max=C)[:, :, None]
     tok_idx = torch.gather(order, 1, src_pos.reshape(B, El * C))
     if m.dispatch_no_repeat:
-        hidden = _gather_rows(x, tok_idx // K)
+        hidden = _gather_rows(xe, tok_idx // K)
     else:
-        src = torch.repeat_interleave(x, K, dim=1) if K > 1 else x
+        src = torch.repeat_interleave(xe, K, dim=1) if K > 1 else xe
         hidden = _gather_rows(src, tok_idx)
     hidden = hidden * valid.reshape(B, El * C, 1).to(dt)
     hidden = hidden.reshape(B, El, C, D)
@@ -186,19 +196,20 @@ def moe_apply(params, x, cfg, rules=None, influence=None):
     split = splits(rules, "expert", E)
     if m.n_shared_experts:
         sp = params["shared"]
-        h = torch.nn.functional.silu(x @ sp["w_gate"].to(dt)) * \
-            (x @ sp["w_up"].to(dt))
-        shared = h @ sp["w_down"].to(dt)
         fs = m.d_ff * m.n_shared_experts
+        xs = enter_split(x, rules, "mlp", fs)
+        h = torch.nn.functional.silu(xs @ sp["w_gate"].to(dt)) * \
+            (xs @ sp["w_up"].to(dt))
+        shared = h @ sp["w_down"].to(dt)
         if splits(rules, "mlp", fs) == split:
             out = out + shared          # both partial, or both whole
         elif split:                     # experts partial, shared whole
-            out = rules.reduce(out, "expert") + shared
+            out = reduce_partial(out, rules, "expert", E) + shared
             split = False
         else:                           # experts whole, shared partial
-            out = out + rules.reduce(shared, "mlp")
+            out = out + reduce_partial(shared, rules, "mlp", fs)
     if split:
-        out = rules.reduce(out, "expert")
+        out = reduce_partial(out, rules, "expert", E)
 
     # --- paper Eq. (1): influence update from realized loads -------------
     load = torch.sum(onehot.float(), dim=(0, 1))                 # [E]

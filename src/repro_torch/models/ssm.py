@@ -38,8 +38,16 @@ split is decided on the head count, ``D // rwkv_head_dim``: held whole
 where the extent does not divide it). The channel mix by ``mlp``: one
 all-reduce of ``wv``'s product, before the gate. A rank's decode state is its
 channels (Mamba's ``h`` and ``conv``) or heads (RWKV's ``s``; the
-shifts whole). With one rank, or rules that split nothing, every
-reduction is the identity and the path is the one-rank path bit for bit.
+shifts whole). In training, each whole value that feeds the rank's
+channels or heads is entered (``dist.rules.enter_split``: its gradient
+all-reduced in the backward): Mamba's ``x`` before ``in_proj`` and its
+reduced ``x_proj`` product, which feeds ``dt_proj`` and the scan; RWKV's
+mixes ``xr``/``xk``/``xv``/``xg`` before their split products, the
+whole LoRA product and the whole leaves ``w0``, ``u`` and ``ln_w`` before
+the rank's heads are sliced from them (``xw`` feeds the whole LoRA and is
+not entered); the channel mix's ``xk`` before ``wk``. With one rank, or
+rules that split nothing, every reduction is the identity and the path
+is the one-rank path bit for bit.
 
 ``jax.nn.softplus`` has no threshold; ``torch.nn.functional.softplus``
 returns x above 20, where the two differ by less than float32's ulp.
@@ -50,7 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.dist.rules import local_range, reduce_partial
+from repro_torch.dist.rules import enter_split, local_range, reduce_partial
 
 
 # ===========================================================================
@@ -84,14 +92,40 @@ def in_proj_local(w, sharding):
     reference's shard has this shape but holds contiguous columns (rank 0
     the ``x`` half, rank 1 the ``z`` half at ``P=2``), which GSPMD then
     re-lays (ROADMAP.md queue 3 item 26). The only code that cuts
-    ``in_proj``: ``shard_params``, ``init_params(rules=)`` and anything
-    that restores a sharded tree go through it. ``w`` itself where no
+    ``in_proj``: ``InProjSharding``, through which ``shard_params``,
+    ``init_params(rules=)``, the train state's shards and the
+    checkpoints' restore cut it. ``w`` itself where no
     dimension is cut; a new tensor where one is."""
     x, z = torch.chunk(w, 2, dim=-1)
     xl, zl = sharding.local(x), sharding.local(z)
     if xl.shape == x.shape:
         return w
     return torch.cat([xl, zl], dim=-1)
+
+
+class InProjSharding:
+    """The sharding of Mamba's ``in_proj`` (``inner``, its logical spec's
+    ``NamedSharding``), whose cut is ``in_proj_local``: ``local`` cuts
+    each half as a leaf of its own and ``whole`` joins each half from the
+    ranks' shards and puts the halves back side by side. Everything else
+    (``device``, ``mesh``, ``spec``, ``split_dims``, ``shard_shape``) is
+    the inner sharding's."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __getattr__(self, name):
+        if name == "inner":         # not yet set (copy, pickle)
+            raise AttributeError(name)
+        return getattr(self.inner, name)
+
+    def local(self, w):
+        return in_proj_local(w, self.inner)
+
+    def whole(self, x, shape):
+        half = (*shape[:-1], shape[-1] // 2)
+        return torch.cat([self.inner.whole(h, half)
+                          for h in torch.chunk(x, 2, dim=-1)], dim=-1)
 
 
 def _causal_conv(x, w, state=None):
@@ -180,12 +214,13 @@ def mamba_apply(params, x, cfg, rules=None, state=None, chunk=128,
     ds = cfg.mamba_d_state
     di = cfg.mamba_expand * D
     dt_rank = max(D // 16, 1)
-    xz = x @ params["in_proj"].to(dt)
+    xz = enter_split(x, rules, "mlp", di) @ params["in_proj"].to(dt)
     xs, z = torch.chunk(xz, 2, dim=-1)             # the rank's channels
     conv_state = None if state is None else state["conv"]
     xs, new_conv = _causal_conv(xs, params["conv_w"].to(dt), conv_state)
     xs = F.silu(xs)
     dbc = reduce_partial(xs @ params["x_proj"].to(dt), rules, "mlp", di)
+    dbc = enter_split(dbc, rules, "mlp", di)       # feeds the rank's channels
     dt_in, bmat, cmat = torch.split(dbc, [dt_rank, ds, ds], dim=-1)
     delta = F.softplus(dt_in @ params["dt_proj"].to(dt)
                        + params["dt_bias"].to(dt))
@@ -311,24 +346,29 @@ def rwkv_time_mix(params, x, cfg, rules=None, state=None, unroll_chunks=False,
     dh = cfg.rwkv_head_dim
     h0, h1 = local_range(rules, "heads_joined", D // dh)  # the rank's heads
     H, c0, c1 = h1 - h0, h0 * dh, h1 * dh
+
+    def enter(t):           # a whole value feeding the rank's heads
+        return enter_split(t, rules, "heads_joined", D // dh)
+
     if state is None:
         xprev = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
     else:
         xprev = state["shift"][:, None]
     mu = params["mu"].to(dt)
     xr, xk, xv, xg, xw = (x + (xprev - x) * mu[i] for i in range(5))
+    xr, xk, xv, xg = (enter(t) for t in (xr, xk, xv, xg))
     r = (xr @ params["wr"].to(dt)).reshape(B, S, H, dh).float()
     k = (xk @ params["wk"].to(dt)).reshape(B, S, H, dh).float()
     v = (xv @ params["wv"].to(dt)).reshape(B, S, H, dh).float()
     g = xg @ params["wg"].to(dt)
-    lora = torch.tanh(xw @ params["w_lora_a"].to(dt)) @ \
-        params["w_lora_b"].to(dt)
+    lora = enter(torch.tanh(xw @ params["w_lora_a"].to(dt)) @
+                 params["w_lora_b"].to(dt))
     # the LoRA product is whole; the rank's heads' columns are taken
     # before the elementwise rest, so their bits are the one-rank path's
-    wlog = -torch.exp(params["w0"].float()[c0:c1] +
+    wlog = -torch.exp(enter(params["w0"]).float()[c0:c1] +
                       lora.float()[..., c0:c1])
     wlog = torch.clamp(wlog, min=W_LOG_MIN).reshape(B, S, H, dh)
-    u = params["u"].float()[h0:h1]
+    u = enter(params["u"]).float()[h0:h1]
 
     if state is not None:                               # decode
         s0 = state["s"]
@@ -347,7 +387,7 @@ def rwkv_time_mix(params, x, cfg, rules=None, state=None, unroll_chunks=False,
     mean = torch.mean(out, dim=-1, keepdim=True)
     var = torch.var(out, dim=-1, keepdim=True, correction=0)
     out = (out - mean) * torch.rsqrt(var + 64e-5) * \
-        params["ln_w"].float()[h0:h1]
+        enter(params["ln_w"]).float()[h0:h1]
     out = out.reshape(*out.shape[:-2], H * dh).to(dt) * F.silu(g)
     return reduce_partial(out @ params["wo"].to(dt), rules, "heads_joined",
                           D // dh), new_state
@@ -378,7 +418,7 @@ def rwkv_channel_mix(params, x, cfg, rules=None, state=None,
         xprev = state[:, None]
         new_state = x[:, -1]
     mu = params["mu"].to(dt)
-    xk = x + (xprev - x) * mu[0]
+    xk = enter_split(x + (xprev - x) * mu[0], rules, "mlp", cfg.d_ff)
     xr = x + (xprev - x) * mu[1]
     h = torch.square(torch.relu(xk @ params["wk"].to(dt)))
     kv = reduce_partial(h @ params["wv"].to(dt), rules, "mlp", cfg.d_ff)

@@ -76,28 +76,29 @@ def _slices(*ts):
         yield tuple(x[i:i + rows] for x in ts)
 
 
-def global_norm(tree, split=None, comm=None) -> torch.Tensor:
+def global_norm(tree, counted=None, comm=None) -> torch.Tensor:
     """sqrt of the sum over leaves of ``sum(x^2)`` in float32 (each leaf
     summed slice by slice).
 
-    On data-parallel ranks (``comm``), the leaves flagged in ``split``
-    (``tree_leaves`` order) are this rank's shards: their partial sum is
-    summed over the ranks, and the leaves held whole are counted once.
-    Every rank gets the same bits (the all-reduce's result is every
-    rank's), so the clip scale is the same on every rank."""
+    Over ranks (``comm``, the whole mesh's communicator), the leaves are
+    this rank's shards, and ``counted`` (``tree_leaves`` order) flags the
+    ones this rank adds to the sum: each shard is counted by one rank
+    (a leaf held whole over a mesh axis by the rank at coordinate 0 of
+    it, so a leaf held whole everywhere by rank 0 alone), and one
+    all-reduce sums the ranks' totals. Every rank gets the same bits (the
+    all-reduce's result is every rank's), so the clip scale is the same
+    on every rank."""
     leaves = tree_leaves(tree)
-    if comm is None or split is None:
-        split = [False] * len(leaves)
-    total, shards = 0, 0
-    for x, sharded in zip(leaves, split):
+    if counted is None:
+        counted = [True] * len(leaves)
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for x, count in zip(leaves, counted):
+        if not count:
+            continue
         for (s,) in _slices(x):
-            part = torch.sum(torch.square(s.to(torch.float32)))
-            if sharded:
-                shards = shards + part
-            else:
-                total = total + part
-    if any(split):
-        total = comm.all_reduce(shards) + total
+            total = total + torch.sum(torch.square(s.to(torch.float32)))
+    if comm is not None:
+        total = comm.all_reduce(total)
     return torch.sqrt(total)
 
 
@@ -113,16 +114,16 @@ def adamw_init(params, cfg: AdamWConfig):
 
 
 def adamw_update(params, grads, opt_state, cfg: AdamWConfig, lr, *,
-                 split=None, comm=None):
+                 counted=None, comm=None):
     """One AdamW step. Returns (params, opt_state, stats): ``params`` and
     the moments updated in place (the trees given, returned), a new step
     tensor, ``stats`` {"grad_norm" (pre-clip), "lr"}. ``lr`` is a float
-    or a float32 scalar tensor. On data-parallel ranks the trees hold the
-    rank's shards of the leaves flagged in ``split``, and ``comm`` sums
-    their squares for the norm (``global_norm``); the update itself is
-    elementwise on each rank's shards."""
+    or a float32 scalar tensor. Over ranks the trees hold the rank's
+    shards, and ``counted`` and ``comm`` make the norm the whole tree's
+    (``global_norm``); the update itself is elementwise on each rank's
+    shards."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads, split, comm)
+    gnorm = global_norm(grads, counted, comm)
     if cfg.grad_clip:
         scale = torch.minimum(torch.ones_like(gnorm),
                               cfg.grad_clip / torch.clamp_min(gnorm, 1e-12))

@@ -32,13 +32,15 @@ tensors (no storage: what ``CheckpointManager.restore`` fills on a
 resume), and ``train_state_logical_specs`` gives each leaf's logical
 axis names, as the reference's do.
 
-**Data-parallel ranks.** With ``rules`` over a mesh of D data ranks
-(``launch.mesh.make_host_mesh(D)``, the step called on every rank), the
-step computes the one-rank step's result on the same global batch, up to
-the order of float sums, as GSPMD does over the reference's table:
+**Ranks.** With ``rules`` over a ``(data, model)`` mesh of D x M ranks
+(``launch.mesh.make_host_mesh(D, M)``, the step called on every rank),
+the step computes the one-rank step's result on the same global batch,
+up to the order of float sums, as GSPMD does over the reference's table.
+
+Over ``data``:
 
 * the deal: every rank is handed the global batch; the step splits it
-  into microbatches first and then takes rank d's rows of each,
+  into microbatches first and then takes data rank d's rows of each,
   ``[i*B/m + d*B/(m*D), i*B/m + (d+1)*B/(m*D))`` of microbatch i (the
   reference shards each microbatch's rows over ``data``). When D does not
   divide a microbatch (``resolve_rules`` drops ``act_batch`` when it does
@@ -49,20 +51,38 @@ the order of float sums, as GSPMD does over the reference's table:
   updates each layer's influence from the global loads against the
   global target (``moe.update_influence``, the function ``moe_apply``
   uses: one rank's step gives the forward's influence bit for bit, and
-  every rank the same bits);
+  every rank the same bits). The loads come from the whole routing,
+  which every model rank computes: they are reduced over ``data`` only;
 * FSDP: a rank holds every leaf the train rules split over ``data`` (the
   ``embed`` leaves) as its shard (``shard_state``); the forward gathers
-  it where it is used and its backward sums the gradient over the ranks
-  into the shard (``dist.fsdp``). Leaves held whole (expert weights,
-  norms) get one all-reduce sum of their gradients after the last
-  microbatch. Every gradient is divided once, by ``D * microbatches``;
-* the optimizer runs on the rank's shards; ``global_norm`` sums the
-  squares of the shards over the ranks; ``int8`` compression takes the
-  whole leaf's ``max|x|`` (an all-reduce max) and slices the shard's
-  noise out of the whole leaf's (17, step, leaf) stream, so D ranks
-  give one rank's bits;
+  it where it is used and its backward sums the gradient over the data
+  ranks into the shard (``dist.fsdp``). Leaves held whole over ``data``
+  get one all-reduce sum of their gradients over the data ranks after
+  the last microbatch. Every gradient is divided once, by
+  ``D * microbatches``;
 * the loss and ``moe_dropped_frac`` are the global means, the same on
   every rank.
+
+Over ``model`` (tensor parallelism): a rank holds its heads, channels,
+experts and vocabulary rows of every leaf the rules split over ``model``
+(``models.model.rank_shardings``: Mamba's ``in_proj`` by halves, RWKV's
+heads never cut) and the layers compute on them. Every tensor is whole
+and the same on every model rank, the rank's own part, or a partial sum;
+three differentiable moves join them (``dist.rules``): ``reduce_partial``
+(all-reduce forward, identity backward), ``enter_split`` (identity
+forward, all-reduce backward) on each edge where a whole value feeds
+the rank's part of a computation, and ``gather_split`` (all-gather
+forward, the rank's slice backward: the logits over ``vocab``, the router
+leaf over ``expert``). So the gradient of each whole leaf is the same
+bits on every model rank and each split leaf's is its own shard's: no
+gradient is reduced over ``model``.
+
+The optimizer runs on the rank's shards. ``global_norm`` counts each
+shard once: a leaf's squares on the ranks at coordinate 0 of every mesh
+axis it is held whole over, one all-reduce over the mesh summing them.
+``int8`` compression takes the whole leaf's ``max|x|`` (an all-reduce
+max) and cuts the shard's noise out of the whole leaf's (17, step,
+leaf) stream with the leaf's own cut, so any mesh gives one rank's bits.
 """
 from __future__ import annotations
 
@@ -72,7 +92,6 @@ import numpy as np
 import torch
 
 from repro_torch.dist import fsdp
-from repro_torch.dist.rules import param_shardings
 from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
@@ -96,11 +115,13 @@ class TrainHParams:
 
 
 def init_train_state(cfg, generator: torch.Generator, hp: TrainHParams,
-                     device=None):
+                     device=None, rules=None):
     """Parameters from ``generator`` (``model.init_params``), zero moments,
     the router's influence at 1 and, with compression, a zero float32
-    error-feedback tree; on ``device`` (default ``cuda``)."""
-    params = M.init_params(cfg, generator, device=device)
+    error-feedback tree; on ``device`` (default ``cuda``). ``rules`` (a
+    rank of several): only the rank's shards, bit-equal to
+    ``shard_state`` of the whole state (``init_params(..., rules=)``)."""
+    params = M.init_params(cfg, generator, device=device, rules=rules)
     dev = tree_leaves(params)[0].device
     state = {"params": params, "opt": adamw_init(params, _adamw_cfg(cfg, hp))}
     rs = MOE.init_router_state(cfg, device=dev)
@@ -176,9 +197,9 @@ def _noise(shape, step: int, leaf: int, device) -> torch.Tensor:
 def _compress(g, ef, kind: str, step: int, layout=None):
     """Error-feedback compression of the gradient tree ``g`` with the
     float32 residual tree ``ef``. Returns (g_compressed_f32, new_ef).
-    ``layout`` (data-parallel ranks: a ``_Layout``): the trees hold the
-    rank's shards of its split leaves, whose int8 scale is the whole
-    leaf's and whose noise is the shard's part of the whole leaf's."""
+    ``layout`` (ranks: a ``_Layout``): the trees hold the rank's shards
+    of its split leaves, whose int8 scale is the whole leaf's and whose
+    noise is the shard's cut of the whole leaf's."""
     if kind == "none":
         return g, ef
     gl, el = tree_leaves(g), tree_leaves(ef)
@@ -190,6 +211,8 @@ def _compress(g, ef, kind: str, step: int, layout=None):
         else:  # int8, stochastic rounding, per-tensor scale
             top = torch.max(torch.abs(gf))
             if layout is not None and layout.split[i]:   # the whole leaf's
+                # over the whole mesh: the ranks that share a shard hold
+                # the same values, and a max is exact in any order
                 top = layout.comm.all_reduce(top, "max")
                 noise = layout.shardings[i].local(_noise(
                     layout.shapes[i], step, i, gf.device))
@@ -206,52 +229,79 @@ def _compress(g, ef, kind: str, step: int, layout=None):
 
 
 class _Layout:
-    """Where a data rank's state is split, leaf by leaf in
-    ``tree_leaves`` order of the parameters: ``split`` flags, the
-    ``NamedSharding`` and whole shape of each leaf, and the data axis's
-    communicator."""
+    """Where a rank's state is split, leaf by leaf in ``tree_leaves``
+    order of the parameters: each leaf's sharding (``rank_shardings``)
+    and whole shape, whether it is split at all (``split``) and over
+    ``data`` (``data_split``: its gradient's sum over the data ranks came
+    backward through ``dist.fsdp``), whether this rank counts its shard
+    in a sum over the mesh (``counted``: the rank sits at coordinate 0 of
+    every axis the leaf is held whole over), the data axis's communicator
+    (``data``, None on one data rank) and the whole mesh's (``comm``)."""
 
-    def __init__(self, cfg, rules, comm):
-        shapes = tree_leaves(M.abstract_params(cfg))
-        self.shardings = tree_leaves(param_shardings(
-            rules, M.param_logical_specs(cfg)))
-        self.shapes = [tuple(x.shape) for x in shapes]
-        self.split = [bool(sh.split_dims(shape)) for sh, shape in
-                      zip(self.shardings, self.shapes)]
-        self.comm = comm
+    def __init__(self, cfg, rules):
+        mesh = rules.mesh
+        self.shardings = tree_leaves(M.rank_shardings(cfg, rules))
+        self.shapes = [tuple(x.shape)
+                       for x in tree_leaves(M.abstract_params(cfg))]
+        axes = [{axis for _, axis in sh.split_dims(shape)}
+                for sh, shape in zip(self.shardings, self.shapes)]
+        at = {name: mesh.coordinate(name) for name in mesh.axis_names}
+        self.split = [bool(a) for a in axes]
+        self.data_split = ["data" in a for a in axes]
+        self.counted = [all(at[name] == 0 for name in mesh.axis_names
+                            if name not in a) for a in axes]
+        self.data = _data_comm(rules)
+        self.comm = mesh.comm
+
+
+def _data_comm(rules):
+    """The data axis's communicator of ``rules``' mesh, None on one data
+    rank (whatever the model axis' extent)."""
+    if rules is None or rules.mesh.size == 1:
+        return None
+    return rules.mesh.axis_comm("data")
 
 
 def state_shardings(cfg, rules, hp: TrainHParams):
-    """Each train-state leaf's ``NamedSharding`` under ``rules`` (the
-    reference's ``param_shardings`` of ``train_state_logical_specs``)."""
-    return param_shardings(rules, train_state_logical_specs(cfg, hp))
+    """Each train-state leaf's sharding under ``rules``: the reference's
+    ``param_shardings`` of ``train_state_logical_specs``, each parameter,
+    moment and error-feedback leaf cut as the parameter is
+    (``models.model.rank_shardings``: Mamba's ``in_proj`` by halves,
+    RWKV's heads never cut)."""
+    psh = M.rank_shardings(cfg, rules)
+    out = {"params": psh, "opt": {"mu": psh, "nu": psh,
+                                  "step": rules.sharding(())}}
+    if _n_moe_with_influence(cfg):
+        out["influence"] = rules.sharding(("repeat", None, None))
+    if hp.grad_compress in ("bf16", "int8"):
+        out["ef"] = psh
+    return out
 
 
 def shard_state(state, cfg, rules, hp: TrainHParams):
     """A whole train state cut to this rank's shards (each split leaf a
-    copy of its part; leaves held whole kept as they are): what a data
-    rank holds. The identity on one rank."""
+    copy of its part; leaves held whole kept as they are): what a rank
+    holds. The identity on one rank."""
     if rules is None or rules.mesh.size == 1:
         return state
     return fsdp.local(state, state_shardings(cfg, rules, hp))
 
 
-def _data_comm(rules):
-    """The data axis's communicator of ``rules``' mesh, None on one data
-    rank.
-
-    Raises:
-        ValueError: the mesh splits the model axis (ROADMAP.md queue 1
-            item 4.10).
-    """
+def whole_state(state, cfg, rules, hp: TrainHParams):
+    """The whole train state from this rank's shards: each split leaf
+    joined over the mesh axes it is split over (``whole`` of its
+    sharding), the inverse of ``shard_state``; every rank calls it. The
+    state itself on one rank."""
     if rules is None or rules.mesh.size == 1:
-        return None
-    if rules.mesh.shape.get("model", 1) != 1:
-        raise ValueError(
-            f"training on a {rules.mesh.shape} mesh needs the backward of "
-            f"the model axis' collectives, which the port does not have "
-            f"yet (ROADMAP.md queue 1 item 4.10); serving runs over it")
-    return rules.mesh.axis_comm("data")
+        return state
+    shapes = abstract_train_state(cfg, hp)
+
+    def walk(x, sh, like):
+        if isinstance(x, dict):
+            return {k: walk(x[k], sh[k], like[k]) for k in x}
+        return sh.whole(x, tuple(like.shape))
+
+    return walk(state, state_shardings(cfg, rules, hp), shapes)
 
 
 def _influence_from_loads(infl, loads, target, m):
@@ -271,8 +321,9 @@ def make_train_step(cfg, rules=None, hp: TrainHParams = TrainHParams()):
     the state's device as it is used. ``metrics`` holds float32 scalar
     tensors: loss, moe_dropped_frac, grad_norm (pre clip), lr, and the new
     step (int32). ``rules``: None or rules over one rank (the one-rank
-    step), or train rules over a mesh of data ranks, the state then the
-    rank's shards (``shard_state``; the module docstring)."""
+    step), or train rules over a ``(data, model)`` mesh of ranks, the
+    state then the rank's shards (``shard_state``, ``init_train_state(...,
+    rules=)``; the module docstring)."""
     schedule = make_schedule(hp.lr_kind, hp.lr_peak, hp.warmup_steps,
                              hp.total_steps)
     acfg = _adamw_cfg(cfg, hp)
@@ -281,9 +332,10 @@ def make_train_step(cfg, rules=None, hp: TrainHParams = TrainHParams()):
     acc_dt = getattr(torch, hp.grad_acc_dtype)
 
     def train_step(state, batch):
-        comm = _data_comm(rules)
+        layout = None if rules is None or rules.mesh.size == 1 \
+            else _Layout(cfg, rules)
+        comm = None if layout is None else layout.data   # over data
         D = 1 if comm is None else comm.size
-        layout = None if comm is None else _Layout(cfg, rules, comm)
         params = state["params"]
         leaves = tree_leaves(params)
         for p in leaves:
@@ -338,7 +390,7 @@ def make_train_step(cfg, rules=None, hp: TrainHParams = TrainHParams()):
             g = p.grad if a is None else a
             if g is None:       # not reached by the loss: jax.grad's zeros
                 g = torch.zeros(p.shape, dtype=acc_dt, device=p.device)
-            elif comm is not None and not layout.split[j]:
+            elif comm is not None and not layout.data_split[j]:
                 g = comm.all_reduce(g)      # a shard's sum came backward
             if mbs * D > 1:
                 g.div_(mbs * D)
@@ -351,7 +403,8 @@ def make_train_step(cfg, rules=None, hp: TrainHParams = TrainHParams()):
             and dev.type != "meta" else 0
         grads, new_ef = _compress(grads, ef, hp.grad_compress, step0, layout)
         lr = schedule(state["opt"]["step"])
-        kw = {} if comm is None else {"split": layout.split, "comm": comm}
+        kw = {} if layout is None else {"counted": layout.counted,
+                                        "comm": layout.comm}
         _, new_opt, ostats = adamw_update(params, grads, state["opt"], acfg,
                                           lr, **kw)
         for p in leaves:

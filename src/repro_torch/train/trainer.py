@@ -25,16 +25,16 @@ caller gives: the checkpoint holds no data position, and
 ``launch/train.py`` replays its stream from batch 0 (ROADMAP.md queue 3
 item 21).
 
-**Data-parallel ranks.** With ``rules`` over a mesh of D data ranks, a
-``Trainer`` runs on each rank (``dist.launch`` or ``torchrun``): it holds
-the rank's shards of the state (a new state is made whole from the seed
-on every rank and cut, ``train.step.shard_state``; a resume reads each
-rank's slices), every rank draws the same batches and the step takes the
-rank's rows of each. Saves are collective: every rank gathers, rank 0
-writes the whole state. Preemption over ranks is not handled: a SIGINT
-seen by one rank saves on that rank alone and leaves the others in a
-collective, until the launcher's stop or timeout ends them (ROADMAP.md
-queue 3 item 24).
+**Ranks.** With ``rules`` over a ``(data, model)`` mesh, a ``Trainer``
+runs on each rank (``dist.launch`` or ``torchrun``): it holds the rank's
+shards of the state (a new state made from the seed on every rank, each
+leaf cut as it is made, ``train.step.init_train_state(..., rules=)``; a
+resume reads each rank's cuts), every rank draws the same batches and
+the step takes the rank's rows of each. Saves are collective: every rank
+joins its shards over the mesh, rank 0 writes the whole state.
+Preemption over ranks is not handled: a SIGINT seen by one rank saves on
+that rank alone and leaves the others in a collective, until the
+launcher's stop or timeout ends them (ROADMAP.md queue 3 item 24).
 """
 from __future__ import annotations
 
@@ -49,10 +49,9 @@ import torch
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.data.pipeline import Prefetcher
 from repro_torch.device import resolve_device
-from repro_torch.dist import fsdp
 
 from .step import (TrainHParams, abstract_train_state, init_train_state,
-                   make_train_step, shard_state, state_shardings)
+                   make_train_step, state_shardings)
 
 
 @dataclass
@@ -118,7 +117,7 @@ class Trainer:
     """The training loop of ``cfg`` under ``hp`` and ``tc``. The state
     lives on ``rules.mesh.device`` (``dist.rules.resolve_rules`` of a
     ``launch.mesh.make_host_mesh``), or on the card without rules; over
-    data ranks, as this rank's shards."""
+    ranks, as this rank's shards."""
 
     def __init__(self, cfg, rules, hp: TrainHParams, tc: TrainerConfig):
         self.cfg = cfg
@@ -135,31 +134,29 @@ class Trainer:
     def init_or_resume(self):
         """(state, first step): the latest checkpoint restored into the
         abstract state on the device, or a new state from a generator
-        seeded with ``tc.seed``."""
-        sharded = self.rules is not None and self.rules.mesh.size > 1
+        seeded with ``tc.seed``; over ranks, the rank's shards."""
+        shardings = self._shardings()
         if self.ckpt and self.tc.resume and self.ckpt.latest_step() is not None:
             return self.ckpt.restore(
                 abstract_train_state(self.cfg, self.hp), device=self.device,
-                shardings=state_shardings(self.cfg, self.rules, self.hp)
-                if sharded else None)
+                shardings=shardings)
         gen = torch.Generator(device=self.device).manual_seed(self.tc.seed)
-        state = init_train_state(self.cfg, gen, self.hp, device=self.device)
-        return shard_state(state, self.cfg, self.rules, self.hp), 0
+        return init_train_state(self.cfg, gen, self.hp, device=self.device,
+                                rules=self.rules), 0
 
-    def _save(self, step, state, splits):
-        if splits is None:
-            self.ckpt.save(step, state)
-        else:
-            self.ckpt.save(step, state, splits)
-
-    def _splits(self):
-        """The state's splits over the data ranks (``CheckpointManager.
-        save``'s ``splits``: ``{}`` when no leaf is split, so that rank 0
-        alone writes), None on one rank."""
+    def _shardings(self):
+        """The state's shardings over the ranks (``train.step.
+        state_shardings``), None on one rank."""
         if self.rules is None or self.rules.mesh.size == 1:
             return None
-        return fsdp.plan(state_shardings(self.cfg, self.rules, self.hp),
-                         abstract_train_state(self.cfg, self.hp)) or {}
+        return state_shardings(self.cfg, self.rules, self.hp)
+
+    def _save(self, step, state, shardings):
+        if shardings is None:
+            self.ckpt.save(step, state)
+        else:
+            self.ckpt.save(step, state, shardings,
+                           abstract_train_state(self.cfg, self.hp))
 
     def fit(self, data_iter, state=None, start_step: int | None = None):
         """Train until ``tc.steps``; returns (state, history)."""
@@ -168,7 +165,7 @@ class Trainer:
         elif start_step is None:
             start_step = int(state["opt"]["step"])
         data = iter(Prefetcher(data_iter))
-        splits = self._splits()
+        shardings = self._shardings()
         step = start_step
         t0 = time.perf_counter()
         with _SigintDeferral() as sigint:
@@ -185,13 +182,13 @@ class Trainer:
                         self.history.append(m)
                     if (self.ckpt and self.tc.ckpt_every
                             and step % self.tc.ckpt_every == 0):
-                        self._save(step, state, splits)
+                        self._save(step, state, shardings)
             except (KeyboardInterrupt, SystemExit):
                 if self.ckpt:                   # preemption: save, re-raise
-                    self._save(step, state, splits)
+                    self._save(step, state, shardings)
                     self.ckpt.wait()
                 raise
         if self.ckpt:
-            self._save(step, state, splits)
+            self._save(step, state, shardings)
             self.ckpt.wait()
         return state, self.history

@@ -95,8 +95,7 @@ def _assert_tree(got, want, **tol):
 
 def _whole_state(state, cfg, rules, hp):
     """The whole train state from a rank's shards (every rank calls it)."""
-    return fsdp.whole(state, fsdp.plan(STEP.state_shardings(cfg, rules, hp),
-                                       abstract_train_state(cfg, hp)))
+    return STEP.whole_state(state, cfg, rules, hp)
 
 
 def _rules(pcfg, data, batch):
@@ -402,8 +401,8 @@ def test_mesh_axis_groups_are_rows_and_columns():
 def test_rules_reduce_and_the_mesh_outside_a_rank():
     """``Rules.reduce`` is the identity on one data rank and the sum over
     the data ranks on two; a mesh of two ranks used outside a rank
-    raises, a one-rank mesh has no communicator; the model axis above 1
-    raises in the step (ROADMAP.md queue 1 item 4.10)."""
+    raises, a one-rank mesh has no communicator; the step's data axis is
+    None on a (1, 2) mesh and the column of two ranks on (2, 2)."""
     pcfg = configs.get_config(GEMMA, smoke=True)
     x = torch.tensor([1.0, 2.0])
     assert _rules(pcfg, 1, 4).reduce(x, "act_batch") is x
@@ -414,6 +413,14 @@ def test_rules_reduce_and_the_mesh_outside_a_rank():
         _rules(pcfg, D, 4).reduce(x, "act_batch")
     rules = resolve_rules(make_mesh((1, 2), ("data", "model"), device=CPU),
                           pcfg, "train")
-    with pytest.raises(ValueError, match="4.10"):
-        STEP._data_comm(rules)
+    assert STEP._data_comm(rules) is None
+
+    def data_axis():
+        comm = STEP._data_comm(resolve_rules(
+            make_mesh((2, 2), ("data", "model"), device=CPU), pcfg, "train"))
+        return comm.size, comm.rank, comm.all_reduce(
+            torch.tensor([float(current().rank)])).item()
+
+    assert _ranks(data_axis, 4) == [(2, 0, 2.0), (2, 0, 4.0), (2, 1, 2.0),
+                                    (2, 1, 4.0)]
     assert fsdp.gather(x, None) is x

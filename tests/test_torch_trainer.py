@@ -283,17 +283,13 @@ def test_launch_train_runs_and_resumes_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--data-parallel", "--model-parallel"])
-def test_launch_train_refuses_parallel_training(flag, monkeypatch):
-    """Tensor parallelism (``--model-parallel`` above 1) is ROADMAP.md
-    queue 1 item 4.10 and raises, naming it. ``--data-parallel 2`` called
-    outside a rank now launches two ranks running the same command (here
-    thread ranks, for time; tests/test_torch_train_ranks.py spawns the
-    processes) and returns rank 0's history."""
+def test_launch_train_launches_parallel_training(flag, monkeypatch):
+    """``--data-parallel 2`` or ``--model-parallel 2`` called outside a
+    rank launches two ranks running the same command (here thread ranks,
+    for time; tests/test_torch_train_ranks.py and
+    tests/test_torch_train_model_state.py spawn the processes) and
+    returns rank 0's history."""
     argv = ["--arch", "gemma3-1b", flag, "2", "--device", "cpu"]
-    if flag == "--model-parallel":
-        with pytest.raises(ValueError, match="4.10"):
-            LT.main(argv)
-        return
     launched = []
     inner = LT.launch.launch
 
