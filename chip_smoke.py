@@ -52,7 +52,11 @@ granite over two data ranks and serves granite and gemma3 over two
 vocabulary split) sharing the card against one rank, times each
 kernel with CUDA events against its bound, dry-runs on ``meta`` tensors
 (``launch.dryrun``, no model on the card) every cell whose peak memory it
-measured and gates the estimate within 10% of the measured peak, prints
+measured and gates the estimate within 10% of the measured peak (each
+rank of the data=2, model=2 training runs and of the model=2 serving runs
+traced alone on its own ``meta`` mesh, its collectives a step gated equal
+to what its communicator counted), dry-runs granite's ``train_4k`` on a
+rank of the 16 x 16 production pod (memory, fit, per-rank roofline), prints
 the first MFU readings (``launch.roofline.model_flops``) of the trainer's
 step and granite's prefill and the main sweep's
 ``kernel_roofline_record``, and prints one JSON line of kernel records.
@@ -3099,6 +3103,19 @@ def keep_peak(torch, ctx, tag, arch, cell, base, cfg_overrides=None,
         "hp": hp, "measured": torch.cuda.max_memory_allocated() - base}
 
 
+def keep_rank_peaks(ctx, tag, arch, cell, mesh, measured, moved, hp=None,
+                    cfg_overrides=None):
+    """The peaks of a run over ranks that the roofline phase dry-runs
+    rank by rank on its own ``meta`` mesh (``make_host_mesh(*mesh)``):
+    each rank's bytes allocated at its peak above its base, and the
+    collectives its communicator counted a step (None where the run
+    did not keep them)."""
+    ctx.setdefault("rank_peaks", {})[tag] = {
+        "arch": arch, "cell": cell, "mesh": mesh, "hp": hp,
+        "cfg_overrides": cfg_overrides, "measured": measured,
+        "moved": moved}
+
+
 def serve_arch(torch, ctx, cfg, params, origin):
     """``ServeEngine.run`` at granite's serve shapes (batch SERVE_BATCH,
     SERVE_REQUESTS x 12-token prompts, 16 new tokens; codebook prompts
@@ -4038,6 +4055,7 @@ def phase_trainer(torch, ctx):
 # microbatch of 2 x 4096 on each) against the same data=1 run
 TRAINER_DP_LAYERS, TRAINER_DP_B, TRAINER_DP_STEPS = 8, 4, 3
 TRAINER_DP_RANKS = 2
+TRAINER_DP_CELL = ("trainer_dp", TRAIN_S, TRAINER_DP_B, "train")
 # data=2 against data=1 on the card: the batch's rows reach the bf16
 # matmuls and the float32 sums in other groupings, and a router near-tie
 # that flips moves a token's expert, a layer's load by 1 of its ~3,277
@@ -4057,6 +4075,14 @@ TRAINER_DP_RANKS = 2
 # gated), as two data=1 runs whose first microbatches rounded apart
 # would
 TRAINER_DP_TOL = {"loss": 1e-4, "grad_norm": 1e-2, "influence": 1e-2}
+
+
+def trainer_dp_hp():
+    """The train hyperparameters of every trainer_dp run."""
+    from repro_torch.train import TrainHParams
+    return TrainHParams(microbatches=TRAIN_MICRO, lr_peak=3e-4,
+                        warmup_steps=max(TRAINER_DP_STEPS // 10, 1),
+                        total_steps=TRAINER_DP_STEPS, grad_compress="none")
 
 
 def trainer_dp_body(data, model=1):
@@ -4081,18 +4107,18 @@ def trainer_dp_body(data, model=1):
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model as M
     from repro_torch.optim.adamw import tree_leaves
-    from repro_torch.train import Trainer, TrainerConfig, TrainHParams
+    from repro_torch.train import Trainer, TrainerConfig
     from torch.profiler import ProfilerActivity, profile
     cfg = dataclasses.replace(granite.CONFIG, n_layers=TRAINER_DP_LAYERS)
-    hp = TrainHParams(microbatches=TRAIN_MICRO, lr_peak=3e-4,
-                      warmup_steps=max(TRAINER_DP_STEPS // 10, 1),
-                      total_steps=TRAINER_DP_STEPS, grad_compress="none")
+    hp = trainer_dp_hp()
     mesh = make_host_mesh(data, model, device=DEVICE)
     rules = resolve_rules(mesh, cfg, "train", batch_size=TRAINER_DP_B,
                           overrides=configs.sharding_overrides(
                               "granite-moe-3b-a800m", "train"))
     comm = mesh.comm
     torch.cuda.synchronize()
+    # what the process held before its state: the base of its peaks
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -4175,7 +4201,7 @@ def trainer_dp_body(data, model=1):
            busy[0] if isinstance(busy, tuple) else -1.0,
            busy[1] if isinstance(busy, tuple) else -1.0,
            out["n_params"], init_peak, init_launches,
-           moved.get("reduce_scatters", 0)]
+           moved.get("reduce_scatters", 0), base]
     out["busy_error"] = None if isinstance(busy, tuple) else busy
     if comm is None:
         out["table"] = [row]
@@ -4242,7 +4268,7 @@ def _log_trainer_run(ctx, cfg, tag, res, n):
     ctx.setdefault("trainer_dp", {})[tag] = s_step
     for r, row in enumerate(res["table"]):
         (peak, router, flash, total, ars, ags, dev_s, wall, _, init_peak,
-         init_launches, rss) = row
+         init_launches, rss, _) = row
         path = f"trainer_dp {tag} rank {r}"
         ctx["paths"][path] = {"router_topk": int(router),
                               "flash_attention_tc": int(flash)}
@@ -4380,10 +4406,18 @@ def phase_trainer_dp(torch, ctx):
     runs = launch.launch(trainer_dp_ranks, TRAINER_DP_RANKS, device="cuda",
                          timeout=900)
     launch_s = time.perf_counter() - t0
-    for tag, res in zip((f"data={TRAINER_DP_RANKS}",
-                         f"model={TRAINER_DP_RANKS}"), runs):
+    for (data, model), res in zip(((TRAINER_DP_RANKS, 1),
+                                   (1, TRAINER_DP_RANKS)), runs):
+        tag = f"data={data}" if data > 1 else f"model={model}"
         _log_trainer_run(ctx, cfg, tag, res, n)
         _gate_against_one(tag, res, one, launch_s, one_s)
+        keep_rank_peaks(
+            ctx, f"trainer_dp {tag}", "granite_moe_3b_a800m",
+            TRAINER_DP_CELL, (data, model),
+            [row[0] - row[12] for row in res["table"]],
+            [res["moved"]] + [None] * (len(res["table"]) - 1),
+            hp=trainer_dp_hp(),
+            cfg_overrides={"n_layers": TRAINER_DP_LAYERS})
     steady = ctx["trainer_dp"]
     log("trainer_dp", "steady s a step: " + ", ".join(
         f"{tag} {s:.3f} ({s / steady['data=1']:.2f}x data=1)"
@@ -4514,9 +4548,14 @@ def serve_tp_arch(torch, arch, mesh, routed, state):
     out["params_gib"] = sum(x.numel() * x.element_size() for x in
                             tree_leaves(params)) / 2 ** 30
 
-    def run(path, fn, steps=1):
+    def run(path, fn, steps=1, args=None):
+        """``fn`` as ``path``: its launches, wall, peak and collectives,
+        and the base of its peak (what the process held before it but
+        ``args``, the arguments it reads)."""
         routed.clear()
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated() - sum(
+            x.numel() * x.element_size() for x in tree_leaves(args or {}))
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         before = comm.counters() if comm is not None else None
@@ -4532,7 +4571,7 @@ def serve_tp_arch(torch, arch, mesh, routed, state):
             "wall": wall, "counts": {n: c for n, c in launch_counts().items()
                                      if c},
             "peak": torch.cuda.max_memory_allocated(), "moved": moved,
-            "steps": steps}
+            "steps": steps, "base": base}
         return value
 
     with torch.no_grad():
@@ -4551,7 +4590,7 @@ def serve_tp_arch(torch, arch, mesh, routed, state):
             reqs = [Request(uid=i, prompt=rng.integers(
                 0, cfg.vocab_size, (SERVE_PROMPT,)).astype(np.int32),
                 max_new=SERVE_TP_NEW) for i in range(SERVE_REQUESTS)]
-            run("engine", lambda: engine.run(reqs))
+            run("engine", lambda: engine.run(reqs), args=params)
             n_steps = len(seen)
             out["paths"]["engine"]["steps"] = n_steps
             out["paths"]["engine"]["moved"] = {
@@ -4564,7 +4603,7 @@ def serve_tp_arch(torch, arch, mesh, routed, state):
             0, cfg.vocab_size, (1, PREFILL_S)), dtype=torch.int32,
             device=DEVICE)
         logits, cache = run("prefill", lambda: M.prefill(
-            params, {"tokens": toks}, cfg, prules))
+            params, {"tokens": toks}, cfg, prules), args={"params": params, "tokens": toks})
         out["prefill_logits"] = logits.float().cpu().numpy()
         out["states"] = tp_states(cache, cfg, drules)
         busy = 0 if "busy" in out else SERVE_TP_BUSY
@@ -4656,7 +4695,8 @@ def serve_tp_body(model):
     finally:
         ops.router_topk_divide = inner
     table = [[arch, path, rec["counts"], rec["peak"], rec["wall"],
-              rec["steps"], rec.get("after")]
+              rec["steps"], rec.get("after"), rec.get("base"),
+              rec["moved"]]
              for arch, r in res.items() for path, rec in r["paths"].items()]
     out = {"res": res}
     if comm is None:
@@ -4698,6 +4738,7 @@ def phase_serve_tp(torch, ctx):
     model=1's, the collectives a step and rank 0's device busy."""
     import gc
     import numpy as np
+    from repro_torch import configs
     from repro_torch.dist import launch
     from repro_torch.kernels.ref import row_relative_error
     card = ctx["card"]
@@ -4725,7 +4766,7 @@ def phase_serve_tp(torch, ctx):
 
     for tag, out in (("model=1", one), (f"model={SERVE_TP_RANKS}", two)):
         for r, table in enumerate(out["table"]):
-            for arch, path, counts, peak, wall, steps, after in table:
+            for arch, path, counts, peak, wall, steps, after, _, _ in table:
                 cfg = serve_tp_config(arch)
                 moe = arch_layers(cfg, "mlp", "moe")
                 full = arch_layers(cfg, "attn", "full")
@@ -4744,6 +4785,17 @@ def phase_serve_tp(torch, ctx):
                     f"launches {counts} ({steps} step(s)), peak "
                     f"{peak / 2 ** 30:.2f} GiB{held}, wall {wall:.3f} s  "
                     f"[{card}]")
+    for arch in SERVE_TP_ARCHS:
+        cut = dict((a, d) for a, d, _ in ARCH_CELLS).get(arch)
+        for path, cell in (("engine", SERVE_CELL), ("prefill", PREFILL_CELL)):
+            rows = [row for table in two["table"] for row in table
+                    if row[:2] == [arch, path]]
+            if rows:
+                keep_rank_peaks(
+                    ctx, f"serve_tp {arch} {path}", arch, cell,
+                    (1, SERVE_TP_RANKS), [row[3] - row[7] for row in rows],
+                    [row[8] for row in rows], cfg_overrides=cut_config(
+                        configs.get_config(arch), cut)[1])
     if two["same_routing"] is not None:
         log("serve_tp", f"model={SERVE_TP_RANKS}: the experts of "
             f"{two['routed_calls']} router calls bit-equal on every rank: "
@@ -5408,6 +5460,11 @@ def phase_roofline(torch, ctx):
                     f"{t['dtype']}")
     check(not misses, f"roofline: the dry run's peak is outside "
           f"{PEAK_RATIO} of the measured one for {misses}")
+    t0 = time.perf_counter()
+    rank_dryruns(ctx)
+    pod_cell(ctx)
+    log("roofline", f"the ranks' dry runs and the pod cell "
+        f"{time.perf_counter() - t0:.1f} s  [{card}]")
     granite = configs.get_config("granite_moe_3b_a800m")
     for what, mode, B, S, key in (
             ("trainer A's steady step", "train", TRAIN_B, TRAIN_S,
@@ -5428,6 +5485,98 @@ def phase_roofline(torch, ctx):
         prune_frac=1.0 - pairs / (MAIN_N * MAIN_K))
     log("roofline", "kernel_roofline_record(h100, cuda) of the main cell's "
         "fused sweep: " + json.dumps(krec) + f"  [{card}]")
+
+
+# the production cell dry-run on a rank of the 16 x 16 pod
+POD_CELL = ("granite_moe_3b_a800m", "train_4k", "pod", 0)
+
+
+def rank_dryruns(ctx):
+    """Each rank of each run over ranks that an earlier phase kept
+    (``keep_rank_peaks``: trainer_dp at data=2 and model=2, serve_tp's
+    engine and prefills at model=2) traced alone on its own ``meta`` mesh
+    (``dryrun.run_cell`` with the rank, its collectives a
+    ``meta_communicator``'s, as the card's: gloo on CUDA tensors
+    reduce-scatters natively as NCCL does): its estimate (resident
+    arguments + the
+    liveness peak) within PEAK_RATIO of the rank's measured peak, and
+    its collectives a step, by kind in calls and bytes, equal to what the
+    rank's communicator counted a step. Nothing launches on the card."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shapes import ShapeCell
+    card = ctx["card"]
+    kept = ctx.get("rank_peaks", {})
+    if not kept:
+        log("roofline", "no run over ranks kept its peaks (trainer_dp and "
+            "serve_tp did not run): no rank dry-run")
+        return
+    misses = []
+    for tag, p in kept.items():
+        mesh = make_host_mesh(*p["mesh"], device="meta")
+        for rank, (got, moved) in enumerate(zip(p["measured"], p["moved"])):
+            t0 = time.perf_counter()
+            rec = D.run_cell(p["arch"], ShapeCell(*p["cell"]), mesh, rank,
+                             do_roofline=False, hp=p["hp"],
+                             cfg_overrides=p["cfg_overrides"], tag=tag)
+            mem, col = rec["memory"], rec["collectives"]
+            est = mem["live_bytes"]
+            ratio = est / got
+            ok = PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]
+            same = moved is None or all(float(col[k]) == float(moved[k])
+                                        for k in col)
+            counted = ("not kept on this rank" if moved is None else
+                       ", ".join(f"{k} {moved[k]:.1f}" for k in col))
+            log("roofline", f"{tag} rank {rank} of {mesh.shape}: dry run "
+                f"{est / 2 ** 30:.3f} GiB (arguments "
+                f"{mem['resident_argument_bytes'] / 2 ** 30:.3f} + liveness "
+                f"peak {mem['peak_temp_estimate'] / 2 ** 30:.3f}), measured "
+                f"{got / 2 ** 30:.3f} GiB above the rank's base: ratio "
+                f"{ratio:.4f} ({'within' if ok else 'OUTSIDE'} "
+                f"{PEAK_RATIO[0]}-{PEAK_RATIO[1]}); collectives a step, dry "
+                f"run {', '.join(f'{k} {v}' for k, v in col.items())}; "
+                f"counted {counted}: {'equal' if same else 'DIFFERENT'}; "
+                f"{rec['n_layers']} layers, traced in "
+                f"{time.perf_counter() - t0:.1f} s  [{card}]")
+            if not ok:
+                misses.append(f"{tag} rank {rank} peak")
+                for t in mem["largest_at_peak"]:
+                    log("roofline", f"  {tag} rank {rank} live at the "
+                        f"estimated peak: {t['bytes'] / 2 ** 20:.1f} MiB "
+                        f"{t['op']} {t['shape']} {t['dtype']}")
+            if not same:
+                misses.append(f"{tag} rank {rank} collectives")
+    check(not misses, f"roofline: the ranks' dry runs miss for {misses}")
+
+
+def pod_cell(ctx):
+    """POD_CELL: a rank of the reference's production pod traced alone on
+    ``meta`` (memory, its fit in one H100's 80 GB, its collectives and
+    wire a step, the per-rank roofline), printed with its trace
+    seconds."""
+    from repro_torch.launch import dryrun as D
+    arch, shape, mesh, rank = POD_CELL
+    t0 = time.perf_counter()
+    rec = D.run_cell(arch, shape, mesh, rank)
+    secs = time.perf_counter() - t0
+    check(rec["ok"], f"roofline: the pod cell {POD_CELL} failed")
+    mem, rl, wire = rec["memory"], rec["roofline"], rec["cost"]["wire_per_dev"]
+    log("roofline", f"pod cell: {arch} {shape} rank {rank} of the "
+        f"{rec['mesh_shape']} production mesh ({rec['n_devices']} ranks), "
+        f"{rec['n_layers']} layers, batch argument {rec['batch_argument']}: "
+        f"{mem['live_bytes'] / 2 ** 30:.3f} GiB (arguments "
+        f"{mem['resident_argument_bytes'] / 2 ** 30:.3f} + liveness peak "
+        f"{mem['peak_temp_estimate'] / 2 ** 30:.3f}), fits one 80 GB H100: "
+        f"{mem['fits_hbm_80g']}; collectives a step "
+        f"{json.dumps(rec['collectives'])}; wire a step "
+        f"{wire['total'] / 1e9:.3f} GB ({json.dumps(wire['counts'])}); "
+        f"FLOPs {rec['cost']['flops_per_dev']:.4e}, bytes "
+        f"{rec['cost']['bytes_per_dev']:.4e} a rank; roofline compute "
+        f"{rl['compute_s']:.4f} s, memory {rl['memory_s']:.4f} s, "
+        f"collective {rl['collective_s']:.4f} s ({rl['bottleneck']}); "
+        f"traced in {secs:.1f} s (build {rec['dryrun_s']['build']:.1f}, "
+        f"memory {rec['dryrun_s']['memory']:.1f}, cost "
+        f"{rec['dryrun_s']['cost']:.1f})  [{ctx['card']}]")
 
 
 # name -> (source, the TPU kernel or host step it replaces)

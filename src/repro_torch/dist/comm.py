@@ -2,9 +2,10 @@
 ``axis_name`` is under ``shard_map``.
 
 A ``Communicator`` holds one rank's process group, its rank, the world
-size, the mesh shape ``(P,)`` or ``(P1, P2)`` and, for a 2-D mesh, the
-subgroups along each of its axes (``axis_group``: the row of a rank, or
-its column). It offers the reductions of the paper's communication
+size, the mesh shape (``(P,)``, ``(P1, P2)`` or more axes, row-major)
+and the subgroups along its axes (``axis_group``: the row of a rank, or
+its column; ``axes_group``: the ranks that share every coordinate but
+those of a set of axes). It offers the reductions of the paper's communication
 discipline (§4.1), ``all_reduce(x, "sum" | "min" | "max")``, plus the
 shard id (the reference's ``axis_index``), and the collectives that move
 data: ``all_gather`` and ``all_to_all``, the reference's ``all_gather``
@@ -23,6 +24,11 @@ launcher (``dist.launch``) or a ``using(comm)`` block made active in
 this thread, else one over the default process group when the caller
 initialized it (as under ``torchrun``), else None: no rank, the
 single-device path.
+
+``meta_communicator`` is one rank of a mesh traced alone on ``meta``
+tensors (the dry run): its group and every subgroup it makes are
+``MetaGroup``s, whose collectives complete at once and append ``(kind,
+bytes, group size)`` to one log, the bytes as ``counters`` counts them.
 """
 from __future__ import annotations
 
@@ -54,6 +60,13 @@ KINDS = (("all_reduce", "all_reduces"), ("all_gather", "all_gathers"),
 NATIVE_REDUCE_SCATTER = {("nccl", "cuda"), ("gloo", "cuda")}
 
 
+def _prod(shape) -> int:
+    n = 1
+    for s in shape:
+        n *= int(s)
+    return n
+
+
 def _reduce_op(op: str):
     return {"sum": tdist.ReduceOp.SUM, "min": tdist.ReduceOp.MIN,
             "max": tdist.ReduceOp.MAX}[op]
@@ -62,13 +75,17 @@ def _reduce_op(op: str):
 class _Shared:
     """What the views of one rank's group share: the collective counters
     (calls, host seconds, bytes of each kind) and the subgroups along the
-    axes of each mesh shape, made once per (shape, axis)."""
+    axes of each mesh shape, made once per (shape, axes); and the
+    counters of every collective of the rank, its subgroups' included
+    (``rank_counts``, shared with the subgroups)."""
 
-    def __init__(self, subgroup_factory, cancel=None):
+    def __init__(self, subgroup_factory, cancel=None, rank_counts=None):
         self.subgroup_factory = subgroup_factory
         self.cancel = cancel
         self.subgroups: dict = {}
         self.counts = {kind: [0, 0.0, 0] for kind, _ in KINDS}
+        self.rank_counts = {kind: [0, 0.0, 0] for kind, _ in KINDS} \
+            if rank_counts is None else rank_counts
 
     def finish(self, kind: str, work, t0: float, nbytes: int) -> None:
         """Wait for ``work`` (a collective started at ``t0``) and count it.
@@ -81,10 +98,12 @@ class _Shared:
                                          "failed")
                 time.sleep(2e-5)
         work.wait()
-        count = self.counts[kind]
-        count[0] += 1
-        count[1] += time.perf_counter() - t0
-        count[2] += nbytes
+        seconds = time.perf_counter() - t0
+        for counts in (self.counts, self.rank_counts):
+            count = counts[kind]
+            count[0] += 1
+            count[1] += seconds
+            count[2] += nbytes
 
 
 class Communicator:
@@ -105,15 +124,17 @@ class Communicator:
             with ``CancelledError`` once set (ranks that are threads of
             one process: a failing rank sets it, so the others do not
             wait for their collectives' timeout).
+        device_type: the device type the collectives run as where it is
+            not the tensors' own (a ``MetaGroup``'s ``meta`` tensors
+            stand for the card's: ``"cuda"``); None: the tensors'.
     """
 
     def __init__(self, group, rank: int, size: int, *, backend: str,
                  shape=None, subgroup_factory=None, cancel=None,
-                 _shared=None):
+                 device_type=None, _shared=None):
         shape = (int(size),) if shape is None else tuple(int(s)
                                                          for s in shape)
-        if len(shape) not in (1, 2) or min(shape) < 1 or \
-                int(torch.tensor(shape).prod()) != size:
+        if not shape or min(shape) < 1 or _prod(shape) != size:
             raise ValueError(f"mesh shape {shape} does not cover "
                              f"{size} ranks")
         self.group = group
@@ -121,6 +142,7 @@ class Communicator:
         self.size = int(size)
         self.backend = backend
         self.shape = shape
+        self.device_type = device_type
         self._shared = _shared or _Shared(subgroup_factory, cancel)
 
     @property
@@ -138,10 +160,20 @@ class Communicator:
         return self.rank % self.shape[-1] if len(self.shape) == 2 \
             else self.rank
 
+    @property
+    def coords(self) -> tuple:
+        """This rank's coordinates on the mesh's axes (row-major)."""
+        out, r = [], self.rank
+        for extent in reversed(self.shape):
+            out.append(r % extent)
+            r //= extent
+        return tuple(reversed(out))
+
     def with_shape(self, shape) -> "Communicator":
         """The same ranks viewed as mesh ``shape`` (counters shared)."""
         return Communicator(self.group, self.rank, self.size,
                             backend=self.backend, shape=shape,
+                            device_type=self.device_type,
                             _shared=self._shared)
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
@@ -222,7 +254,8 @@ class Communicator:
             raise ValueError(f"reduce_scatter splits dim {dim} of "
                              f"{tuple(x.shape)} into {self.size} chunks")
         part = n // self.size
-        if (self.backend, x.device.type) not in NATIVE_REDUCE_SCATTER:
+        if (self.backend, self.device_type or x.device.type) not in \
+                NATIVE_REDUCE_SCATTER:
             return self.all_reduce(x).narrow(dim, self.rank * part,
                                              part).contiguous()
         src = x.movedim(dim, 0).contiguous()
@@ -239,36 +272,51 @@ class Communicator:
         """The ranks that share this rank's coordinates on every axis but
         ``axis`` of its mesh, as a 1-D communicator (the rank's index on
         ``axis`` is its rank there): on a ``(P1, P2)`` mesh, axis 1 is
-        the rank's row (P2 ranks) and axis 0 its column (P1 ranks). Every
-        rank of the mesh must call this at the same point of the program,
-        as it may create the subgroups of that axis, each rank all of them
-        in the same order (``torch.distributed.new_group``'s rule). A
-        mesh whose other extents are 1 is its own axis group (the counters
-        shared, no subgroup made)."""
+        the rank's row (P2 ranks) and axis 0 its column (P1 ranks).
+        ``axes_group((axis,))``."""
+        if not 0 <= axis < len(self.shape):
+            raise ValueError(f"mesh {self.shape} has no axis {axis}")
+        return self.axes_group((axis,))
+
+    def axes_group(self, axes) -> "Communicator":
+        """The ranks that share this rank's coordinates on every axis of
+        its mesh but ``axes``, as a 1-D communicator in the row-major
+        order of their coordinates on ``axes`` (this rank's rank there is
+        that order's index of its own): over the ``(pod, data)`` axes of
+        a ``(pod, data, model)`` mesh, pod-major. Every rank of the mesh
+        must call this at the same point of the program, as it may
+        create the subgroups of those axes: each rank all of them, one a
+        line, the lines in the row-major order of their other
+        coordinates (``torch.distributed.new_group``'s rule). A mesh
+        whose other extents are 1 is its own group (the counters shared,
+        no subgroup made)."""
         shape = self.shape
-        if not 0 <= axis < len(shape):
-            raise ValueError(f"mesh {shape} has no axis {axis}")
-        if shape[axis] == self.size:
+        axes = tuple(sorted({int(a) for a in axes}))
+        if not axes or not all(0 <= a < len(shape) for a in axes):
+            raise ValueError(f"mesh {shape} has no axes {axes}")
+        n = _prod(shape[a] for a in axes)
+        if n == self.size:
             return self.with_shape((self.size,))
-        p1, p2 = shape
+        others = tuple(a for a in range(len(shape)) if a not in axes)
         sh = self._shared
-        key = (shape, axis)
+        key = (shape, axes)
         if key not in sh.subgroups:
             if sh.subgroup_factory is None:
                 raise RuntimeError("this communicator cannot make "
                                    "subgroups")
-            lines = ([[c * p2 + j for j in range(p2)] for c in range(p1)]
-                     if axis == 1 else
-                     [[c * p2 + j for c in range(p1)] for j in range(p2)])
-            sh.subgroups[key] = [sh.subgroup_factory(ranks)
-                                 for ranks in lines]
-        if axis == 1:
-            line, index = self.coarse_index, self.refine_index
-        else:
-            line, index = self.refine_index, self.coarse_index
-        return Communicator(sh.subgroups[key][line], index, shape[axis],
-                            backend=self.backend, shape=(shape[axis],),
-                            _shared=_Shared(None, sh.cancel))
+            sh.subgroups[key] = [
+                sh.subgroup_factory([_flat(shape, axes, others, i, j)
+                                     for i in range(n)])
+                for j in range(self.size // n)]
+        coords = self.coords
+        line = _index([coords[a] for a in others],
+                      [shape[a] for a in others])
+        index = _index([coords[a] for a in axes], [shape[a] for a in axes])
+        return Communicator(sh.subgroups[key][line], index, n,
+                            backend=self.backend, shape=(n,),
+                            device_type=self.device_type,
+                            _shared=_Shared(None, sh.cancel,
+                                            sh.rank_counts))
 
     def refine_group(self) -> "Communicator":
         """The ranks of this rank's coarse row (the refine axis of a
@@ -280,16 +328,20 @@ class Communicator:
                              f"one is {self.shape}")
         return self.axis_group(1)
 
-    def counters(self) -> dict:
+    def counters(self, *, rank: bool = False) -> dict:
         """Collectives of this group so far, each kind apart: the
         all-reduces as ``{"all_reduces", "seconds", "bytes"}`` (host
         seconds inside ``all_reduce``), the others as ``"all_gathers"``,
         ``"all_gather_seconds"``, ``"all_gather_bytes"`` and the same for
-        ``all_to_all`` and ``reduce_scatter``. Callers take the
-        difference around the work they measure."""
+        ``all_to_all`` and ``reduce_scatter``. ``rank``: every collective
+        of the rank, those of the subgroups made from its group included
+        (on a mesh of more than one axis of extent above 1, what the
+        rank moves). Callers take the difference around the work they
+        measure."""
+        counts = self._shared.rank_counts if rank else self._shared.counts
         out = {}
         for kind, key in KINDS:
-            calls, seconds, nbytes = self._shared.counts[kind]
+            calls, seconds, nbytes = counts[kind]
             prefix = "" if kind == "all_reduce" else f"{kind}_"
             out.update({key: calls, f"{prefix}seconds": seconds,
                         f"{prefix}bytes": nbytes})
@@ -298,6 +350,106 @@ class Communicator:
 
 def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
+
+
+def _index(coords, extents) -> int:
+    """The row-major index of ``coords`` over ``extents``."""
+    i = 0
+    for c, e in zip(coords, extents):
+        i = i * e + c
+    return i
+
+
+def _unindex(i: int, extents) -> list:
+    """The coordinates of row-major index ``i`` over ``extents``."""
+    out = []
+    for e in reversed(extents):
+        out.append(i % e)
+        i //= e
+    return out[::-1]
+
+
+def _flat(shape, axes, others, i: int, j: int) -> int:
+    """The flat rank of ``shape`` at index ``i`` over ``axes`` and ``j``
+    over ``others`` (both row-major)."""
+    coords = [0] * len(shape)
+    for a, c in zip(axes, _unindex(i, [shape[a] for a in axes])):
+        coords[a] = c
+    for a, c in zip(others, _unindex(j, [shape[a] for a in others])):
+        coords[a] = c
+    return _index(coords, shape)
+
+
+class _Done:
+    """A collective that completed when it was started."""
+
+    def is_completed(self) -> bool:
+        return True
+
+    def wait(self) -> bool:
+        return True
+
+
+class MetaGroup:
+    """The process group of a rank traced alone (the dry run): the four
+    calls a ``Communicator`` makes on its group, each complete at once
+    with its outputs left as allocated, and each appended to ``log`` as
+    ``(kind, bytes, group size)``, the bytes as ``counters`` counts them
+    (the input's: an all-gather's own part, a reduce-scatter's whole
+    operand)."""
+
+    def __init__(self, size: int, log: list):
+        self.size = int(size)
+        self.log = log
+
+    def _done(self, kind: str, x: torch.Tensor) -> _Done:
+        self.log.append((kind, _nbytes(x), self.size))
+        return _Done()
+
+    def allreduce(self, tensors, opts=None):
+        return self._done("all_reduce", tensors[0])
+
+    def allgather(self, outputs, inputs):
+        return self._done("all_gather", inputs[0])
+
+    def alltoall_base(self, out, src, *args):
+        return self._done("all_to_all", src)
+
+    def _reduce_scatter_base(self, out, src, opts=None):
+        return self._done("reduce_scatter", src)
+
+
+def meta_communicator(shape, rank: int, *, backend: str = "nccl",
+                      device_type: str | None = "cuda"):
+    """Rank ``rank`` of a mesh of ``shape`` traced alone: (its
+    communicator over a ``MetaGroup``, the log every collective of it
+    and of every subgroup it makes appends to). Bound with ``using``, it
+    is the rank's ``current()``: the ``Communicator`` code runs
+    unchanged, its outputs allocated as a real rank's are. ``backend``
+    and ``device_type`` name the deployment it stands for (the card's
+    ``nccl``; ``("gloo", None)``: CPU ranks, which reduce-scatter by an
+    all-reduce)."""
+    shape = tuple(int(s) for s in shape)
+    log: list = []
+    size = _prod(shape)
+    if not 0 <= int(rank) < size:
+        raise ValueError(f"rank {rank} of a mesh of {size}")
+    comm = Communicator(MetaGroup(size, log), rank, size, backend=backend,
+                        shape=shape, device_type=device_type,
+                        subgroup_factory=lambda ranks: MetaGroup(
+                            len(ranks), log))
+    return comm, log
+
+
+def log_counters(log) -> dict:
+    """A ``meta_communicator`` log (or a part of it) in ``counters``'
+    form: each kind's calls and bytes (no seconds)."""
+    out = {}
+    for kind, key in KINDS:
+        prefix = "" if kind == "all_reduce" else f"{kind}_"
+        out[key] = sum(1 for k, _, _ in log if k == kind)
+        out[f"{prefix}bytes"] = sum(b for k, b, _ in log if k == kind)
+    return out
 
 
 def reduce(x: torch.Tensor, comm: Communicator | None, op: str = "sum"):

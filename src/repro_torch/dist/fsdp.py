@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from .rules import axes_of
+
 
 class _Gather(torch.autograd.Function):
     """The whole of a shard split along ``dim`` over ``comm``'s ranks."""
@@ -52,10 +54,11 @@ def gather_tree(tree, plan):
 def plan(shardings, shapes, *, drop_leading: bool = False):
     """The split of each leaf over the ``data`` axis: ``(dim,
     communicator)`` for a leaf of the tree ``shapes`` (the whole leaves,
-    or ``meta`` tensors of their shapes) held as a shard over ``data`` by
-    its ``NamedSharding`` in ``shardings``, None for a leaf held whole
-    there; None for a tree with no such leaf. A split over ``model`` is
-    no FSDP: the layers compute on that shard (tensor parallelism).
+    ``meta`` tensors of their shapes, or the shapes themselves) held as a
+    shard over ``data`` by its ``NamedSharding`` in ``shardings``, None
+    for a leaf held whole there; None for a tree with no such leaf. A
+    split over ``model`` is no FSDP: the layers compute on that shard
+    (tensor parallelism).
     ``drop_leading``: the dims of one index of the leading (stacked
     repeat) dim, which is never split."""
     def walk(sh, x):
@@ -63,8 +66,9 @@ def plan(shardings, shapes, *, drop_leading: bool = False):
             sub = {k: walk(sh[k], x[k]) for k in sh}
             return sub if any(v is not None for v in sub.values()) \
                 else None
-        split = [(dim, axis) for dim, axis in sh.split_dims(tuple(x.shape))
-                 if axis == "data"]
+        shape = tuple(getattr(x, "shape", x))
+        split = [(dim, axis) for dim, axis in sh.split_dims(shape)
+                 if "data" in axes_of(axis)]
         if not split:
             return None
         if len(split) > 1:

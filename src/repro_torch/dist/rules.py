@@ -14,8 +14,9 @@ each holding its own rows and shards. ``Rules.shard`` checks the names
 against the tensor's rank and returns it: a rank's activation is already
 its shard, and what GSPMD's constraints would move the port moves
 explicitly, ``Rules.reduce`` summing over the mesh axes of a logical axis
-(``act_batch``: the data ranks), and ``dist.fsdp`` gathering the leaves
-sharded over ``data``. The layers sharded over ``model`` take one decision,
+(``act_batch``: the data ranks, or ``pod`` x ``data`` on a multi-pod
+mesh), and ``dist.fsdp`` gathering the leaves sharded over ``data``.
+The layers sharded over ``model`` take one decision,
 ``splits`` (a dimension is held as one shard a rank where the extent
 divides it, whole elsewhere), and with it ``local_range`` (the rank's
 slice) and three differentiable moves between the three kinds of
@@ -207,6 +208,12 @@ def _axis_extent(mesh, axes) -> int:
     return ext
 
 
+def axes_of(axis) -> tuple:
+    """The mesh axis names of a ``split_dims`` entry (a name or a tuple
+    of names) as a tuple."""
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
 def _split_axes(mesh, axes) -> tuple:
     """The mesh axes of a spec entry whose extent is above 1."""
     if axes is None:
@@ -228,36 +235,32 @@ class NamedSharding:
         return self.mesh.device
 
     def split_dims(self, shape) -> list:
-        """(dim, mesh axis) of each dimension of a leaf of ``shape`` that
-        is held as one shard a rank: its spec names a mesh axis of extent
-        above 1 that divides it. A dimension the extent does not divide
-        is held whole.
-
-        Raises:
-            NotImplementedError: a dimension split over two mesh axes.
-        """
+        """(dim, mesh axes) of each dimension of a leaf of ``shape`` that
+        is held as one shard a rank: its spec names mesh axes of extent
+        above 1 whose product divides it. The axes are one name, or a
+        tuple of names for a dimension split over several (``("pod",
+        "data")``: one shard a rank of their product, in the row-major
+        order of the rank's coordinates on them, pod-major as jax lays
+        out ``P(("pod", "data"))``). A dimension the extent does not
+        divide is held whole."""
         out = []
         for dim, (n, axes) in enumerate(zip(shape, self.spec)):
             split = _split_axes(self.mesh, axes)
-            if len(split) > 1:
-                raise NotImplementedError(
-                    f"dim {dim} split over {split}: one mesh axis a "
-                    f"dimension (ROADMAP.md queue 1 item 4.10)")
-            if split and n % self.mesh.shape[split[0]] == 0:
-                out.append((dim, split[0]))
+            if split and n % _axis_extent(self.mesh, split) == 0:
+                out.append((dim, split[0] if len(split) == 1 else split))
         return out
 
     def shard_shape(self, shape) -> tuple:
         """The shape of a rank's shard of a leaf of ``shape``."""
         shape = list(shape)
         for dim, axis in self.split_dims(shape):
-            shape[dim] //= self.mesh.shape[axis]
+            shape[dim] //= _axis_extent(self.mesh, axis)
         return tuple(shape)
 
     def local(self, x):
         """This rank's shard of the whole leaf ``x`` (a view)."""
         for dim, axis in self.split_dims(x.shape):
-            part = x.shape[dim] // self.mesh.shape[axis]
+            part = x.shape[dim] // _axis_extent(self.mesh, axis)
             x = x.narrow(dim, self.mesh.coordinate(axis) * part, part)
         return x
 
@@ -305,14 +308,12 @@ class Rules:
         return _axis_extent(self.mesh, self.table.get(logical))
 
     def comm(self, logical: str):
-        """The communicator over the mesh axes of ``logical`` (None when
-        they have one rank between them)."""
+        """The communicator over exactly the mesh axes of ``logical``
+        (``act_batch`` on ``(pod, data, model)``: the ``pod`` x ``data``
+        ranks of this rank's ``model`` coordinate, pod-major); None when
+        they have one rank between them."""
         split = _split_axes(self.mesh, self.table.get(logical))
-        if not split:
-            return None
-        if len(split) == 1:
-            return self.mesh.axis_comm(split[0])
-        return self.mesh.comm
+        return self.mesh.axis_comm(split) if split else None
 
     def reduce(self, x, logical: str, op: str = "sum"):
         """``x`` reduced over the mesh axes of the logical axis
@@ -342,7 +343,7 @@ def local_range(rules: Rules | None, logical: str, n: int):
     if not splits(rules, logical, n):
         return 0, n
     (_, axis), = rules.sharding((logical,)).split_dims((n,))
-    part = n // rules.mesh.shape[axis]
+    part = n // _axis_extent(rules.mesh, axis)
     lo = rules.mesh.coordinate(axis) * part
     return lo, lo + part
 

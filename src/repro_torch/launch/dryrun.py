@@ -23,38 +23,61 @@ For each cell this module:
 
 A cell is a ``launch/shapes.py`` name or a ``ShapeCell`` (the card's own
 cells: ``chip_smoke.py`` dry-runs the cells whose peaks it measures).
-``--mesh single`` is one rank on one card, a deliberate departure from the
-reference, whose single mesh is a 256-chip pod (ROADMAP.md queue 3).
-``--mesh multi`` raises: the production mesh over ranks, the pod's
-``(data, model)`` = 16 x 16, and a per-rank dry run of it are still to
-come (ROADMAP.md queue 1 item 4.10 step 3).
+
+**Meshes.** A record is one rank's. ``--mesh single`` is one rank on one
+card, a deliberate departure from the reference, whose single mesh is a
+256-chip pod (ROADMAP.md queue 3 item 23). ``--mesh pod`` is the
+reference's single: rank ``--rank`` (default 0) of
+``launch.mesh.make_production_mesh()``, 16 x 16 over ``(data, model)``;
+``--mesh multi`` is a rank of the 2 x 16 x 16 ``(pod, data, model)`` mesh,
+``both`` the two. The rank is traced alone, in this process, through the
+port's real step code on the rank's shards (``abstract_train_state`` /
+``abstract_params`` with the rules, its own cache and batch argument,
+``shapes.BATCH_ARGUMENT``), its communicator a
+``dist.comm.meta_communicator``: the collectives complete at once, their
+outputs allocated as a real rank's are, and each is logged. The record
+holds the rank (``rank``, ``n_devices``), its memory and fit against one
+H100, its collectives a step at full depth (``collectives``, as
+``Communicator.counters`` counts them) and their wire bytes
+(``cost.wire_per_dev``, ``roofline.collective_wire``), and (``single``,
+``pod``; not ``multi``, as in the reference) its FLOPs, bytes and
+roofline terms. A dimension the
+mesh extent does not divide is held whole, where the reference's ``jit``
+refuses the cell (ROADMAP.md departure 28: the KV heads of 7 of the 10
+configs at ``model`` = 16).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch starcoder2-7b \
         --shape train_4k --mesh single --out results/dryrun/sc2.json
-    python -m repro_torch.launch.dryrun --all --mesh single \
+    python -m repro_torch.launch.dryrun --arch granite-moe-3b-a800m \
+        --shape train_4k --mesh pod --rank 0
+    python -m repro_torch.launch.dryrun --all --mesh both \
         --out-dir results/dryrun
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
 import traceback
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch import configs
+from repro_torch.dist.comm import log_counters, meta_communicator, using
 from repro_torch.dist.rules import resolve_rules
 from repro_torch.kernels import meta as KMETA
 from repro_torch.launch import roofline as RL
 from repro_torch.launch.live_mem import LiveMemory, storage_key, tensors
-from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.launch.shapes import SHAPES, ShapeCell, input_specs
+from repro_torch.launch.mesh import (Mesh, make_host_mesh,
+                                     make_production_mesh)
+from repro_torch.launch.shapes import (BATCH_ARGUMENT, SHAPES, ShapeCell,
+                                       input_specs)
 from repro_torch.models import model as M
 from repro_torch.serve.engine import make_serve_step
 from repro_torch.train.step import (TrainHParams, abstract_train_state,
@@ -64,10 +87,12 @@ from repro_torch.train.step import (TrainHParams, abstract_train_state,
 # HBM_PER_CHIP is a TPU v5e's 16 GiB)
 HBM_PER_CARD = 80 * 10 ** 9
 
-MULTI_POD = ("--mesh multi needs the production mesh over ranks, "
-             "launch/mesh.py::make_production_mesh, and a per-rank dry run "
-             "of it, which the port does not have yet (ROADMAP.md queue 1 "
-             "item 4.10 step 3); use --mesh single")
+#: the meshes a record can be of (``--mesh``; ``both`` is pod and multi)
+MESHES = ("single", "pod", "multi")
+
+#: the collectives of a dry-run rank run as the card's: NCCL on CUDA
+#: tensors, which reduce-scatters natively
+CARD_COLLECTIVES = ("nccl", "cuda")
 
 # the reference's decode step takes its position as an int32 scalar
 # argument; the port's takes a Python int
@@ -136,32 +161,53 @@ class Cell:
     what the step reads (state or parameters, batch, cache), made before
     the step runs. ``scalar_bytes``: the int32 decode position the
     reference's step takes as an argument where a layer reads it (the
-    port's takes a Python int)."""
+    port's takes a Python int). ``comm``: the rank's meta communicator
+    (None on one rank), bound while the step runs, and ``log`` its
+    collectives of the last run."""
     fn: object
     args: tuple
     scalar_bytes: int = 0
+    comm: object = None
+    log: list = field(default_factory=list)
 
     def run(self):
-        return self.fn(*self.args)
+        del self.log[:]
+        with _bound(self.comm):
+            return self.fn(*self.args)
+
+
+def _bound(comm):
+    """``comm`` bound as the calling rank's (nothing on one rank)."""
+    return contextlib.nullcontext() if comm is None else using(comm)
 
 
 def _shape(shape) -> ShapeCell:
     return shape if isinstance(shape, ShapeCell) else SHAPES[shape]
 
 
-def build_cell(arch: str, shape, multi_pod: bool = False,
+def _mesh(mesh) -> tuple:
+    """(name, Mesh) of a ``MESHES`` name (its ``meta`` mesh) or a ``Mesh``
+    (named by its extents)."""
+    if isinstance(mesh, Mesh):
+        return "x".join(map(str, mesh.extents)), mesh
+    if mesh == "single":
+        return mesh, make_host_mesh(device="meta")
+    if mesh in ("pod", "multi"):
+        return mesh, make_production_mesh(multi_pod=mesh == "multi",
+                                          device="meta")
+    raise ValueError(f"mesh {mesh!r}: one of {MESHES}")
+
+
+def build_cell(arch: str, shape, mesh="single", rank: int = 0,
                n_layers: int | None = None, unroll: bool = False,
                hp: TrainHParams | None = None, overrides: dict | None = None,
-               cfg_overrides: dict | None = None):
-    """One cell on ``meta`` tensors. Returns (cell, meta, cfg).
-
-    Raises:
-        ValueError: ``multi_pod`` (the production mesh over ranks is
-            ROADMAP.md queue 1 item 4.10).
-    """
-    if multi_pod:
-        raise ValueError(MULTI_POD)
-    mesh = make_host_mesh(device="meta")
+               cfg_overrides: dict | None = None,
+               collectives=CARD_COLLECTIVES):
+    """One cell of rank ``rank`` of ``mesh`` (a ``MESHES`` name or a
+    ``Mesh``) on ``meta`` tensors. Returns (cell, meta, cfg).
+    ``collectives``: the (backend, device type) the rank's collectives
+    run as (``dist.comm.meta_communicator``)."""
+    name, mesh = _mesh(mesh)
     cfg = configs.get_config(arch)
     if cfg_overrides:
         cfg = replace(cfg, **cfg_overrides)
@@ -171,37 +217,51 @@ def build_cell(arch: str, shape, multi_pod: bool = False,
     ov = dict(configs.sharding_overrides(arch, cell.mode))
     if overrides:
         ov.update(overrides)
-    rules = resolve_rules(mesh, cfg, cell.mode, batch_size=cell.batch,
-                          overrides=ov)
-    batch = input_specs(cfg, cell)
+    comm = None
+    if mesh.size > 1:
+        comm, log = meta_communicator(mesh.extents, rank,
+                                      backend=collectives[0],
+                                      device_type=collectives[1])
+    else:
+        rank, log = 0, []
     meta = {"arch": arch, "shape": cell.name, "mode": cell.mode,
-            "batch": cell.batch, "seq": cell.seq, "mesh": "single",
-            "n_devices": 1, "n_layers": cfg.n_layers}
+            "batch": cell.batch, "seq": cell.seq, "mesh": name,
+            "mesh_shape": mesh.shape, "n_devices": mesh.size, "rank": rank,
+            "batch_argument": BATCH_ARGUMENT[cell.mode],
+            "n_layers": cfg.n_layers}
+    with _bound(comm):
+        built = _build(cfg, cell, arch, resolve_rules(
+            mesh, cfg, cell.mode, batch_size=cell.batch, overrides=ov),
+            hp, unroll)
+    built.comm, built.log = comm, log
+    return built, meta, cfg
 
+
+def _build(cfg, cell, arch, rules, hp, unroll) -> Cell:
+    """The cell's step and arguments, the rank's (its communicator
+    bound)."""
+    batch = input_specs(cfg, cell, rules)
     if cell.mode == "train":
         if hp is None:
             arch_hp = dict(getattr(configs.get(arch), "TRAIN_HPARAMS", {}))
             hp = TrainHParams(remat=True, **arch_hp)
         hp = replace(hp, unroll=unroll)
-        state = abstract_train_state(cfg, hp)
-        built = Cell(make_train_step(cfg, rules, hp), (state, batch))
-    elif cell.mode == "prefill":
-        params = M.abstract_params(cfg)
-
+        state = abstract_train_state(cfg, hp, rules)
+        return Cell(make_train_step(cfg, rules, hp), (state, batch))
+    params = M.abstract_params(cfg, rules)
+    if cell.mode == "prefill":
         def fn(p, b):
             return M.prefill(p, b, cfg, rules, unroll=unroll)
-        built = Cell(fn, (params, batch))
-    else:                                   # decode / long_decode
-        params = M.abstract_params(cfg)
-        cache = M.init_cache(cfg, cell.batch, cell.seq, rules, device="meta")
-        key = "embeddings" if cfg.input_mode == "embeddings" else "tokens"
-        # the newest position: every cache slot is read. Attention reads
-        # the position (rope, the cache write); SSM layers do not
-        reads_pos = any(s.attn in ("full", "swa") for s in cfg.pattern)
-        built = Cell(make_serve_step(cfg, rules, unroll=unroll),
-                     (params, cache, batch[key], cell.seq - 1),
-                     POS_BYTES if reads_pos else 0)
-    return built, meta, cfg
+        return Cell(fn, (params, batch))
+    # decode / long_decode
+    cache = M.init_cache(cfg, cell.batch, cell.seq, rules, device="meta")
+    key = "embeddings" if cfg.input_mode == "embeddings" else "tokens"
+    # the newest position: every cache slot is read. Attention reads the
+    # position (rope, the cache write); SSM layers do not
+    reads_pos = any(s.attn in ("full", "swa") for s in cfg.pattern)
+    return Cell(make_serve_step(cfg, rules, unroll=unroll),
+                (params, cache, batch[key], cell.seq - 1),
+                POS_BYTES if reads_pos else 0)
 
 
 def memory_info(cell: Cell, top: int = 8) -> dict:
@@ -218,8 +278,10 @@ def memory_info(cell: Cell, top: int = 8) -> dict:
     reference's CPU backend reports); ``peak_temp_estimate``: the
     liveness peak of those storages; ``live_bytes`` = resident arguments
     + the liveness peak (in-place outputs were never allocated, so
-    nothing is subtracted), fit against one card's 80 GB; and the largest
-    storages live at the peak."""
+    nothing is subtracted), fit against one card's 80 GB; the largest
+    storages live at the peak; and the rank's collectives
+    (``collectives``: ``Communicator.counters``' calls and bytes of each
+    kind; none on one rank)."""
     args = {storage_key(t): t.untyped_storage().nbytes()
             for t in tensors(cell.args)}
     with LiveMemory() as mem:
@@ -239,8 +301,20 @@ def memory_info(cell: Cell, top: int = 8) -> dict:
         "peak_temp_estimate"]
     rec["fits_hbm_80g"] = bool(rec["live_bytes"] <= HBM_PER_CARD)
     rec["largest_at_peak"] = mem.largest_at_peak(top)
+    rec["collectives"] = log_counters(cell.log)
     del out
     return rec
+
+
+def wire_of(log, n_devices: int) -> dict:
+    """``roofline.collective_wire`` of a ``meta_communicator`` log: each
+    collective's result bytes from the bytes it logged (an all-gather's
+    part times the group, a reduce-scatter's operand over it)."""
+    result = {"all_gather": lambda b, g: b * g,
+              "reduce_scatter": lambda b, g: b / g}
+    return RL.collective_wire(
+        ((kind, result.get(kind, lambda b, g: b)(nbytes, group), group)
+         for kind, nbytes, group in log), n_devices)
 
 
 def cost_info(cell: Cell, n_devices: int = 1) -> dict:
@@ -251,64 +325,69 @@ def cost_info(cell: Cell, n_devices: int = 1) -> dict:
     del out
     return {"flops": cc.flops, "bytes": cc.bytes,
             "kernels": {k: list(v) for k, v in cc.kernels.items()},
-            "wire": RL.collective_wire((), n_devices)}
+            "wire": wire_of(cell.log, n_devices)}
 
 
 def _extrap(v1: float, v2: float, reps: int) -> float:
     return v1 + (reps - 1) * (v2 - v1)
 
 
-def run_cell(arch: str, shape, mesh_kind: str = "single",
+def run_cell(arch: str, shape, mesh="single", rank: int = 0,
              do_roofline: bool = True, hp: TrainHParams | None = None,
              overrides: dict | None = None, tag: str = "",
-             cfg_overrides: dict | None = None) -> dict:
-    """One cell's record: its memory at full depth and, with
-    ``do_roofline``, its cost extrapolated from 1x and 2x the pattern
-    period and the roofline terms. A long_500k cell of a config with pure
-    full attention is skipped, as the reference skips it."""
-    multi = mesh_kind == "multi"
+             cfg_overrides: dict | None = None,
+             collectives=CARD_COLLECTIVES) -> dict:
+    """Rank ``rank``'s record of one cell on ``mesh`` (a ``MESHES`` name
+    or a ``Mesh``): its memory, collectives and their wire bytes
+    (``cost.wire_per_dev``, by kind with counts) at full depth and, with
+    ``do_roofline`` (not on ``multi``, as in the reference), its FLOPs
+    and bytes extrapolated from 1x and 2x the pattern period and the
+    roofline terms. A long_500k cell of a config with pure full attention is
+    skipped, as the reference skips it."""
+    name = _mesh(mesh)[0]
     cell_shape = _shape(shape)
-    rec: dict = {"arch": arch, "shape": cell_shape.name, "mesh": mesh_kind,
-                 "tag": tag, "ok": False}
+    rec: dict = {"arch": arch, "shape": cell_shape.name, "mesh": name,
+                 "rank": rank, "tag": tag, "ok": False}
     if cell_shape.mode == "long_decode" and not configs.long_context_ok(arch):
         rec.update(ok=True, skipped=True,
                    reason="pure full attention: long_500k skipped per "
                           "assignment (see DESIGN.md Arch-applicability)")
         return rec
+    kw = dict(hp=hp, overrides=overrides, cfg_overrides=cfg_overrides,
+              collectives=collectives)
     t0 = time.perf_counter()
-    cell, meta, cfg = build_cell(arch, cell_shape, multi, hp=hp,
-                                 overrides=overrides,
-                                 cfg_overrides=cfg_overrides)
+    cell, meta, cfg = build_cell(arch, cell_shape, mesh, rank, **kw)
     t1 = time.perf_counter()
     rec.update(meta)
     rec["memory"] = memory_info(cell)
     t2 = time.perf_counter()
+    rec["collectives"] = rec["memory"].pop("collectives")
+    # the wire of every collective at full depth: exact, as logged
+    rec["cost"] = {"wire_per_dev": wire_of(cell.log, meta["n_devices"])}
     rec["dryrun_s"] = {"build": t1 - t0, "memory": t2 - t1}
-    print(f"[{arch} x {cell_shape.name} x {mesh_kind}] traced on meta "
+    where = f"{name} rank {meta['rank']} of {meta['n_devices']}"
+    print(f"[{arch} x {cell_shape.name} x {where}] traced on meta "
           f"({t2 - t1:.1f}s); memory:")
     print("  " + json.dumps({k: v for k, v in rec["memory"].items()
                              if k != "largest_at_peak"}))
 
-    if do_roofline:
+    if do_roofline and name != "multi":
         period = cfg.period
         infos = []
         for mult in (1, 2):
-            co, me, _ = build_cell(arch, cell_shape, multi,
-                                   n_layers=mult * period, unroll=True,
-                                   hp=hp, overrides=overrides,
-                                   cfg_overrides=cfg_overrides)
+            co, me, _ = build_cell(arch, cell_shape, mesh, rank,
+                                   n_layers=mult * period, unroll=True, **kw)
             infos.append(cost_info(co, me["n_devices"]))
         reps = cfg.n_layers // period
         flops = _extrap(infos[0]["flops"], infos[1]["flops"], reps)
         nbytes = _extrap(infos[0]["bytes"], infos[1]["bytes"], reps)
-        wire = {k: _extrap(infos[0]["wire"][k], infos[1]["wire"][k], reps)
-                for k in RL.KINDS + ("total",)}
+        wire = rec["cost"]["wire_per_dev"]
         counts = {k: [infos[0]["wire"]["counts"][k],
                       infos[1]["wire"]["counts"][k]]
                   for k in infos[0]["wire"]["counts"]}
         rec["unrolled_cost"] = {"g": infos[0], "2g": infos[1]}
-        rec["cost"] = {"flops_per_dev": flops, "bytes_per_dev": nbytes,
-                       "wire_per_dev": wire, "collective_counts_g_2g": counts}
+        rec["cost"].update(flops_per_dev=flops, bytes_per_dev=nbytes,
+                           collective_counts_g_2g=counts)
         rec["roofline"] = RL.summarize(
             cfg, cell_shape.mode, cell_shape.batch, cell_shape.seq,
             meta["n_devices"], flops, nbytes, wire["total"])
@@ -335,33 +414,36 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
     ap.add_argument("--shape", choices=list(SHAPES))
-    ap.add_argument("--mesh", choices=["single", "multi", "both"],
+    ap.add_argument("--mesh", choices=list(MESHES) + ["both"],
                     default="single")
+    ap.add_argument("--rank", type=int, default=0,
+                    help="the rank of the pod or multi mesh to trace")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--no-roofline", action="store_true")
     ap.add_argument("--out")
     ap.add_argument("--out-dir", default="results/dryrun")
     args = ap.parse_args(argv)
 
-    if args.mesh != "single":
-        raise ValueError(MULTI_POD)
+    meshes = ["pod", "multi"] if args.mesh == "both" else [args.mesh]
     cells = cell_list() if args.all else [(args.arch, args.shape)]
     os.makedirs(args.out_dir, exist_ok=True)
     failures = 0
     for arch, shape in cells:
-        out = args.out or os.path.join(
-            args.out_dir, f"{configs.ALIASES.get(arch, arch)}"
-            f"__{shape}__single.json")
-        try:
-            rec = run_cell(arch, shape, do_roofline=not args.no_roofline)
-        except Exception as e:               # record, keep sweeping
-            failures += 1
-            rec = {"arch": arch, "shape": shape, "mesh": "single",
-                   "ok": False, "error": repr(e),
-                   "traceback": traceback.format_exc()}
-            print(f"[{arch} x {shape} x single] FAILED: {e!r}")
-        with open(out, "w") as f:
-            json.dump(rec, f, indent=1)
+        for mk in meshes:
+            out = args.out or os.path.join(
+                args.out_dir, f"{configs.ALIASES.get(arch, arch)}"
+                f"__{shape}__{mk}.json")
+            try:
+                rec = run_cell(arch, shape, mk, args.rank,
+                               do_roofline=not args.no_roofline)
+            except Exception as e:               # record, keep sweeping
+                failures += 1
+                rec = {"arch": arch, "shape": shape, "mesh": mk,
+                       "rank": args.rank, "ok": False, "error": repr(e),
+                       "traceback": traceback.format_exc()}
+                print(f"[{arch} x {shape} x {mk}] FAILED: {e!r}")
+            with open(out, "w") as f:
+                json.dump(rec, f, indent=1)
     raise SystemExit(1 if failures else 0)
 
 

@@ -9,13 +9,24 @@
 
 ``input_specs`` returns the cell's batch as ``meta`` tensors (shapes and
 dtypes, no storage) in the arch's modality: tokens, EnCodec codebooks or
-precomputed patch embeddings.
+precomputed patch embeddings; with ``rules``, the batch a rank is handed
+(``BATCH_ARGUMENT``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+
+from repro_torch.dist.rules import local_range
+
+#: the batch argument of a rank's step, by mode: the train step is handed
+#: the global batch and deals itself its rows (``train.step``), the serve
+#: step all B rows, of which it decodes its own (``serve.engine``); a
+#: prefill is handed the rank's own rows. The reference's jitted steps
+#: take each the rows' shard.
+BATCH_ARGUMENT = {"train": "global", "prefill": "rank rows",
+                  "decode": "global", "long_decode": "global"}
 
 
 @dataclass(frozen=True)
@@ -52,9 +63,14 @@ def _label_spec(cfg, B, S):
     return _meta((B, S), torch.int32)
 
 
-def input_specs(cfg, cell: ShapeCell) -> dict:
-    """Abstract batch of the cell's step function."""
+def input_specs(cfg, cell: ShapeCell, rules=None) -> dict:
+    """Abstract batch of the cell's step function; with ``rules``, as the
+    rank is handed it (``BATCH_ARGUMENT``: a prefill's rows are the
+    rank's ``act_batch`` range)."""
     B, S = cell.batch, cell.seq
+    if BATCH_ARGUMENT[cell.mode] == "rank rows":
+        b0, b1 = local_range(rules, "act_batch", B)
+        B = b1 - b0
     key = "embeddings" if cfg.input_mode == "embeddings" else "tokens"
     if cell.mode == "train":
         return {key: _tok_spec(cfg, B, S), "labels": _label_spec(cfg, B, S)}

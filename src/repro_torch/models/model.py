@@ -160,14 +160,34 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     return _param_tree(cfg, create_cut)
 
 
-def abstract_params(cfg: ModelConfig):
+def abstract_params(cfg: ModelConfig, rules=None):
     """The parameter tree as ``meta`` tensors of ``cfg.param_dtype``: the
     shapes and dtypes without storage (the reference's
-    ``ShapeDtypeStruct`` tree)."""
+    ``ShapeDtypeStruct`` tree). ``rules`` (a rank of several): the
+    rank's shards, cut as ``init_params(..., rules=)`` cuts them
+    (``rank_shardings``)."""
     pdt = getattr(torch, cfg.param_dtype)
-    return _param_tree(
+    tree = _param_tree(
         cfg, lambda shape, axes, scale, init="normal":
         torch.empty(shape, dtype=pdt, device="meta"))
+    if rules is None or rules.mesh.size == 1:
+        return tree
+
+    def cut(x, sh):
+        if isinstance(x, dict):
+            return {k: cut(v, sh[k]) for k, v in x.items()}
+        return torch.empty(sh.shard_shape(tuple(x.shape)), dtype=pdt,
+                           device="meta")
+
+    return cut(tree, rank_shardings(cfg, rules))
+
+
+def param_shapes(cfg: ModelConfig):
+    """The parameter tree's whole shapes, a ``torch.Size`` a leaf: what
+    the step code reads of ``abstract_params`` with no tensor made (on a
+    dry run's ``meta`` tensors a made tensor would count as memory)."""
+    return _param_tree(
+        cfg, lambda shape, axes, scale, init="normal": torch.Size(shape))
 
 
 def param_logical_specs(cfg: ModelConfig):
@@ -299,7 +319,7 @@ def fsdp_plan(cfg, rules):
     that does not shard ``embed``)."""
     if rules is None or rules.mesh.size == 1:
         return None
-    shapes = abstract_params(cfg)
+    shapes = param_shapes(cfg)
     sh = param_shardings(rules, param_logical_specs(cfg))
     top = fsdp.plan({k: sh[k] for k in ("embed", "lm_head") if k in sh},
                     {k: shapes[k] for k in ("embed", "lm_head")

@@ -61,7 +61,11 @@ Over ``data``:
   the last microbatch. Every gradient is divided once, by
   ``D * microbatches``;
 * the loss and ``moe_dropped_frac`` are the global means, the same on
-  every rank.
+  every rank;
+* on a ``(pod, data, model)`` mesh the batch ranks are ``pod`` x
+  ``data``, pod-major: the deal, the loads', losses' and whole leaves'
+  sums run over both, and an FSDP leaf's gradient, summed over ``data``
+  backward, is summed over ``pod`` after the last microbatch.
 
 Over ``model`` (tensor parallelism): a rank holds its heads, channels,
 experts and vocabulary rows of every leaf the rules split over ``model``
@@ -92,6 +96,7 @@ import numpy as np
 import torch
 
 from repro_torch.dist import fsdp
+from repro_torch.dist.rules import axes_of
 from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
@@ -141,13 +146,14 @@ def _n_moe_with_influence(cfg) -> int:
     return sum(1 for s in cfg.pattern if s.mlp == "moe")
 
 
-def abstract_train_state(cfg, hp: TrainHParams):
+def abstract_train_state(cfg, hp: TrainHParams, rules=None):
     """``init_train_state``'s tree as ``meta`` tensors: shapes and dtypes,
-    no storage."""
+    no storage. ``rules`` (a rank of several): the rank's shards, cut as
+    ``init_train_state(..., rules=)`` cuts them (``state_shardings``)."""
     def meta(shape, dtype):
         return torch.empty(shape, dtype=dtype, device="meta")
 
-    params = M.abstract_params(cfg)
+    params = M.abstract_params(cfg, rules)
     mdt = getattr(torch, _adamw_cfg(cfg, hp).moment_dtype)
     state = {"params": params,
              "opt": {"mu": tree_map(lambda p: meta(p.shape, mdt), params),
@@ -231,35 +237,46 @@ def _compress(g, ef, kind: str, step: int, layout=None):
 class _Layout:
     """Where a rank's state is split, leaf by leaf in ``tree_leaves``
     order of the parameters: each leaf's sharding (``rank_shardings``)
-    and whole shape, whether it is split at all (``split``) and over
-    ``data`` (``data_split``: its gradient's sum over the data ranks came
-    backward through ``dist.fsdp``), whether this rank counts its shard
-    in a sum over the mesh (``counted``: the rank sits at coordinate 0 of
-    every axis the leaf is held whole over), the data axis's communicator
-    (``data``, None on one data rank) and the whole mesh's (``comm``)."""
+    and whole shape, whether it is split at all (``split``), whether
+    this rank counts its shard in a sum over the mesh (``counted``: the
+    rank sits at coordinate 0 of every axis the leaf is held whole
+    over), the communicator that sums its gradient over the batch axes
+    it is held whole over (``reduce``: every batch axis for a leaf held
+    whole over ``data``; ``pod`` alone for an FSDP leaf, whose sum over
+    ``data`` came backward through ``dist.fsdp``; None where nothing is
+    left), the batch axes' communicator (``data``, None on one batch
+    rank) and the whole mesh's (``comm``)."""
 
     def __init__(self, cfg, rules):
         mesh = rules.mesh
         self.shardings = tree_leaves(M.rank_shardings(cfg, rules))
-        self.shapes = [tuple(x.shape)
-                       for x in tree_leaves(M.abstract_params(cfg))]
-        axes = [{axis for _, axis in sh.split_dims(shape)}
+        self.shapes = [tuple(x) for x in tree_leaves(M.param_shapes(cfg))]
+        axes = [{name for _, axis in sh.split_dims(shape)
+                 for name in axes_of(axis)}
                 for sh, shape in zip(self.shardings, self.shapes)]
         at = {name: mesh.coordinate(name) for name in mesh.axis_names}
         self.split = [bool(a) for a in axes]
-        self.data_split = ["data" in a for a in axes]
         self.counted = [all(at[name] == 0 for name in mesh.axis_names
                             if name not in a) for a in axes]
+        batch = _batch_axes(mesh)
+        self.reduce = [mesh.axis_comm(tuple(n for n in batch if n not in a))
+                       for a in axes]
         self.data = _data_comm(rules)
         self.comm = mesh.comm
 
 
+def _batch_axes(mesh) -> tuple:
+    """The mesh's data-parallel axes: ``pod`` and ``data``, those it has."""
+    return tuple(n for n in ("pod", "data") if n in mesh.axis_names)
+
+
 def _data_comm(rules):
-    """The data axis's communicator of ``rules``' mesh, None on one data
-    rank (whatever the model axis' extent)."""
+    """The communicator over the batch axes of ``rules``' mesh (``data``,
+    with ``pod`` before it on a multi-pod mesh), None on one batch rank
+    (whatever the model axis' extent)."""
     if rules is None or rules.mesh.size == 1:
         return None
-    return rules.mesh.axis_comm("data")
+    return rules.mesh.axis_comm(_batch_axes(rules.mesh))
 
 
 def state_shardings(cfg, rules, hp: TrainHParams):
@@ -350,7 +367,7 @@ def make_train_step(cfg, rules=None, hp: TrainHParams = TrainHParams()):
         deal = comm is not None and rules.extent("act_batch") > 1 \
             and (B // mbs) % D == 0
         rows = B // mbs // D if deal else B // mbs
-        d = rules.mesh.coordinate("data") if deal else 0
+        d = rules.mesh.coordinate(_batch_axes(rules.mesh)) if deal else 0
         acc = [None] * len(leaves)      # leaves whose dtype is not acc_dt
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         drop_sum = torch.zeros((), dtype=torch.float32, device=dev)
@@ -390,8 +407,9 @@ def make_train_step(cfg, rules=None, hp: TrainHParams = TrainHParams()):
             g = p.grad if a is None else a
             if g is None:       # not reached by the loss: jax.grad's zeros
                 g = torch.zeros(p.shape, dtype=acc_dt, device=p.device)
-            elif comm is not None and not layout.data_split[j]:
-                g = comm.all_reduce(g)      # a shard's sum came backward
+            elif layout is not None and layout.reduce[j] is not None:
+                # a shard's sum over data came backward
+                g = layout.reduce[j].all_reduce(g)
             if mbs * D > 1:
                 g.div_(mbs * D)
             grads.append(g)

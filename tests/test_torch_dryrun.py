@@ -305,15 +305,6 @@ def test_long_context_skipped_as_the_reference_skips():
     assert rec["ok"] and rec["skipped"]
 
 
-def test_multi_mesh_names_the_roadmap_item():
-    """The production mesh over ranks (the pod's (data, model) = 16 x 16)
-    needs the model axis, ROADMAP.md queue 1 item 4.10."""
-    with pytest.raises(ValueError, match="queue 1 item 4.10"):
-        D.run_cell("gemma3_1b", "decode_32k", "multi")
-    with pytest.raises(ValueError, match="queue 1 item 4.10"):
-        D.main(["--all", "--mesh", "multi", "--no-roofline"])
-
-
 def test_main_writes_a_record(tmp_path):
     with pytest.raises(SystemExit) as e:
         D.main(["--arch", "gemma3-1b", "--shape", "decode_32k",

@@ -2,8 +2,11 @@
 longest: jamba on ``(1, 2)``, granite and jamba on ``(2, 2)`` (rows over
 ``data`` with FSDP of the ``embed`` leaves, heads, channels, experts and
 the vocabulary over ``model``) against the reference's jitted step on
-``make_host_mesh``, and int8 compression on ``(2, 2)`` against the
-port's one rank.
+``make_host_mesh``, granite on the ``(pod, data, model)`` = ``(2, 2, 2)``
+mesh (each microbatch's rows dealt over ``pod`` x ``data``, pod-major;
+the FSDP leaves' gradients summed over ``pod`` too) against the
+reference's on the same mesh, and int8 compression on ``(2, 2)`` against
+the port's one rank.
 
 Set-up and tolerances: tests/train_model_cases.py.
 """
@@ -20,15 +23,17 @@ from train_model_cases import (GRANITE, HP, JAMBA, assert_ranks_agree,
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("arch,mesh", [(JAMBA, (1, 2)), (GRANITE, (2, 2)),
-                                       (JAMBA, (2, 2))],
-                         ids=["jamba-1x2", "granite-2x2", "jamba-2x2"])
-def test_step_matches_reference_on_the_mesh(arch, mesh):
+@pytest.mark.parametrize("arch,mesh,micro", [
+    (JAMBA, (1, 2), 2), (GRANITE, (2, 2), 2), (JAMBA, (2, 2), 2),
+    (GRANITE, (2, 2, 2), 1)],
+    ids=["jamba-1x2", "granite-2x2", "jamba-2x2", "granite-2x2x2"])
+def test_step_matches_reference_on_the_mesh(arch, mesh, micro):
     """The port's step on the ranks of ``mesh`` against the reference's
-    step on the same host mesh: batch 4 x 32 in 2 microbatches, three
-    steps, held after the first (lr 0) and the third; every rank's
+    step on the same host mesh: batch 4 x 32 in ``micro`` microbatches
+    (one on ``(2, 2, 2)``, whose four batch ranks then take a row each),
+    three steps, held after the first (lr 0) and the third; every rank's
     metrics and whole state the same bits."""
-    hp = dict(HP, microbatches=2)
+    hp = dict(HP, microbatches=micro)
     rstate_np, pcfg, want, batches = reference(arch, hp, mesh)
     got = port_steps(rstate_np, pcfg, TrainHParams(**hp), batches, mesh)
     assert_ranks_agree(got)

@@ -24,7 +24,7 @@ import torch
 from repro import configs as ref_configs
 from repro.data.pipeline import SyntheticLM as RefSyntheticLM
 from repro.dist.rules import resolve_rules as ref_resolve_rules
-from repro.launch.mesh import make_host_mesh as ref_host_mesh
+from repro.launch.mesh import make_compat_mesh as ref_compat_mesh
 from repro.train import TrainHParams as RTrainHParams
 from repro.train import init_train_state as ref_init_train_state
 from repro.train import make_train_step as ref_make_train_step
@@ -33,7 +33,7 @@ from repro_torch.convert import train_state_from_numpy
 from repro_torch.dist import launch
 from repro_torch.dist.comm import current
 from repro_torch.dist.rules import resolve_rules
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.train import make_train_step
 from repro_torch.train import step as STEP
@@ -82,13 +82,20 @@ def assert_tree(got, want, **tol):
                                    err_msg=jax.tree_util.keystr(path))
 
 
+def axes(mesh):
+    """The axis names of a ``(data, model)`` or ``(pod, data, model)``
+    mesh shape."""
+    return ("data", "model") if len(mesh) == 2 else ("pod", "data", "model")
+
+
 def rules_for(pcfg, mesh, batch=B):
-    return resolve_rules(make_host_mesh(*mesh, device=CPU), pcfg, "train",
-                         batch_size=batch)
+    return resolve_rules(make_mesh(mesh, axes(mesh), device=CPU), pcfg,
+                         "train", batch_size=batch)
 
 
 def reference(arch, hp, mesh, steps=3, keep=(0, 2)):
-    """The reference's jitted step on ``make_host_mesh(*mesh)``: (its
+    """The reference's jitted step on the host mesh of ``mesh``'s shape
+    (``make_host_mesh``'s ``(data, model)``, or ``(pod, data, model)``): (its
     state as numpy, the SMOKE configs, its metrics and states after the
     steps in ``keep``, the batches); no step runs when ``keep`` is
     empty."""
@@ -97,8 +104,8 @@ def reference(arch, hp, mesh, steps=3, keep=(0, 2)):
     rhp = RTrainHParams(**hp)
     rstate = ref_init_train_state(rcfg, jax.random.PRNGKey(0), rhp)
     rstate_np = jax.tree.map(np.asarray, rstate)
-    rules = ref_resolve_rules(ref_host_mesh(*mesh), rcfg, "train",
-                              batch_size=B)
+    rules = ref_resolve_rules(ref_compat_mesh(tuple(mesh), axes(mesh)),
+                              rcfg, "train", batch_size=B)
     rstep = jax.jit(ref_make_train_step(rcfg, rules, rhp))
     batches = list(itertools.islice(iter(RefSyntheticLM(rcfg, batch=B,
                                                         seq=SEQ)), steps))
@@ -130,7 +137,7 @@ def port_steps(rstate_np, pcfg, php, batches, mesh, keep=(0, 2)):
                                           whole)))
         return kept
 
-    n = mesh[0] * mesh[1]
+    n = int(np.prod(mesh))
     return [run()] if n == 1 else ranks(run, n)
 
 
