@@ -35,8 +35,8 @@ evaluated over four ranks in one launch, every row gated), then serves
 granite-moe-3b-a800m at full width through ``ServeEngine.run`` and through
 ``prefill`` -> ``extend_cache`` -> ``decode_step`` at a 4096-token prompt
 (the paths of the MoE-router kernel and of the bf16 tensor-core
-flash-attention kernel; the float32 CUDA-core flash kernel is held and
-timed beside it), serves the dense decoder family and the SSM configs at published widths
+flash-attention kernel) and prefills it again with float32 activations
+(the path of the float32 CUDA-core flash kernel), serves the dense decoder family and the SSM configs at published widths
 (phi3-mini, phi4-mini, starcoder2, gemma3, musicgen, internvl2, llama4,
 jamba and rwkv6; internvl2, llama4 and jamba cut in depth to fit the card)
 through the same entry points, with launch counts per layer kind,
@@ -115,6 +115,13 @@ BF16_FLIP_MAX, BF16_GAP_MAX = 0.05, 2.0 ** -6
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ROUTER_TOL = 1e-4
 LM_BF16_TOL = 5e-2
+# prefill (flash) against 4,096 one-token decode steps (dense attention)
+# with float32 activations: the two attentions differ only in the order of
+# float32 sums (~1e-6 of an output), which the layer and the head carry
+# into the logits; 1e-3 absolute and relative leaves them two orders of
+# magnitude
+LM_F32_TOL = 1e-3
+LM_TOL = {"bfloat16": LM_BF16_TOL, "float32": LM_F32_TOL}
 
 # the load-balance time series on the main cell's points (T steps), and
 # the full configuration of benchmarks/repartition.py: (family, n, k,
@@ -240,7 +247,23 @@ def phase_build(torch, ctx):
     libs = build_libraries()
     log("build", f"{len(libs)} libraries in {time.perf_counter() - t0:.1f} s"
         " (one nvcc per source, started together)")
+    log_build(libs)
+
+
+def log_build(libs):
+    """What ptxas said of each library's kernels: registers and spills;
+    for the float32 flash kernel, each head-dim instance's."""
     for lib in libs.values():
+        if lib.name == "flash_attention":
+            for block in lib.ptxas_log.split("Compiling entry function")[1:]:
+                dh = re.search(r"flash_fwd_kernelILi(\d+)E", block)
+                regs = re.search(r"Used (\d+) registers", block)
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", block)
+                if dh and regs and spill:
+                    log("build", f"flash_attention.cu dh {dh.group(1)}: "
+                        f"{regs.group(1)} registers, {spill.group(1)} bytes "
+                        f"spill stores, {spill.group(2)} bytes spill loads")
         text = lib.ptxas_log
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
         spills = re.findall(r"Function properties for (\S+)\s+"
@@ -944,6 +967,10 @@ def phase_lm_kernels(torch):
     # path's shape, where the outputs average thousands of values down to
     # a few hundredths, and tests/test_kernels_flash_router.py's cases
     compare_flash(torch, 1, PREFILL_S, H, KV, hd, torch.float32)
+    # the float32 prefill's ragged S = 4100 and trainer_dp's microbatch
+    # (2 x 4096) at granite's heads
+    compare_flash(torch, 1, PREFILL_S + 4, H, KV, hd, torch.float32)
+    compare_flash(torch, MB, TRAIN_S, H, KV, hd, torch.float32)
     for B, S, h, kv, dh, bq, bk, cap in (
             (2, 256, 4, 4, 32, 128, 128, 0.0),
             (1, 512, 8, 2, 64, 256, 128, 0.0),
@@ -2924,8 +2951,9 @@ def phase_prefill(torch, ctx):
     # counter not named here is 0)
     wall, counts = lm_counts_after(torch, ctx, "prefill", {
         "flash_attention_tc": cfg.n_layers, "router_topk": cfg.n_layers}, t0,
-        record=("flash_attention_tc", "flash_attention"))   # the router's
-    # line reads serve's launches
+        record=("flash_attention_tc",))   # the router's line reads serve's
+    # launches, the float32 kernel's prefill_f32's
+    keep_path(ctx, "prefill", counts)
     keep_peak(torch, ctx, "prefill", "granite_moe_3b_a800m", PREFILL_CELL,
               ctx["lm_base"])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2956,9 +2984,64 @@ def phase_prefill(torch, ctx):
         f"{counts['router_topk']}, peak memory {peak:.2f} GiB; "
         f"{PREFILL_NEW} decode steps after it {dec:.3f} s, tokens {out}  "
         f"[{ctx['card']}]")
+    del logits, cache
+    prefill_f32(torch, ctx, cfg, params, toks)
     del ctx["lm_params"]
     torch.cuda.empty_cache()
     prefill_agreement(torch, cfg, params)
+    prefill_agreement(torch, cfg, params, dtype="float32")
+
+
+def prefill_f32(torch, ctx, cfg, params, toks):
+    """granite's prefill with float32 activations (``cfg.dtype =
+    "float32"``), full width and depth, B=1, on the phase's parameters and
+    tokens: flash through the CUDA-core kernel once a layer, the
+    tensor-core kernel never (counted from 0). Its logits must be finite;
+    prints its wall s, peak GiB and, from one profiled call, the float32
+    flash kernel's share of the device time."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.ops import reset_launch_counts
+    from repro_torch.models import model as M
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, _ = M.prefill(params, {"tokens": toks}, cfg32)
+    wall, counts = lm_counts_after(torch, ctx, "prefill_f32", {
+        "flash_attention": cfg.n_layers, "router_topk": cfg.n_layers}, t0,
+        record=("flash_attention",))
+    keep_path(ctx, "prefill_f32", counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(logits.shape == (1, 1, cfg.vocab_padded) and
+          logits.dtype == torch.float32 and
+          bool(torch.isfinite(logits).all()),
+          "prefill_f32: logits not finite, or of the wrong shape or type")
+    del logits
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        M.prefill(params, {"tokens": toks}, cfg32)
+        torch.cuda.synchronize()
+        again = time.perf_counter() - t1
+    rows, device_s = device_rows(prof)
+    flash = [r for r in rows if "flash_fwd_kernel<" in r[2]]
+    check(sum(r[1] for r in flash) == cfg.n_layers,
+          f"prefill_f32 profile: {sum(r[1] for r in flash)} float32 flash "
+          f"kernels on the device, expected {cfg.n_layers}")
+    flash_s = sum(r[0] for r in flash) / 1e6
+    log("prefill", f"{cfg.name} float32 B=1 S={PREFILL_S}: prefill "
+        f"{wall:.3f} s, flash launches: CUDA cores "
+        f"{counts['flash_attention']}, tensor cores "
+        f"{counts['flash_attention_tc']}; router launches "
+        f"{counts['router_topk']}, peak memory {peak:.2f} GiB; one profiled "
+        f"call {again:.3f} s, device busy {device_s:.3f} s = "
+        f"{device_s / again:.1%} of it, the float32 flash kernel "
+        f"{flash_s * 1e3:.2f} ms ({flash_s * 1e3 / cfg.n_layers:.4f} ms a "
+        f"layer) = {flash_s / device_s:.1%} of the device time  "
+        f"[{ctx['card']}]")
+    log_rows("prefill", rows, n=8)
 
 
 def greedy(torch, logits, cfg):
@@ -2967,7 +3050,8 @@ def greedy(torch, logits, cfg):
     return torch.argmax(lf, dim=-1).to(torch.int32)
 
 
-def prefill_agreement(torch, cfg, params, depth=1, tag="prefill", first=0):
+def prefill_agreement(torch, cfg, params, depth=1, tag="prefill", first=0,
+                      dtype=None):
     """``depth`` layers at full width (a depth below one pattern period
     keeps the period's positions from ``first`` on), S = 4096: prefill
     (flash kernel in
@@ -2978,12 +3062,15 @@ def prefill_agreement(torch, cfg, params, depth=1, tag="prefill", first=0):
     own decode-vs-forward test: a full-sequence MoE drops tokens at
     capacity, a one-token step never does. Prefill's last logits, and the
     logits of the steps after it fed the same tokens, agree within the
-    bf16 tolerance, and the 8 greedy tokens are equal."""
+    tolerance of the activations' type (``dtype``, default the
+    config's: ``LM_TOL``), and the 8 greedy tokens are equal."""
     import dataclasses
     import numpy as np
     from repro_torch.models import model as M
     pattern = cfg.pattern[first:first + min(depth, cfg.period)]
-    cfg2 = dataclasses.replace(cfg, n_layers=depth, pattern=pattern)
+    cfg2 = dataclasses.replace(cfg, n_layers=depth, pattern=pattern,
+                               dtype=dtype or cfg.dtype)
+    tol = LM_TOL[cfg2.dtype]
     if cfg.moe is not None:
         cfg2 = dataclasses.replace(cfg2, moe=dataclasses.replace(
             cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
@@ -3004,28 +3091,28 @@ def prefill_agreement(torch, cfg, params, depth=1, tag="prefill", first=0):
                                     t, cfg2)
     torch.cuda.synchronize()
     errs = [float(torch.max(torch.abs(lp.float() - ld.float())))]
-    check(torch.allclose(lp.float(), ld.float(), rtol=LM_BF16_TOL,
-                         atol=LM_BF16_TOL),
-          f"prefill vs stepwise decode: last logits differ ({errs[0]:.3g})")
+    check(torch.allclose(lp.float(), ld.float(), rtol=tol, atol=tol),
+          f"prefill vs stepwise decode ({cfg2.dtype}): last logits differ "
+          f"({errs[0]:.3g})")
     for t in range(8):
         a, b = greedy(torch, lp, cfg2), greedy(torch, ld, cfg2)
-        check(torch.equal(a, b), f"prefill vs stepwise decode: greedy token "
-              f"{t} differs ({int(a)} vs {int(b)})")
+        check(torch.equal(a, b), f"prefill vs stepwise decode "
+              f"({cfg2.dtype}): greedy token {t} differs ({int(a)} vs "
+              f"{int(b)})")
         lp, cache_p = M.decode_step(p2, cache_p, {"tokens": b},
                                     PREFILL_S + t, cfg2)
         ld, cache_d = M.decode_step(p2, cache_d, {"tokens": b},
                                     PREFILL_S + t, cfg2)
         errs.append(float(torch.max(torch.abs(lp.float() - ld.float()))))
-        check(torch.allclose(lp.float(), ld.float(), rtol=LM_BF16_TOL,
-                             atol=LM_BF16_TOL),
-              f"prefill vs stepwise decode: step {t} logits differ "
-              f"({errs[-1]:.3g})")
-    log(tag, f"{cfg.name} agreement at depth {depth} (pattern positions "
-        f"{first}-{first + len(pattern) - 1}), full width, "
+        check(torch.allclose(lp.float(), ld.float(), rtol=tol, atol=tol),
+              f"prefill vs stepwise decode ({cfg2.dtype}): step {t} logits "
+              f"differ ({errs[-1]:.3g})")
+    log(tag, f"{cfg.name} {cfg2.dtype} agreement at depth {depth} (pattern "
+        f"positions {first}-{first + len(pattern) - 1}), full width, "
         f"S={PREFILL_S}: "
         f"prefill vs {PREFILL_S} one-token steps, max |logit err| "
         f"{max(errs):.3g} over the last prompt position and 8 steps after "
-        f"(tolerance {LM_BF16_TOL}); the 8 greedy tokens equal; "
+        f"(tolerance {tol}); the 8 greedy tokens equal; "
         f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -5333,50 +5420,58 @@ def time_flash(torch, ctx, cfg):
     time_flash_shapes(torch, ctx)
 
 
-# the tensor-core flash kernel at the other archs' prefill shapes (B, S, H,
-# KV, dh): phi3 (dh 96), gemma3's global layers (dh 256, MQA) and jamba's
-# attention layer (64:8 heads, dh 128)
+# both flash kernels at the other archs' prefill shapes (B, S, H, KV, dh):
+# phi3 (dh 96), gemma3's global layers (dh 256, MQA) and jamba's attention
+# layer (64:8 heads, dh 128)
 FLASH_ARCH_SHAPES = {"phi3_mini_3p8b": PHI3_FLASH,
                      "gemma3_1b": (1, PREFILL_S, 4, 1, 256),
                      "jamba_1p5_large_398b": (1, PREFILL_S, 64, 8, 128)}
 
 
 def time_flash_shapes(torch, ctx):
-    """The tensor-core kernel against SDPA on the same inputs at each shape
-    of FLASH_ARCH_SHAPES, in turns (kernel, SDPA, SDPA, kernel), with its
-    bound and its error against the plain version; kept under the kernel
-    record's ``by_shape``."""
-    from repro_torch.kernels.flash_attention import (flash_attention_plain,
+    """Each flash kernel against SDPA on the same inputs at each shape of
+    FLASH_ARCH_SHAPES: the tensor-core kernel in bf16, then the CUDA-core
+    kernel on the same inputs in float32, each in turns (kernel, SDPA,
+    SDPA, kernel), with its bound and its error against the plain version;
+    kept under each kernel record's ``by_shape``."""
+    from repro_torch.kernels.flash_attention import (flash_attention_f32,
+                                                     flash_attention_plain,
                                                      flash_attention_tc)
     from repro_torch.kernels.ref import row_relative_error
-    rec = ctx["kernels"].setdefault("flash_attention_tc", {})
     for arch, (B, S, H, KV, dh) in FLASH_ARCH_SHAPES.items():
         q, k, v = flash_inputs(torch, B, S, H, KV, dh, torch.bfloat16, 6)
-        runs = {"kernel": lambda: flash_attention_tc(q, k, v),
-                "sdpa": lambda: sdpa(torch, q, k, v)}
-        times = {name: [] for name in runs}
-        for name in ("kernel", "sdpa", "sdpa", "kernel"):
-            times[name].append(time_ms(torch, runs[name], iters=20))
-        got, want = runs["kernel"](), flash_attention_plain(q, k, v)
-        err = float(torch.max(torch.abs(got.float() - want.float())))
-        rel = row_relative_error(got, want)
-        ms = sum(times["kernel"]) / 2
-        lib = sum(times["sdpa"]) / 2
         flops = 4 * dh * H * S * (S + 1) // 2 * B
-        bnd, by = larger_bound(flops / PEAK_BF16_FLOPS,
-                               2 * B * S * dh * (2 * H + 2 * KV))
-        rec.setdefault("by_shape", []).append(
-            {"arch": arch, "shape": [B, S, H, KV, dh], "ms": ms,
-             "library_ms": lib, "bound_ms": bnd, "bound_by": by,
-             "max_abs_err": err})
-        log("timing", f"flash_attention_tc at {arch}'s prefill B={B} S={S} "
-            f"H={H} KV={KV} dh={dh} bf16: kernel {ms:.4f} ms (runs "
-            f"{', '.join(f'{t:.4f}' for t in times['kernel'])}), SDPA "
-            f"{lib:.4f} ms (runs "
-            f"{', '.join(f'{t:.4f}' for t in times['sdpa'])}), max |err| "
-            f"{err:.3g}, per-row relative {rel:.3g}, bound {bnd:.4f} ms "
-            f"({by}) = {bnd / ms:.1%} of the kernel's time, "
-            f"{flops / ms / 1e9:.1f} TFLOP/s  [{ctx['card']}]")
+        for name, kern, ins, peak, width, iters in (
+                ("flash_attention_tc", flash_attention_tc, (q, k, v),
+                 PEAK_BF16_FLOPS, 2, 20),
+                ("flash_attention", flash_attention_f32,
+                 tuple(t.float() for t in (q, k, v)), PEAK_F32_FLOPS, 4, 5)):
+            runs = {"kernel": lambda: kern(*ins),
+                    "sdpa": lambda: sdpa(torch, *ins)}
+            times = {run: [] for run in runs}
+            for run in ("kernel", "sdpa", "sdpa", "kernel"):
+                times[run].append(time_ms(torch, runs[run], iters=iters))
+            got, want = runs["kernel"](), flash_attention_plain(*ins)
+            err = float(torch.max(torch.abs(got.float() - want.float())))
+            rel = row_relative_error(got, want)
+            ms = sum(times["kernel"]) / 2
+            lib = sum(times["sdpa"]) / 2
+            bnd, by = larger_bound(flops / peak,
+                                   width * B * S * dh * (2 * H + 2 * KV))
+            ctx["kernels"].setdefault(name, {}).setdefault(
+                "by_shape", []).append(
+                {"arch": arch, "shape": [B, S, H, KV, dh], "ms": ms,
+                 "library_ms": lib, "bound_ms": bnd, "bound_by": by,
+                 "max_abs_err": err})
+            log("timing", f"{name} at {arch}'s prefill B={B} S={S} H={H} "
+                f"KV={KV} dh={dh} {str(ins[0].dtype).rsplit('.', 1)[-1]}: "
+                f"kernel {ms:.4f} ms (runs "
+                f"{', '.join(f'{t:.4f}' for t in times['kernel'])}), SDPA "
+                f"{lib:.4f} ms (runs "
+                f"{', '.join(f'{t:.4f}' for t in times['sdpa'])}), max "
+                f"|err| {err:.3g}, per-row relative {rel:.3g}, bound "
+                f"{bnd:.4f} ms ({by}) = {bnd / ms:.1%} of the kernel's "
+                f"time, {flops / ms / 1e9:.1f} TFLOP/s  [{ctx['card']}]")
 
 
 # ---------------------------------------------------------------------------
@@ -5594,7 +5689,7 @@ KERNEL_META = {
     # bf16, the prefill's: tensor cores
     "flash_attention_tc": ("flash_attention_tc.cu",
                            "src/repro/kernels/flash_attention.py:93"),
-    # float32: CUDA cores (checks only, no user path)
+    # float32: CUDA cores (the float32 prefill's)
     "flash_attention": ("flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:93"),
 }

@@ -20,8 +20,9 @@ softmax weights to bfloat16 before the PV product (as the model's own
 dense path below ``FLASH_S_MIN`` does); the float32 kernel and the plain
 version keep them in float32. The kernels take head dims ``HEAD_DIMS``
 and raise ``UnsupportedHeadDimError`` for others; the plain version takes
-any. The bfloat16 kernel's copy engine also needs 16-byte-aligned base
-pointers and batch/seq/head strides (``check_kernel_inputs``).
+any. Both kernels read 16 bytes at a time, so they also need
+16-byte-aligned base pointers and batch/seq/head strides
+(``check_kernel_inputs``).
 
 Dispatch (``kernel_for``), by device and dtype alone: a CPU tensor goes to
 the plain version; on the card a bfloat16 tensor to the tensor-core
@@ -108,8 +109,9 @@ def kernel_for(device_type: str, dtype: torch.dtype) -> str:
 
 def tma_strides(t) -> tuple[int, int, int]:
     """Batch, seq and head strides (elements) of ``t [B, S, heads, dh]``
-    as the tensor-core kernel's tensor maps take them: a dim of size 1 is
-    never stepped over, so its stride is replaced by the packed one."""
+    as both kernels take them (the tensor-core kernel's tensor maps, the
+    float32 kernel's loads): a dim of size 1 is never stepped over, so its
+    stride is replaced by the packed one."""
     B, S, n, dh = t.shape
     sb, ss, sh = t.stride()[:3]
     sh = sh if n > 1 else dh
@@ -144,16 +146,17 @@ def check_kernel_inputs(q, k, v) -> None:
         if t.stride(3) != 1:
             raise ValueError("flash_attention_cuda: the head dim must be "
                              "contiguous")
-    if q.dtype == torch.bfloat16:
-        # the copy engine reads from 16-byte boundaries in 16-byte steps
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"flash_attention_cuda: {name} does not "
-                                 "start on a 16-byte boundary")
-            if any(st % 8 for st in tma_strides(t)):
-                raise ValueError(
-                    f"flash_attention_cuda: {name}'s batch/seq/head strides "
-                    f"{tuple(t.stride()[:3])} are not multiples of 16 bytes")
+    # both kernels read from 16-byte boundaries in 16-byte steps: the
+    # bfloat16 kernel's copy engine, the float32 kernel's vector loads
+    width = q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_cuda: {name} does not start "
+                             "on a 16-byte boundary")
+        if any(st * width % 16 for st in tma_strides(t)):
+            raise ValueError(
+                f"flash_attention_cuda: {name}'s batch/seq/head strides "
+                f"{tuple(t.stride()[:3])} are not multiples of 16 bytes")
 
 
 def _launch(library, entry, q, k, v, softcap):

@@ -175,12 +175,46 @@ def test_bf16_kernel_takes_aligned_strided_views():
 def test_bf16_kernel_refuses_misaligned_inputs(width, offset, match):
     """The tensor-core kernel's copy engine reads from 16-byte boundaries
     in 16-byte steps: a bf16 view that breaks either raises, while the
-    float32 kernel (plain loads) takes the same layout."""
+    float32 kernel takes the same layout (a seq stride of 164 floats is
+    656 bytes, a multiple of 16)."""
     q, k, v = _fused(torch.bfloat16, width, offset)
     with pytest.raises(ValueError, match=match):
         fa.check_kernel_inputs(q, k, v)
     if offset == 0:
         fa.check_kernel_inputs(*_fused(torch.float32, width))
+
+
+@pytest.mark.parametrize("width", [160, 164, 168])
+def test_f32_kernel_takes_aligned_strided_views(width):
+    """The float32 kernel's 16-byte loads: fused-projection views whose
+    base and batch/seq/head strides are multiples of 16 bytes pass."""
+    q, k, v = _fused(torch.float32, width)
+    assert not q.is_contiguous()
+    fa.check_kernel_inputs(q, k, v)
+
+
+@pytest.mark.parametrize("width,offset,match", [
+    (162, 0, "multiples of 16 bytes"),     # seq stride 648 bytes
+    (166, 0, "multiples of 16 bytes"),     # seq stride 664 bytes
+    (160, 2, "16-byte boundary"),          # base 8 bytes past a boundary
+    (160, 1, "16-byte boundary"),          # base 4 bytes past a boundary
+])
+def test_f32_kernel_refuses_misaligned_inputs(width, offset, match):
+    """The float32 kernel reads q, k and v 16 bytes at a time from 16-byte
+    boundaries: a float32 view that breaks either raises (nothing falls
+    back), in the same words as the bf16 rule."""
+    q, k, v = _fused(torch.float32, width, offset)
+    with pytest.raises(ValueError, match=match):
+        fa.check_kernel_inputs(q, k, v)
+
+
+def test_f32_kernel_refuses_a_misaligned_head_stride():
+    """A head stride of 18 floats (72 bytes): each head's row starts off a
+    16-byte boundary."""
+    buf = torch.zeros(1, 64, 4 * 18)
+    q = buf.unflatten(2, (4, 18))[..., :16]
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        fa.check_kernel_inputs(q, q, q)
 
 
 def test_tma_strides_ignore_size_one_dims():
